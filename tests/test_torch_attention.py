@@ -1,0 +1,124 @@
+"""The port's flash attention against the JAX package's Pallas kernel.
+
+On the CPU the port's wrapper computes the plain version
+(``flash_attention_reference``); here it is held against the JAX kernel
+run in interpret mode on the same numpy inputs, at tiny grids (the JAX
+kernel's own tests are marked slow for interpret-mode cost). The CUDA
+kernel itself is compared with the plain version on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``."""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from torchsnapshot_tpu.ops import attention as jattn
+from torchsnapshot_tpu_torch.ops import attention as tattn
+
+# The tolerance tests/test_flash_attention.py holds the kernel to against
+# its einsum spec: both sides accumulate in f32, in different orders.
+F32_TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+def _qkv(b, hq, hkv, s, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_flash(q, k, v, causal, with_lse=False):
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    if with_lse:
+        out, lse = jattn.flash_chunk_attention(*args, causal, 32, 32, True)
+        return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+    out = jattn.flash_attention(*args, causal=causal, block_q=32, block_k=32, interpret=True)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_plain_version_matches_jax_kernel(causal, heads):
+    hq, hkv = heads
+    q, k, v = _qkv(1, hq, hkv, 64, 16, seed=hq + causal)
+    expected_out, expected_lse = _jax_flash(q, k, v, causal, with_lse=True)
+    out, lse = tattn.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal
+    )
+    assert out.dtype == torch.float32 and lse.shape == (1, hq, 64, 1)
+    np.testing.assert_allclose(out.numpy(), expected_out, **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), expected_lse, **F32_TOL)
+
+
+def test_plain_version_matches_jax_kernel_bf16():
+    q, k, v = (x.astype(ml_dtypes.bfloat16) for x in _qkv(1, 2, 2, 64, 16, seed=7))
+    expected = _jax_flash(q, k, v, causal=True)
+
+    def bf16(x):
+        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
+
+    out, _ = tattn.flash_attention_reference(bf16(q), bf16(k), bf16(v), True)
+    assert out.dtype == torch.bfloat16
+    # Both round the same f32 result to bf16; f32 sums in different orders
+    # may round to neighbouring bf16 values: one bf16 ulp (2^-8 relative).
+    np.testing.assert_allclose(out.float().numpy(), expected, atol=1e-2, rtol=8e-3)
+
+
+def test_wrapper_on_cpu_uses_plain_version_without_launching(monkeypatch):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 4, 2, 48, 8, seed=3))
+    monkeypatch.setattr(tattn, "flash_forward_launches", 0)
+    out = tattn.flash_attention(q, k, v, causal=True)
+    out2, lse = tattn.flash_attention_with_lse(q, k, v, causal=True)
+    ref, ref_lse = tattn.flash_attention_reference(q, k, v, True)
+    assert torch.equal(out, ref) and torch.equal(out2, ref) and torch.equal(lse, ref_lse)
+    assert tattn.flash_forward_launches == 0
+
+
+@pytest.mark.parametrize("seq_len", [3, 4, 12, 20, 8, 24, 1000, 1024, 2048, 4096])
+def test_resolve_flash_block_matches_jax(seq_len):
+    try:
+        expected = jattn.resolve_flash_block(seq_len)
+    except ValueError:
+        with pytest.raises(ValueError, match="power-of-two factor"):
+            tattn.resolve_flash_block(seq_len)
+    else:
+        assert tattn.resolve_flash_block(seq_len) == expected
+
+
+def test_backward_raises_not_implemented():
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 2, 2, 16, 8, seed=1))
+    out = tattn.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="K2.*K3"):
+        out.sum().backward()
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 2, 16, 8, seed=2))
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        tattn.flash_attention(q, k[:, :1].expand(1, 3, 16, 8), v, causal=True)
+    with pytest.raises(ValueError, match="k and v"):
+        tattn.flash_attention(q, k, v[:, :, :8], causal=True)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        tattn.flash_attention(q, k.double(), v, causal=True)
+
+
+def test_kernel_build_failures_raise(tmp_path, monkeypatch):
+    """A kernel that cannot be built raises with the reason; nothing falls
+    back to the plain version."""
+    from torchsnapshot_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "_TOOLKIT_NVCC", str(tmp_path / "no-nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        build.build_all(["flash_fwd"])
+    # A compiler that fails: its output is in the error.
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: bad kernel' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_TOOLKIT_NVCC", str(fake))
+    with pytest.raises(RuntimeError, match="nvcc failed to build flash_fwd.cu:\n.*bad kernel"):
+        build.build_all(["flash_fwd"])
+    assert not list(tmp_path.glob("*.so"))

@@ -1,0 +1,86 @@
+"""The port's transformer forward against the JAX package's, on the same
+parameters (JAX ``init_params`` → numpy → ``params_from_numpy``) and the
+same tokens, at a tiny size."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchsnapshot_tpu.models import transformer as jtf
+from torchsnapshot_tpu_torch.models import transformer as ttf
+
+TINY = dict(vocab_size=64, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+            d_ff=128, max_seq_len=32)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return np.asarray(tree)
+
+
+def _logits(flash, dtype, seed=0):
+    jcfg = jtf.TransformerConfig(
+        **TINY, flash_attention=flash, dtype=jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    )
+    tcfg = ttf.TransformerConfig(
+        **TINY, flash_attention=flash,
+        dtype=torch.bfloat16 if dtype == "bf16" else torch.float32,
+    )
+    params = jtf.init_params(jcfg, jax.random.key(seed))
+    tokens = np.random.default_rng(seed).integers(0, 64, (2, 32)).astype(np.int32)
+    expected = np.asarray(jtf.forward(params, jnp.asarray(tokens), jcfg))
+    model = ttf.Transformer(tcfg, ttf.params_from_numpy(_to_numpy(params), "cpu"))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long())
+    assert got.dtype == torch.float32 and got.shape == (2, 32, 64)
+    return got.numpy(), expected
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_forward_matches_jax_f32(flash):
+    got, expected = _logits(flash, "f32")
+    # f32 matmuls reassociate between XLA:CPU and ATen (and the flash
+    # kernel's online softmax reassociates the softmax sums).
+    np.testing.assert_allclose(got, expected, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_forward_matches_jax_bf16(flash):
+    got, expected = _logits(flash, "bf16", seed=1)
+    # bf16 weights promote to f32 against the f32 LayerNorm output in both
+    # packages, so only the bf16 softmax probabilities round: an f32
+    # softmax differing in its last bits can round a probability to the
+    # neighbouring bf16 value (2^-8 relative). Measured max |diff| is
+    # ~2e-6 on logits of magnitude ~4.
+    np.testing.assert_allclose(got, expected, atol=1e-3, rtol=1e-3)
+
+
+def test_port_init_is_seeded_and_shaped():
+    cfg = ttf.TransformerConfig(**TINY)
+    a = ttf.init_params(cfg, seed=3, device="cpu")
+    b = ttf.init_params(cfg, seed=3, device="cpu")
+    assert torch.equal(a["layers"][1]["mlp"]["w2"], b["layers"][1]["mlp"]["w2"])
+    assert a["layers"][0]["attn"]["wk"].shape == (64, 32)
+    assert a["embed"].shape == (64, 64) and a["final_ln"].dtype == torch.float32
+
+
+def test_init_params_without_device_needs_cuda():
+    # The entry points run on the card unless the caller asks for the CPU.
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttf.init_params(ttf.TransformerConfig(**TINY), seed=0)
+
+
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttf.TransformerConfig(**TINY, ring_attention="zigzag")
+    params = ttf.init_params(ttf.TransformerConfig(**TINY), seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttf.forward(params, torch.zeros(1, 8, dtype=torch.long),
+                    ttf.TransformerConfig(**TINY), mesh=object())

@@ -1,0 +1,110 @@
+"""Array and object (de)serialization, shared on-disk format.
+
+Arrays persist as **raw little-endian C-order payload bytes**; dtype and
+shape live in the manifest entry, so a payload is pure data. The dtype
+names are the canonical ``np.dtype(...).name`` strings the JAX package
+writes (``float32``, ``bfloat16``, ``float8_e4m3fn``, ``bool``, …). This
+module maps them to torch dtypes with its own table, so neither
+``ml_dtypes`` nor a numpy dtype is needed for bfloat16 or float8 — a
+tensor is staged as its raw bytes (``t.view(torch.uint8)``).
+
+Objects (non-array leaves) use pickle protocol 4. Payload integrity tags
+are ``crc32:<hex>``, as in the JAX package.
+"""
+
+import pickle
+import sys
+import zlib
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+ARRAY_SERIALIZER = "raw"
+OBJECT_SERIALIZER = "pickle"
+
+if sys.byteorder != "little":  # pragma: no cover
+    raise ImportError("the raw payload format assumes a little-endian host")
+
+# Canonical name -> torch dtype. The names are np.dtype(...).name of the
+# numpy / ml_dtypes type the JAX package records for the same data.
+_NAME_TO_TORCH = {
+    name: getattr(torch, attr)
+    for name, attr in (
+        ("float64", "float64"),
+        ("float32", "float32"),
+        ("float16", "float16"),
+        ("bfloat16", "bfloat16"),
+        ("float8_e4m3fn", "float8_e4m3fn"),
+        ("float8_e5m2", "float8_e5m2"),
+        ("int64", "int64"),
+        ("int32", "int32"),
+        ("int16", "int16"),
+        ("int8", "int8"),
+        ("uint64", "uint64"),
+        ("uint32", "uint32"),
+        ("uint16", "uint16"),
+        ("uint8", "uint8"),
+        ("bool", "bool"),
+        ("complex64", "complex64"),
+        ("complex128", "complex128"),
+    )
+    if hasattr(torch, attr)
+}
+_TORCH_TO_NAME = {dt: name for name, dt in _NAME_TO_TORCH.items()}
+
+
+def dtype_to_str(dtype: Any) -> str:
+    """Canonical dtype name of a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        try:
+            return _TORCH_TO_NAME[dtype]
+        except KeyError:
+            raise TypeError(f"{dtype} has no canonical snapshot name") from None
+    return np.dtype(dtype).name
+
+
+def str_to_torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _NAME_TO_TORCH[name]
+    except KeyError:
+        raise TypeError(f"Unknown dtype name: {name}") from None
+
+
+def dtype_itemsize(name: str) -> int:
+    return str_to_torch_dtype(name).itemsize
+
+
+def tensor_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The C-order payload bytes of ``t`` as a flat uint8 tensor on
+    ``t``'s device: a view when ``t`` is contiguous, else a copy (0-d and
+    non-contiguous tensors alike write C-order bytes)."""
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def object_to_bytes(obj: Any) -> bytes:
+    return pickle.dumps(obj, protocol=4)
+
+
+def bytes_to_object(buf: Any) -> Any:
+    return pickle.loads(buf)
+
+
+def compute_checksum(buf: Any) -> str:
+    """crc32 of a payload, tagged with the algorithm. zlib.crc32 releases
+    the GIL on large buffers, so it runs in parallel across the staging
+    threads."""
+    return f"crc32:{zlib.crc32(buf) & 0xFFFFFFFF:08x}"
+
+
+def verify_checksum(buf: Any, expected: Optional[str]) -> None:
+    """Raise if ``buf`` does not match ``expected`` (no-op when expected is
+    None or the algorithm is unknown — forward compatibility)."""
+    if not expected or not expected.startswith("crc32:"):
+        return
+    actual = compute_checksum(buf)
+    if actual != expected:
+        raise RuntimeError(
+            f"Checksum mismatch: stored object is corrupt "
+            f"(expected {expected}, got {actual})."
+        )
