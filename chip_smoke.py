@@ -13,9 +13,14 @@ Phases, each printing JSON lines to stdout:
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    inputs (a yardstick only: the port never calls it) and the least time
    the card could take for the same work.
-4. transfer — pinned device→host and host→device copy rates over 1 GiB,
+4. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
+   the plain backward at the train path's shape and the shapes around
+   it, with the tolerance stated, each kernel's time and bound, the
+   plain version's time and, as the pair's yardstick, the backward of
+   ``scaled_dot_product_attention`` on the same inputs.
+5. transfer — pinned device→host and host→device copy rates over 1 GiB,
    and the rate at which fresh host memory is pinned.
-5. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
+6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
    float32 parameters, 6.23 GB): a forward pass on 4 requests of 1024
    tokens through the flash kernel; ``Snapshot.take`` of the model, a
    progress counter and the RNG streams to the local filesystem (twice:
@@ -25,15 +30,25 @@ Phases, each printing JSON lines to stdout:
    on the card; a second forward with bit-identical logits; one weight
    read back with ``read_object``. Then the flash forward is held against
    the einsum forward on a short input.
-6. kernels — one JSON line summarising every kernel of the path.
+7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
+   tokens, every step through the three flash kernels (48 launches each
+   per step), checkpointed as a training job does through
+   ``CheckpointManager(max_to_keep=1)``: a sync save, a step, an
+   ``async_save(stage="device")`` whose drain overlaps the next in-place
+   step, retention, and the restore of the latest step into a second
+   model, byte-equal to the state the async save captured. Then one
+   step's gradients through the flash kernels are held against plain
+   autograd of the einsum attention on a short input.
+8. kernels — one JSON line summarising every kernel of the paths.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
 
 Float32 matrix products run at full float32 precision (TF32 off), and
-deterministic algorithms are on (with ``CUBLAS_WORKSPACE_CONFIG`` set
-before CUDA starts), so two forward passes over the same bytes give
-bit-identical logits.
+deterministic algorithms are on in the main path (with
+``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts), so two forward
+passes over the same bytes give bit-identical logits. The train path
+claims no bit-identity and turns them off.
 """
 
 import dataclasses
@@ -53,13 +68,18 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from torchsnapshot_tpu_torch import RNGState, Snapshot, StateDict  # noqa: E402
+from torchsnapshot_tpu_torch import (  # noqa: E402
+    CheckpointManager,
+    RNGState,
+    Snapshot,
+    StateDict,
+)
 from torchsnapshot_tpu_torch.manifest import ArrayEntry  # noqa: E402
 from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
 from torchsnapshot_tpu_torch.serialization import dtype_itemsize  # noqa: E402
 
-KERNELS = ["flash_fwd"]
+KERNELS = ["flash_fwd", "flash_bwd"]
 
 # NVIDIA H100 SXM data sheet, dense: f32 outside the tensor cores, bf16
 # and f16 on them; HBM3 bandwidth.
@@ -103,6 +123,22 @@ FLASH_SHAPES = [
 ]
 
 
+# (name, B, Hq, Hkv, S, D, dtype, causal); the first is the train path's.
+BWD_SHAPES = [
+    ("train_path", BATCH, 25, 25, SEQ, 64, torch.float32, True),
+    ("single_bf16", 1, 25, 25, 1024, 64, torch.bfloat16, True),
+    ("noncausal_bf16", 1, 25, 25, 1024, 64, torch.bfloat16, False),
+    ("gqa_bf16", 2, 32, 8, 2048, 128, torch.bfloat16, True),
+    ("ragged_f32", 1, 25, 25, 1000, 64, torch.float32, True),
+]
+
+# |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. Both sides
+# compute in f32 from the same inputs (bf16 inputs are exact in f32), so
+# every dtype is held to one f32 tolerance: sums of up to S·D products
+# taken in another order.
+BWD_TOL = (1e-4, 1e-4)
+
+
 def emit(record):
     print(json.dumps(record), flush=True)
 
@@ -132,6 +168,23 @@ def flash_bound(b, hq, hkv, s, d, dtype, causal):
     flops = 4 * b * hq * d * pairs
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize + b * hq * s * 4
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bwd_bound(b, hq, hkv, s, d, dtype, causal, products, outputs):
+    """(least ms, "bytes" or "operations") for one backward kernel:
+    ``products`` matrix products of 2·D flops per (query, key) pair the
+    mask keeps, at the card's peak for the input type; q, k, v read once
+    in their type, dO, lse and delta in f32 (as the wrapper hands them
+    over), and ``outputs`` f32 [B,Hq,S,D] planes written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = products * 2 * d * b * hq * pairs
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = ((b * hq + 2 * b * hkv) * s * d * itemsize
+              + (b * hq * s * d + 2 * b * hq * s) * 4
+              + outputs * b * hq * s * d * 4)
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -222,6 +275,92 @@ def phase_kernel():
     return results
 
 
+def _bwd_kernel_calls(q, k, v, d_out, lse, delta, causal):
+    """The two backward kernels' C entry points bound to preallocated
+    outputs, exactly as the wrapper launches them, for timing each
+    kernel alone."""
+    b, hq, s, d = q.shape
+    d_out, lse, delta = (x.float().contiguous() for x in (d_out, lse, delta))
+    out = [torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(3)]
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    shape = (b, hq, k.shape[1], s, d, attention._DTYPE_CODES[q.dtype], int(causal),
+             1.0 / d**0.5)
+    dq_fn = attention._kernel_fn("flash_bwd", "flash_bwd_dq", 7)
+    dkv_fn = attention._kernel_fn("flash_bwd", "flash_bwd_dkv", 8)
+
+    held = (d_out, lse, delta, out)  # the pointers above stay valid
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def dq(held=held):
+        assert dq_fn(*inputs, held[3][0].data_ptr(), *shape, stream()) == 0
+
+    def dkv(held=held):
+        assert dkv_fn(*inputs, held[3][1].data_ptr(), held[3][2].data_ptr(), *shape,
+                      stream()) == 0
+
+    return dq, dkv
+
+
+def phase_kernel_bwd():
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for name, b, hq, hkv, s, d, dtype, causal in BWD_SHAPES:
+        q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+        d_out = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+        out, lse = attention.flash_attention_with_lse(q, k, v, causal)
+        # The train path's lse cotangent is zero: delta = rowsum(dO·O).
+        delta = (d_out.float() * out.float()).sum(dim=-1, keepdim=True)
+        got = attention._launch_flash_backward(q, k, v, d_out, lse, delta, causal)
+        torch.cuda.synchronize()
+        ref = attention.flash_attention_backward_reference(
+            q, k, v, out, lse, d_out, delta, causal
+        )
+        record = {
+            "phase": "kernel_bwd",
+            "case": name,
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d},
+            "dtype": str(dtype).replace("torch.", ""),
+            "causal": causal,
+            "tolerance": list(BWD_TOL),
+        }
+        ok = True
+        for grad, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (g - r).abs()
+            record[f"{grad}_max_abs_err"] = float(err.max())
+            record[f"{grad}_max_abs"] = float(r.abs().max())
+            ok = ok and within(err, r, *BWD_TOL)
+        record["max_abs_err"] = max(record[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv"))
+        record["within_tolerance"] = ok
+        del got, ref
+        dq_call, dkv_call = _bwd_kernel_calls(q, k, v, d_out, lse, delta, causal)
+        record["dq_kernel_ms"] = cuda_ms(dq_call, 10)
+        record["dkv_kernel_ms"] = cuda_ms(dkv_call, 10)
+        record["plain_ms"] = cuda_ms(
+            lambda: attention.flash_attention_backward_reference(
+                q, k, v, out, lse, d_out, delta, causal), 3, 1)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        gqa = {"enable_gqa": True} if hkv != hq else {}
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, **gqa)
+        record["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(sdpa, (qg, kg, vg), d_out, retain_graph=True), 10)
+        for kernel, products, outputs in (("dq", 3, 1), ("dkv", 4, 2)):
+            bound, bound_by = bwd_bound(b, hq, hkv, s, d, dtype, causal, products, outputs)
+            record[f"{kernel}_bound_ms"] = bound
+            record[f"{kernel}_bound_by"] = bound_by
+        emit(record)
+        if not ok:
+            raise AssertionError(f"flash_bwd disagrees with its plain version: {record}")
+        results[name] = record
+        del q, k, v, d_out, out, lse, delta, qg, kg, vg, sdpa, dq_call, dkv_call
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_transfer():
     nbytes = 1 << 30
     # Page-locking fresh host memory is part of a first take's cost: each
@@ -292,17 +431,6 @@ def storage_ceilings(workdir, nbytes=1 << 30, files=16):
     }
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def phase_main_path():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -310,7 +438,7 @@ def phase_main_path():
     cfg = GPT2_XL
     model_a = tf.Transformer.init(cfg, seed=0)
     model_b = tf.Transformer.init(cfg, seed=1)
-    leaves_a = list(_leaves(model_a.params()))
+    leaves_a = list(tf.param_leaves(model_a.params()))
     state_bytes = sum(t.numel() * t.element_size() for t in leaves_a)
     n_params = sum(t.numel() for t in leaves_a)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -334,10 +462,11 @@ def phase_main_path():
         "tokens": [BATCH, SEQ],
         "filesystem": list(_filesystem(os.path.realpath(workdir))),
     }
+    torch.cuda.reset_peak_memory_stats()
     try:
         torch.cuda.synchronize()
         # The main path's launch counts start here.
-        attention.flash_forward_launches = 0
+        _reset_launch_counts()
         with torch.no_grad():
             begin = time.perf_counter()
             logits_a = model_a(tokens)
@@ -381,7 +510,7 @@ def phase_main_path():
         # Every leaf but the norm scales (ones in both models) differs
         # before the restore.
         differs = sum(
-            not torch.equal(a, b) for a, b in zip(leaves_a, _leaves(model_b.params()))
+            not torch.equal(a, b) for a, b in zip(leaves_a, tf.param_leaves(model_b.params()))
         )
         if differs != len(leaves_a) - (2 * cfg.n_layers + 1):
             raise AssertionError("the second model does not start from other values")
@@ -394,7 +523,7 @@ def phase_main_path():
         restore_s = time.perf_counter() - begin
         record.update(restore_s=restore_s, restore_gbps=stored / 1e9 / restore_s)
 
-        leaves_b = list(_leaves(model_b.params()))
+        leaves_b = list(tf.param_leaves(model_b.params()))
         equal = sum(
             b.is_cuda and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
             for a, b in zip(leaves_a, leaves_b)
@@ -420,6 +549,7 @@ def phase_main_path():
             raise AssertionError("read_object returned other bytes")
         record["flash_launches"] = attention.flash_forward_launches
         # The main path's launch counts end here.
+        record["peak_gb"] = _peak_gb()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del logits_b, got
@@ -444,6 +574,162 @@ def phase_main_path():
     return record
 
 
+def _launch_counts():
+    return (attention.flash_forward_launches, attention.flash_bwd_dq_launches,
+            attention.flash_bwd_dkv_launches)
+
+
+def _reset_launch_counts():
+    attention.flash_forward_launches = 0
+    attention.flash_bwd_dq_launches = 0
+    attention.flash_bwd_dkv_launches = 0
+
+
+def _peak_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_train():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(False)
+    cfg = GPT2_XL
+    torch.cuda.reset_peak_memory_stats()
+    model = tf.Transformer.init(cfg, seed=0)
+    params = model.params()
+    leaves = list(tf.param_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train-")
+    progress = StateDict(step=0)
+    app = {"model": tf.TransformerState(model), "progress": progress}
+    record = {
+        "phase": "train_path",
+        "model": "GPT-2 XL widths, f32, flash attention, SGD lr 1e-2",
+        "params": sum(t.numel() for t in leaves),
+        "leaves": len(leaves),
+        "tokens": [BATCH, SEQ],
+        "filesystem": list(_filesystem(os.path.realpath(workdir))),
+        "losses": [],
+        "step_s": [],
+    }
+
+    def step():
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        _, loss = tf.sgd_train_step(params, tokens, cfg)
+        loss = float(loss)  # synchronises
+        seconds = time.perf_counter() - begin
+        added = [a - b for a, b in zip(_launch_counts(), before)]
+        progress["step"] += 1
+        record["losses"].append(loss)
+        record["step_s"].append(seconds)
+        print(f"train step {progress['step']}: loss {loss:.6f}, {seconds:.3f} s, "
+              f"launches K1/K2/K3 {added}", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite loss {loss} at step {progress['step']}")
+        if added != [cfg.n_layers] * 3:
+            raise AssertionError(
+                f"step {progress['step']} launched K1/K2/K3 {added} times; "
+                f"expected {cfg.n_layers} each")
+        return seconds
+
+    try:
+        torch.cuda.synchronize()
+        # The train path's launch counts start here.
+        _reset_launch_counts()
+        for _ in range(3):
+            step()
+        record["peak_gb_train"] = _peak_gb()
+        mgr = CheckpointManager(os.path.join(workdir, "run"), max_to_keep=1)
+        begin = time.perf_counter()
+        mgr.save(1, app)
+        record["sync_save_s"] = time.perf_counter() - begin
+        step()
+        # The state the async save must capture, copied before it starts.
+        step2_host = [t.detach().to("cpu", copy=True) for t in leaves]
+        torch.cuda.reset_peak_memory_stats()
+        begin = time.perf_counter()
+        pending = mgr.async_save(2, app, stage="device")
+        returned = time.perf_counter()
+        record["async_stall_s"] = returned - begin
+        # The clones (6.23 GB) are allocated by now.
+        record["allocated_gb_after_async_return"] = torch.cuda.memory_allocated() / 1e9
+        # At once, an in-place step while the drain runs.
+        record["step_during_drain_s"] = step()
+        begin_wait = time.perf_counter()
+        pending.wait()
+        done = time.perf_counter()
+        record["async_drain_s"] = done - returned
+        record["async_wait_blocked_s"] = done - begin_wait
+        record["peak_gb_async"] = _peak_gb()
+        record["state_bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+        record["sync_save_gbps"] = record["state_bytes"] / 1e9 / record["sync_save_s"]
+        record["async_drain_gbps"] = record["state_bytes"] / 1e9 / record["async_drain_s"]
+        record["launches"] = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                      _launch_counts()))
+        # The train path's launch counts end here.
+        record["all_steps"] = mgr.all_steps()
+        if record["all_steps"] != [2]:
+            raise AssertionError(f"all_steps() is {record['all_steps']}, expected [2]")
+        mutated = sum(
+            not torch.equal(t.detach().cpu(), h) for t, h in zip(leaves, step2_host)
+        )
+        record["leaves_changed_by_step_during_drain"] = mutated
+
+        torch.cuda.reset_peak_memory_stats()
+        model_b = tf.Transformer.init(cfg, seed=1)
+        progress_b = StateDict(step=0)
+        begin = time.perf_counter()
+        restored = mgr.restore({"model": tf.TransformerState(model_b), "progress": progress_b})
+        torch.cuda.synchronize()
+        record["restore_s"] = time.perf_counter() - begin
+        record["restored_step"] = restored
+        equal = sum(
+            b.is_cuda and torch.equal(b.detach().view(torch.uint8),
+                                      h.to(b.device).view(torch.uint8))
+            for b, h in zip(tf.param_leaves(model_b.params()), step2_host)
+        )
+        record["leaves_byte_equal_to_step2_on_cuda"] = equal
+        record["peak_gb_restore"] = _peak_gb()
+        if restored != 2 or progress_b["step"] != 4:
+            raise AssertionError(f"restored step {restored}, progress {progress_b['step']}")
+        if equal != len(leaves) or mutated != len(leaves):
+            raise AssertionError(
+                f"{equal}/{len(leaves)} leaves restored byte-equal to the async "
+                f"save's cut; {mutated} changed by the step during the drain")
+        del model_b, step2_host
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # One step's gradients through K1-K3 against plain autograd of the
+    # einsum attention (the repo's reference path) on a short input.
+    torch.cuda.empty_cache()
+    short = tokens[:1, :128]
+    einsum_cfg = dataclasses.replace(cfg, flash_attention=False)
+    g_flash = torch.autograd.grad(tf.loss_fn(params, short, cfg), leaves)
+    g_ref = torch.autograd.grad(tf.loss_fn(params, short, einsum_cfg), leaves)
+    worst = 0.0
+    for a, b in zip(g_flash, g_ref):
+        scale = float(b.abs().max())
+        if scale > 0:
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        elif float(a.abs().max()) != 0:
+            worst = math.inf
+    record["grad_max_rel_err"] = worst
+    # The attention gradients agree to ~1e-6 relative; 48 residual layers
+    # carry that into every weight's gradient, held relative to the
+    # leaf's largest entry.
+    record["grad_rel_bound"] = 1e-3
+    emit(record)
+    if not worst <= 1e-3:
+        raise AssertionError(f"flash and einsum gradients differ by {worst} (relative)")
+    del g_flash, g_ref, model, params, leaves
+    torch.cuda.empty_cache()
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.", file=sys.stderr)
@@ -451,23 +737,44 @@ def main():
     smi, device = phase_device()
     phase_build()
     flash = phase_kernel()
+    flash_bwd = phase_kernel_bwd()
     phase_transfer()
     main_path = phase_main_path()
-    main_case = flash["main_path"]
-    emit({"kernels": [{
+    train = phase_train()
+    fwd = flash["main_path"]
+    bwd = flash_bwd["train_path"]
+    kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "torchsnapshot_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "torchsnapshot_tpu/ops/attention.py:103",
-        "launches": main_path["flash_launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["kernel_ms"],
-        "kernel_ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]})
+        "launches": train["launches"]["flash_fwd"],
+        "launches_forward_path": main_path["flash_launches"],
+        "max_abs_err": fwd["max_abs_err"],
+        "ms": fwd["kernel_ms"],
+        "kernel_ms": fwd["kernel_ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
+    }]
+    for name, key, line in (("flash_bwd_dq", "dq", 199), ("flash_bwd_dkv", "dkv", 230)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "torchsnapshot_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"torchsnapshot_tpu/ops/attention.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": bwd["max_abs_err"],
+            "ms": bwd[f"{key}_kernel_ms"],
+            "kernel_ms": bwd[f"{key}_kernel_ms"],
+            # The plain backward and SDPA's backward compute the pair.
+            "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd[f"{key}_bound_ms"],
+            "bound_by": bwd[f"{key}_bound_by"],
+            "library_ms": bwd["library_ms"],
+        })
+    emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

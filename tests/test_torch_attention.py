@@ -1,12 +1,15 @@
-"""The port's flash attention against the JAX package's Pallas kernel.
+"""The port's flash attention against the JAX package's Pallas kernels,
+forward and backward.
 
-On the CPU the port's wrapper computes the plain version
-(``flash_attention_reference``); here it is held against the JAX kernel
-run in interpret mode on the same numpy inputs, at tiny grids (the JAX
-kernel's own tests are marked slow for interpret-mode cost). The CUDA
-kernel itself is compared with the plain version on the card by
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``."""
+On the CPU the port's wrappers compute the plain versions
+(``flash_attention_reference``, ``flash_attention_backward_reference``);
+here they are held against the JAX kernels run in interpret mode on the
+same numpy inputs, at tiny grids (the JAX kernels' own tests are marked
+slow for interpret-mode cost). The CUDA kernels themselves are compared
+with the plain versions on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``."""
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -56,10 +59,7 @@ def test_plain_version_matches_jax_kernel_bf16():
     q, k, v = (x.astype(ml_dtypes.bfloat16) for x in _qkv(1, 2, 2, 64, 16, seed=7))
     expected = _jax_flash(q, k, v, causal=True)
 
-    def bf16(x):
-        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
-
-    out, _ = tattn.flash_attention_reference(bf16(q), bf16(k), bf16(v), True)
+    out, _ = tattn.flash_attention_reference(_bf16(q), _bf16(k), _bf16(v), True)
     assert out.dtype == torch.bfloat16
     # Both round the same f32 result to bf16; f32 sums in different orders
     # may round to neighbouring bf16 values: one bf16 ulp (2^-8 relative).
@@ -87,11 +87,87 @@ def test_resolve_flash_block_matches_jax(seq_len):
         assert tattn.resolve_flash_block(seq_len) == expected
 
 
-def test_backward_raises_not_implemented():
+def _bf16(x):
+    return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_plain_backward_matches_jax_kernels(causal, heads, dtype):
+    hq, hkv = heads
+    q, k, v = _qkv(1, hq, hkv, 64, 16, seed=10 + hq + causal)
+    rng = np.random.default_rng(20 + hq)
+    g = rng.standard_normal((1, hq, 64, 16)).astype(np.float32)
+    if dtype == "bf16":
+        q, k, v, g = (x.astype(ml_dtypes.bfloat16) for x in (q, k, v, g))
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    out, lse = jattn.flash_chunk_attention(jq, jk, jv, causal, 32, 32, True)
+    delta = jnp.sum(jg.astype(jnp.float32) * out.astype(jnp.float32), axis=-1, keepdims=True)
+    expected = jattn._flash_backward(jq, jk, jv, jg, lse, delta, causal, 32, 32, True)
+    to_torch = _bf16 if dtype == "bf16" else torch.from_numpy
+    got = tattn.flash_attention_backward_reference(
+        to_torch(q), to_torch(k), to_torch(v), None, torch.from_numpy(np.array(lse)),
+        to_torch(g), torch.from_numpy(np.array(delta)), causal,
+    )
+    # Both compute in f32 from the same (bf16-exact) inputs, summing in
+    # other orders: the f32 tolerance, relative to each gradient's size.
+    for name, t, e in zip("qkv", got, expected):
+        e = np.asarray(e)
+        assert t.dtype == torch.float32 and t.shape == e.shape, name
+        np.testing.assert_allclose(
+            t.numpy(), e, atol=F32_TOL["atol"] * max(1.0, float(np.abs(e).max())),
+            rtol=F32_TOL["rtol"], err_msg=f"d{name}",
+        )
+
+
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_autograd_through_flash_attention_matches_jax_grad(heads):
+    hq, hkv = heads
+    q, k, v = _qkv(2, hq, hkv, 32, 8, seed=30 + hq)
+    w = np.random.default_rng(31).standard_normal((2, hq, 32, 8)).astype(np.float32)
+
+    def jloss(q, k, v):
+        group = hq // hkv
+        k, v = (jnp.repeat(x, group, axis=1) for x in (k, v))
+        return jnp.sum(jattn._reference_attention(q, k, v, True) * w)
+
+    expected = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, causal=True)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (tq, tk, tv))
+    for t, e in zip(got, expected):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=1e-5, rtol=1e-5)
+
+
+def test_lse_cotangent_matches_jax_vjp():
+    q, k, v = _qkv(1, 4, 2, 64, 16, seed=40)
+    rng = np.random.default_rng(41)
+    d_out = rng.standard_normal((1, 4, 64, 16)).astype(np.float32)
+    d_lse = rng.standard_normal((1, 4, 64, 1)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda q, k, v: jattn.flash_chunk_attention(q, k, v, True, 32, 32, True),
+        *(jnp.asarray(x) for x in (q, k, v)),
+    )
+    expected = vjp((jnp.asarray(d_out), jnp.asarray(d_lse)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = tattn.flash_attention_with_lse(tq, tk, tv, causal=True)
+    got = torch.autograd.grad(
+        (out * torch.from_numpy(d_out)).sum() + (lse * torch.from_numpy(d_lse)).sum(),
+        (tq, tk, tv),
+    )
+    for t, e in zip(got, expected):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=2e-5, rtol=1e-5)
+
+
+def test_backward_on_cpu_launches_no_kernel(monkeypatch):
+    for name in ("flash_forward_launches", "flash_bwd_dq_launches", "flash_bwd_dkv_launches"):
+        monkeypatch.setattr(tattn, name, 0)
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 2, 2, 16, 8, seed=1))
-    out = tattn.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="K2.*K3"):
-        out.sum().backward()
+    grads = torch.autograd.grad(tattn.flash_attention(q, k, v).sum(), (q, k, v))
+    assert all(g.shape == x.shape and g.dtype == x.dtype for g, x in zip(grads, (q, k, v)))
+    assert (tattn.flash_forward_launches, tattn.flash_bwd_dq_launches,
+            tattn.flash_bwd_dkv_launches) == (0, 0, 0)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA flash kernel against its plain version,
-and CUDA-tensor take/restore. Marked ``cuda``; every test skips on a host
+"""The port on the card: the CUDA flash kernels against their plain
+versions, CUDA-tensor take/restore, and the device-clone async take. Marked ``cuda``; every test skips on a host
 without a CUDA device. On a machine with one (``--noconftest``: the
 suite's conftest.py sets up JAX, which this file does not need):
 
@@ -51,6 +51,51 @@ def test_flash_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, dtype, causa
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,dtype,causal",
+    [
+        (1, 4, 4, 256, 64, torch.float32, True),
+        (1, 2, 2, 200, 64, torch.float32, False),
+        (2, 4, 2, 200, 128, torch.bfloat16, True),
+        (1, 2, 1, 130, 32, torch.float16, False),
+    ],
+)
+def test_flash_backward_kernels_match_plain_version(cuda, b, hq, hkv, s, d, dtype, causal):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (
+        torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
+        for h in (hq, hkv, hkv)
+    )
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal)
+    d_out = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
+    d_lse = torch.randn((b, hq, s, 1), generator=gen, device=cuda)
+    before = (attention.flash_bwd_dq_launches, attention.flash_bwd_dkv_launches)
+    got = attention.flash_attention_backward(q, k, v, out, lse, d_out, d_lse, causal)
+    torch.cuda.synchronize()
+    assert (attention.flash_bwd_dq_launches, attention.flash_bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    delta = (d_out.float() * out.float()).sum(-1, keepdim=True) - d_lse
+    expected = attention.flash_attention_backward_reference(
+        q, k, v, out, lse, d_out, delta, causal)
+    for g, e in zip(got, expected):
+        assert g.dtype == torch.float32 and g.shape == e.shape
+        # f32 sums in another order, relative to the gradient's size.
+        torch.testing.assert_close(g, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
+
+
+def test_flash_attention_autograd_launches_backward_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((1, 2, 96, 64), generator=gen, device=cuda).requires_grad_()
+               for _ in range(3))
+    before = attention.flash_bwd_dkv_launches
+    grads = torch.autograd.grad(attention.flash_attention(q, k, v).square().sum(), (q, k, v))
+    assert attention.flash_bwd_dkv_launches == before + 1
+    ref = attention.flash_attention_reference
+    expected = torch.autograd.grad(ref(q, k, v, True)[0].square().sum(), (q, k, v))
+    for g, e in zip(grads, expected):
+        torch.testing.assert_close(g, e, atol=1e-4, rtol=1e-4)
+
+
 def test_cuda_take_restore_in_place_bit_exact(cuda, tmp_path):
     gen = torch.Generator(device=cuda).manual_seed(1)
     w = torch.randn((16, 1024, 1024), generator=gen, device=cuda)
@@ -88,3 +133,20 @@ def test_cuda_chunked_dense_restore(cuda, tmp_path, monkeypatch, shape):
     target = StateDict(w=torch.zeros_like(w))
     Snapshot(path).restore({"m": target})
     assert torch.equal(target["w"], w)
+
+
+def test_device_staged_async_take_is_a_consistent_cut(cuda, tmp_path):
+    """The clones are ordered before the caller's next in-place update on
+    the same stream; the drain stages them on side streams."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((8, 1024, 1024), generator=gen, device=cuda)
+    expected = w.clone()
+    path = str(tmp_path / "snap")
+    pending = Snapshot.async_take(path, {"m": StateDict(w=w, step=torch.ones(1))},
+                                  stage="device")
+    for _ in range(4):
+        w.mul_(3.0).add_(1.0)
+    target = StateDict(w=torch.zeros_like(w), step=torch.zeros(1))
+    pending.wait().restore({"m": target})
+    assert torch.equal(target["w"], expected)
+    assert not torch.equal(w, expected)

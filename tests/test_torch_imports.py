@@ -63,7 +63,7 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, {str(ROOT)!r})
         import torch
-        from torchsnapshot_tpu_torch import RNGState, Snapshot, StateDict
+        from torchsnapshot_tpu_torch import CheckpointManager, RNGState, Snapshot, StateDict
         from torchsnapshot_tpu_torch.models import transformer
 
         w = torch.randn(5, 3).to(torch.bfloat16)
@@ -71,6 +71,11 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         target = StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16))
         Snapshot({str(tmp_path / "snap")!r}).restore({{"m": target, "rng": RNGState()}})
         assert torch.equal(target["w"].view(torch.int16), w.view(torch.int16))
+        Snapshot.async_take({str(tmp_path / "async")!r}, {{"m": StateDict(w=w)}}).wait()
+        mgr = CheckpointManager({str(tmp_path / "run")!r}, max_to_keep=1)
+        mgr.save(1, {{"m": StateDict(w=w)}})
+        mgr.async_save(2, {{"m": StateDict(w=w)}}).wait()
+        assert mgr.all_steps() == [2]
         assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
         print("ok")
         """

@@ -275,7 +275,8 @@ def test_jax_transformer_snapshot_restores_into_port(tmp_path):
     Snapshot(path).restore({"model": ttf.TransformerState(model)})
     tokens = np.random.default_rng(0).integers(0, 64, (2, 32)).astype(np.int32)
     expected = np.asarray(jtf.forward(params, jnp.asarray(tokens), jcfg))
-    got = model(torch.from_numpy(tokens).long()).numpy()
+    with torch.no_grad():  # the parameters are trainable
+        got = model(torch.from_numpy(tokens).long()).numpy()
     # f32 matmuls reassociate between XLA:CPU and ATen.
     np.testing.assert_allclose(got, expected, atol=1e-4, rtol=1e-4)
 

@@ -60,6 +60,75 @@ def test_forward_matches_jax_bf16(flash):
     np.testing.assert_allclose(got, expected, atol=1e-3, rtol=1e-3)
 
 
+def _tiny_pair(flash, seed):
+    jcfg = jtf.TransformerConfig(**TINY, flash_attention=flash)
+    tcfg = ttf.TransformerConfig(**TINY, flash_attention=flash)
+    params = jtf.init_params(jcfg, jax.random.key(seed))
+    tokens = np.random.default_rng(seed).integers(0, 64, (2, 32)).astype(np.int32)
+    model = ttf.Transformer(tcfg, ttf.params_from_numpy(_to_numpy(params), "cpu"))
+    return jcfg, tcfg, params, tokens, model
+
+
+# f32 matmuls reassociate between XLA:CPU and ATen, forward and backward;
+# gradients are held relative to each leaf's largest entry.
+GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
+def test_loss_and_gradients_match_jax(flash):
+    jcfg, tcfg, params, tokens, model = _tiny_pair(flash, seed=2)
+    loss, grads = jax.value_and_grad(jtf.loss_fn)(params, jnp.asarray(tokens), jcfg)
+    leaves = list(ttf.param_leaves(model.params()))
+    got_loss = ttf.loss_fn(model.params(), torch.from_numpy(tokens), tcfg)
+    got = torch.autograd.grad(got_loss, leaves)
+    np.testing.assert_allclose(float(got_loss.detach()), float(loss), rtol=1e-5)
+    expected = jax.tree.leaves(grads)
+    # jax.tree.leaves sorts dict keys; the port's tree keeps the JAX
+    # init_params order. Compare by path instead of by position.
+    by_path = dict(zip(_paths(model.params()), got))
+    for path, e in zip(_jax_paths(grads), expected):
+        g = by_path[path].numpy()
+        e = np.asarray(e)
+        scale = float(np.abs(e).max()) or 1.0
+        np.testing.assert_allclose(g / scale, e / scale, **GRAD_TOL, err_msg=path)
+    assert len(by_path) == len(expected)
+
+
+def test_sgd_train_step_matches_jax():
+    jcfg, tcfg, params, tokens, model = _tiny_pair(True, seed=3)
+    new_params, loss = jtf.sgd_train_step(params, jnp.asarray(tokens), jcfg)
+    tree = model.params()
+    returned, got_loss = ttf.sgd_train_step(tree, torch.from_numpy(tokens), tcfg)
+    assert returned is tree and not got_loss.requires_grad
+    np.testing.assert_allclose(float(got_loss.detach()), float(loss), rtol=1e-5)
+    by_path = dict(zip(_paths(tree), ttf.param_leaves(tree)))
+    for path, e in zip(_jax_paths(new_params), jax.tree.leaves(new_params)):
+        # The update moves each weight by lr·g; the new weights agree to
+        # the f32 tolerance of the forward.
+        np.testing.assert_allclose(
+            by_path[path].detach().numpy(), np.asarray(e), atol=1e-5, rtol=1e-5,
+            err_msg=path,
+        )
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix
+
+
+def _jax_paths(tree):
+    for path, _ in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        yield "".join(
+            f"/{getattr(k, 'key', getattr(k, 'idx', None))}" for k in path
+        )
+
+
 def test_port_init_is_seeded_and_shaped():
     cfg = ttf.TransformerConfig(**TINY)
     a = ttf.init_params(cfg, seed=3, device="cpu")

@@ -1,24 +1,32 @@
 """torchsnapshot_tpu_torch: the PyTorch/CUDA port of torchsnapshot_tpu.
 
-Takes and restores app states of CPU and CUDA tensors in the JAX
-package's on-disk format — a snapshot taken by either package restores
-through the other — and runs the flagship transformer's forward pass
-with a hand-written CUDA flash-attention kernel. Imports neither JAX nor
-the JAX package.
+Takes (synchronously or asynchronously) and restores app states of CPU
+and CUDA tensors in the JAX package's on-disk format — a snapshot taken
+by either package restores through the other — manages step-indexed
+checkpoints with retention, and trains the flagship transformer with
+hand-written CUDA flash-attention kernels, forward and backward. Imports
+neither JAX nor the JAX package.
 """
 
 from .coord import Coordinator, DictStore, FileStore, NoOpCoordinator, get_coordinator
+from .manager import CheckpointManager, PendingManagedSnapshot
 from .rng_state import RNGState
-from .snapshot import FORMAT_VERSION as __version__, Snapshot
+from .snapshot import FORMAT_VERSION as __version__, PendingSnapshot, Snapshot
 from .state_dict import StateDict
 from .stateful import AppState, Stateful
+from .utils.train_state import FnStateful, PytreeStateful
 
 __all__ = [
     "AppState",
+    "CheckpointManager",
     "Coordinator",
     "DictStore",
     "FileStore",
+    "FnStateful",
     "NoOpCoordinator",
+    "PendingManagedSnapshot",
+    "PendingSnapshot",
+    "PytreeStateful",
     "RNGState",
     "Snapshot",
     "StateDict",

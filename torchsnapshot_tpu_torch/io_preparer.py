@@ -21,7 +21,7 @@ tensor on the template's device otherwise.
 
 import asyncio
 from concurrent.futures import Executor
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +35,7 @@ from .manifest import (
     Shard,
     ShardedArrayEntry,
 )
-from .ops.transfer import device_to_host, host_to_device
+from .ops.transfer import device_clone, device_to_host, host_to_device
 from .resharding import compute_overlap, contiguous_byte_range, subdivide
 from .serialization import (
     ARRAY_SERIALIZER,
@@ -118,6 +118,53 @@ class ArrayBufferStager(BufferStager):
 
     def get_staging_cost_bytes(self) -> int:
         return self._nbytes
+
+
+def device_clone_write_reqs(write_reqs: List[WriteReq]) -> bool:
+    """Rebind every array stager to a private copy of its data: the
+    consistent cut of a device-staged async take.
+
+    CUDA tensors are cloned on the card (:func:`device_clone`) and each
+    stager's D2H is pinned after the clones by an event on the stream
+    that ran them; host tensors and numpy arrays are copied on the host.
+    Each source is copied once, however many chunk stagers share it. A
+    stager holds its clone until its D2H has completed, so the caching
+    allocator cannot hand the clone's memory to later work before then.
+    Returns False, with the device clones released, if they did not fit
+    on the card (the host copies are kept: host staging reads them).
+    """
+    sources: Dict[int, torch.Tensor] = {}
+    rebinds: List[Tuple[ArrayBufferStager, int]] = []
+    host_copies: Dict[int, Any] = {}
+    for wr in write_reqs:
+        stager = wr.buffer_stager
+        if not isinstance(stager, ArrayBufferStager) or stager._data is None:
+            continue
+        data = stager._data
+        key = id(data)
+        if isinstance(data, torch.Tensor) and data.is_cuda:
+            sources.setdefault(key, data)
+            rebinds.append((stager, key))
+            continue
+        if key not in host_copies:
+            host_copies[key] = (
+                data.clone() if isinstance(data, torch.Tensor) else np.array(data, copy=True)
+            )
+        stager._data = host_copies[key]
+    order = list(sources)
+    clones = device_clone([sources[k] for k in order])
+    if clones is None:
+        return False
+    clone_by_key = dict(zip(order, clones))
+    ready: Dict[torch.device, torch.cuda.Event] = {}
+    for stager, key in rebinds:
+        clone = clone_by_key[key]
+        if clone.device not in ready:
+            ready[clone.device] = torch.cuda.Event()
+            ready[clone.device].record(torch.cuda.current_stream(clone.device))
+        stager._data = clone
+        stager._ready = ready[clone.device]
+    return True
 
 
 class ObjectBufferStager(BufferStager):

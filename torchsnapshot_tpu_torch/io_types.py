@@ -7,8 +7,8 @@
   is where deserialization and the host→device copy happen.
 - ``WriteReq``/``ReadReq`` pair a storage path with a stager/consumer.
 - ``IOReq`` is the unit handed to a ``StoragePlugin``.
-- ``StoragePlugin`` — async write/read + sync close; concrete
-  backends live in ``torchsnapshot_tpu_torch.storage_plugins``.
+- ``StoragePlugin`` — async write/read/delete/list + sync close;
+  concrete backends live in ``torchsnapshot_tpu_torch.storage_plugins``.
 - ``RetryingStoragePlugin`` — capped, jittered retries around every op.
 """
 
@@ -20,7 +20,7 @@ import random
 import time
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 from .utils.env import env_float, env_int
 
@@ -157,6 +157,23 @@ class StoragePlugin(abc.ABC):
     async def read(self, io_req: IOReq) -> None:
         ...
 
+    @abc.abstractmethod
+    async def delete(self, path: str) -> None:
+        """Remove one object; a missing one raises the not-found error
+        (:func:`is_not_found_error`), which the caller decides about."""
+
+    async def list_prefix(self, prefix: str) -> Optional[List[str]]:
+        """Stored object paths that start with ``prefix``, relative to the
+        plugin's root (the namespace of write/read/delete), or None when
+        the backend cannot enumerate objects."""
+        return None
+
+    async def object_age_s(self, path: str) -> Optional[float]:
+        """Seconds since ``path`` was last written, or None when the
+        backend cannot tell. Sweeps spare objects younger than their age
+        guard: they may belong to a take still in flight."""
+        return None
+
     def ensure_durable(self) -> None:
         """Make everything written through this plugin so far
         crash-durable. Called before the metadata commit, so a backend may
@@ -191,6 +208,21 @@ class RetryingStoragePlugin(StoragePlugin):
             await self._inner.read(io_req)
 
         await retry_storage_op(_attempt, f"read({io_req.path})")
+
+    async def delete(self, path: str) -> None:
+        await retry_storage_op(lambda: self._inner.delete(path), f"delete({path})")
+
+    async def list_prefix(self, prefix: str) -> Optional[List[str]]:
+        return await retry_storage_op(
+            lambda: self._inner.list_prefix(prefix), f"list({prefix})"
+        )
+
+    async def object_age_s(self, path: str) -> Optional[float]:
+        # A final failure propagates, so a sweep's age guard fails closed
+        # (spares the object) instead of reading it as "age unknown".
+        return await retry_storage_op(
+            lambda: self._inner.object_age_s(path), f"age({path})"
+        )
 
     def ensure_durable(self) -> None:
         self._inner.ensure_durable()

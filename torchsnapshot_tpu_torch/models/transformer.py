@@ -13,15 +13,16 @@ nested tree ``{"embed", "pos_embed", "final_ln", "layers": [{"attn":
 logical paths, dtypes, shapes and payload bytes as a JAX take of the same
 parameters, and one snapshot loads into either package.
 
-Only the single-device forward is ported: ring, Ulysses and mesh
-(sequence- and tensor-parallel) modes raise. ``flash_attention=True``
-runs attention through the CUDA flash kernel (``ops/attention.py``).
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+The single-device forward, the next-token loss and the SGD training
+step are ported; ring, Ulysses and mesh (sequence- and tensor-parallel)
+modes raise. ``flash_attention=True`` runs attention through the CUDA
+flash kernels (``ops/attention.py``), forward and backward. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -206,33 +207,86 @@ def forward(
     return logits.float()
 
 
+def param_leaves(params: Any) -> Iterator[torch.Tensor]:
+    """The tensors of a parameter tree, in the tree's own order (dict
+    keys as given, list items in order)."""
+    if isinstance(params, dict):
+        for val in params.values():
+            yield from param_leaves(val)
+    elif isinstance(params, (list, tuple)):
+        for val in params:
+            yield from param_leaves(val)
+    else:
+        yield params
+
+
+def loss_fn(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    config: TransformerConfig,
+    mesh: Optional[Any] = None,
+) -> torch.Tensor:
+    """Next-token cross entropy, the mean over ``B × (S−1)`` positions:
+    ``log_softmax`` of the f32 logits, the targets gathered, as the JAX
+    ``loss_fn`` computes it off the ring path."""
+    logits = forward(params, tokens, config, mesh)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long())
+    return nll.mean()
+
+
+def sgd_train_step(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    config: TransformerConfig,
+    mesh: Optional[Any] = None,
+    lr: float = 1e-2,
+) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One SGD step: ``p ← p − lr·g`` for every parameter, returning
+    ``(params, loss)`` as the JAX ``sgd_train_step`` does.
+
+    Unlike JAX, which returns a new tree, the update is **in place**: the
+    returned tree holds the same tensors as ``params``, so the step needs
+    no second copy of the weights on the card. Gradients come from
+    ``torch.autograd.grad`` (no ``.grad`` fields are left behind) and are
+    freed as the step returns. Every leaf must require grad."""
+    leaves: List[torch.Tensor] = list(param_leaves(params))
+    loss = loss_fn(params, tokens, config, mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            p.sub_(lr * g.to(p.dtype))
+    return params, loss.detach()
+
+
 class Transformer(nn.Module):
     """The model as an ``nn.Module`` holding the parameter tree.
 
     Parameters are registered under the tree's own names (``layers.3.
-    attn.wq``); :meth:`params` returns the nested tree of those same
-    tensors, which :func:`forward` and :class:`TransformerState` use.
+    attn.wq``) and require grad; :meth:`params` returns the nested tree of
+    those same tensors, which :func:`forward`, :func:`sgd_train_step` and
+    :class:`TransformerState` use. Run inference under ``torch.no_grad()``.
     """
 
     def __init__(self, config: TransformerConfig, params: Dict[str, Any]) -> None:
         super().__init__()
         self.config = config
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.pos_embed = nn.Parameter(params["pos_embed"], requires_grad=False)
-        self.final_ln = nn.Parameter(params["final_ln"], requires_grad=False)
+        self.embed = nn.Parameter(params["embed"])
+        self.pos_embed = nn.Parameter(params["pos_embed"])
+        self.final_ln = nn.Parameter(params["final_ln"])
         self.layers = nn.ModuleList()
         for layer in params["layers"]:
             block = nn.Module()
             # An OrderedDict keeps the JAX key order (a plain dict would be
             # sorted by ParameterDict), so manifests list keys alike.
             block.attn = nn.ParameterDict(OrderedDict(
-                (n, nn.Parameter(t, requires_grad=False)) for n, t in layer["attn"].items()
+                (n, nn.Parameter(t)) for n, t in layer["attn"].items()
             ))
             block.mlp = nn.ParameterDict(OrderedDict(
-                (n, nn.Parameter(t, requires_grad=False)) for n, t in layer["mlp"].items()
+                (n, nn.Parameter(t)) for n, t in layer["mlp"].items()
             ))
-            block.ln1 = nn.Parameter(layer["ln1"], requires_grad=False)
-            block.ln2 = nn.Parameter(layer["ln2"], requires_grad=False)
+            block.ln1 = nn.Parameter(layer["ln1"])
+            block.ln2 = nn.Parameter(layer["ln2"])
             self.layers.append(block)
 
     @classmethod

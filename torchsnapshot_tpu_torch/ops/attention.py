@@ -1,29 +1,32 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention forward and backward: hand-written CUDA kernels and
+their plain versions.
 
 ``flash_attention(q, k, v, causal)`` computes softmax(QKᵀ/√D)·V for
-``[B, H, S, D]`` tensors without materialising the S×S score matrix; on a
-CUDA tensor it launches ``csrc/flash_fwd.cu``, the Hopper port of the JAX
-package's Pallas kernel ``_flash_kernel``
-(``torchsnapshot_tpu/ops/attention.py``). ``flash_attention_with_lse``
-also returns the per-row log-sum-exp, as ``flash_chunk_attention`` does.
+``[B, H, S, D]`` tensors without materialising the S×S score matrix, and
+is differentiable. On a CUDA tensor the forward launches
+``csrc/flash_fwd.cu``, the Hopper port of the JAX package's Pallas kernel
+``_flash_kernel`` (``torchsnapshot_tpu/ops/attention.py``), and the
+backward launches the two kernels of ``csrc/flash_bwd.cu``, the ports of
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``.
+``flash_attention_with_lse`` also returns the per-row log-sum-exp, as
+``flash_chunk_attention`` does; a cotangent of the lse folds into the
+backward's ``delta``.
 
-- On a CPU tensor the wrapper computes :func:`flash_attention_reference`,
-  the plain f32 version of the same function; the tests compare it with
-  the JAX kernel run in interpret mode, and ``chip_smoke.py`` compares the
-  CUDA kernel with it on the card.
-- On a CUDA tensor the wrapper launches the kernel or raises. There is no
-  fallback to the plain version.
-- ``flash_forward_launches`` counts kernel launches (never plain calls),
-  so a run can show that its forward passes went through the kernel.
-
-The forward is a ``torch.autograd.Function`` whose backward raises: the
-backward kernels (the JAX package's ``_flash_bwd_dq_kernel`` and
-``_flash_bwd_dkv_kernel``) are not ported yet.
+- On a CPU tensor the wrappers compute :func:`flash_attention_reference`
+  and :func:`flash_attention_backward_reference`, the plain f32 versions
+  of the same functions; the tests compare them with the JAX kernels run
+  in interpret mode, and ``chip_smoke.py`` compares the CUDA kernels with
+  them on the card.
+- On a CUDA tensor the wrappers launch the kernels or raise. There is no
+  fallback to the plain versions.
+- ``flash_forward_launches``, ``flash_bwd_dq_launches`` and
+  ``flash_bwd_dkv_launches`` count kernel launches (never plain calls),
+  so a run can show that its passes went through the kernels.
 """
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,8 +35,10 @@ from . import build
 
 _NEG_INF = -1e30
 
-# Kernel launches by the CUDA wrapper in this process.
+# Kernel launches by the CUDA wrappers in this process.
 flash_forward_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 128
@@ -108,26 +113,38 @@ def flash_attention_reference(
     return out, m + torch.log(denom)
 
 
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"the flash kernels take float32, bfloat16 or float16; got {q.dtype}"
+        )
+    if q.shape[-1] > _MAX_HEAD_DIM:
+        raise ValueError(
+            f"the flash kernels take head_dim <= {_MAX_HEAD_DIM}; got {q.shape[-1]}"
+        )
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the flash kernels take contiguous q, k and v")
+
+
+def _kernel_fn(library: str, name: str, n_pointers: int):
+    """The C entry point ``name`` of ``csrc/<library>.cu``: ``n_pointers``
+    tensor pointers, then b, hq, hkv, s, d, dtype, causal, scale, stream."""
+    fn = getattr(build.load_library(library), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7 + [
+        ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    return fn
+
+
 def _launch_flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     global flash_forward_launches
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(
-            f"the flash kernel takes float32, bfloat16 or float16; got {q.dtype}"
-        )
+    _check_kernel_inputs(q, k, v)
     b, hq, s, d = q.shape
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernel takes head_dim <= {_MAX_HEAD_DIM}; got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the flash kernel takes contiguous q, k and v")
-    lib = build.load_library("flash_fwd")
-    fn = lib.flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float,
-        ctypes.c_void_p,
-    ]
+    fn = _kernel_fn("flash_fwd", "flash_fwd", 5)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -154,18 +171,143 @@ def _flash_forward(
     return _launch_flash_forward(q, k, v, causal)
 
 
+def _group_sum(x: torch.Tensor, group: int) -> torch.Tensor:
+    """Per-q-head ``[B, Hq, S, D]`` partials summed into their kv-heads."""
+    if group == 1:
+        return x
+    b, hq, s, d = x.shape
+    return x.view(b, hq // group, group, s, d).sum(dim=2)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    delta: Optional[torch.Tensor],
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernels: the full f32
+    p = exp(s − lse) matrix (0 in rows whose lse is the -1e30 sentinel and
+    at causally masked pairs), dP = dO·Vᵀ, ds = p·(dP − delta) and the
+    three products, GQA by repeating K/V and summing each group of
+    per-q-head dk/dv. ``delta`` is rowsum(dO·O) − dlse ``[B,Hq,S,1]``;
+    None computes rowsum(dO·O) from ``out``. Returns f32 (dq, dk, dv)."""
+    group = _check_inputs(q, k, v)
+    b, hq, s, d = q.shape
+    scale = 1.0 / (d**0.5)
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    do = d_out.float()
+    if delta is None:
+        delta = (do * out.float()).sum(dim=-1, keepdim=True)
+    delta = delta.float().reshape(b, hq, s, 1)
+    lse = lse.float().reshape(b, hq, s, 1)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    lse_safe = lse.clamp(min=_NEG_INF / 2)
+    p = torch.where(lse > _NEG_INF / 2, torch.exp(scores - lse_safe), 0.0)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        p = torch.where(mask, p, 0.0)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = p * (dp - delta)
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    return dq, _group_sum(dk, group), _group_sum(dv, group)
+
+
+def _launch_flash_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    d_out: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    _check_kernel_inputs(q, k, v)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    # dO in f32 is exact for a bf16/f16 cotangent and is what the kernels
+    # read: one kernel per q dtype, not one per (q, dO) dtype pair.
+    d_out = d_out.float().contiguous()
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    if d_out.shape != q.shape or lse.numel() != b * hq * s or delta.numel() != b * hq * s:
+        raise ValueError(
+            f"d_out must be {tuple(q.shape)} and lse, delta [B, Hq, S, 1]; got "
+            f"{tuple(d_out.shape)}, {tuple(lse.shape)}, {tuple(delta.shape)}"
+        )
+    dq_fn = _kernel_fn("flash_bwd", "flash_bwd_dq", 7)
+    dkv_fn = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    shape = (b, hq, hkv, s, d, _DTYPE_CODES[q.dtype], int(bool(causal)), 1.0 / (d**0.5))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = dq_fn(*inputs, dq.data_ptr(), *shape, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError_t {err}")
+        flash_bwd_dq_launches += 1
+        err = dkv_fn(*inputs, dk.data_ptr(), dv.data_ptr(), *shape, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError_t {err}")
+        flash_bwd_dkv_launches += 1
+    group = hq // hkv
+    return dq, _group_sum(dk, group), _group_sum(dv, group)
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    d_out: torch.Tensor,
+    d_lse: Optional[torch.Tensor],
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 (dq, dk, dv) of flash attention from the forward's ``out`` and
+    ``lse`` and the cotangents of both (``d_lse`` None counts as zero):
+    delta = rowsum(dO·O) − dlse, as ``_flash_chunk_bwd`` folds it."""
+    _check_inputs(q, k, v)
+    delta = (d_out.float() * out.float()).sum(dim=-1, keepdim=True)
+    if d_lse is not None:
+        delta = delta - d_lse.float().reshape(delta.shape)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, d_out, delta, causal
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return _launch_flash_backward(q, k, v, d_out, lse, delta, causal)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        return _flash_forward(q, k, v, causal)
+        out, lse = _flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out, lse
 
     @staticmethod
     def backward(ctx, grad_out, grad_lse):
-        raise NotImplementedError(
-            "The flash attention backward is not ported yet: it needs the "
-            "Hopper ports of _flash_bwd_dq_kernel (K2) and "
-            "_flash_bwd_dkv_kernel (K3), planned for slice S4."
+        q, k, v, out, lse = ctx.saved_tensors
+        if grad_out is None:
+            grad_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, grad_out, grad_lse, ctx.causal
         )
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def flash_attention_with_lse(

@@ -9,6 +9,8 @@
   two pinned bounce buffers: the host copy of one chunk into pinned
   memory overlaps the non-blocking DMA of the previous chunk, each buffer
   reused only after its event completed.
+- :func:`device_clone` — HBM→HBM copies of CUDA tensors on their
+  device's current stream: the consistent cut of an async take.
 - :func:`probe_d2h_gbps` / :func:`probe_h2d_gbps` — the pinned-memory
   ceilings a take and a restore are measured against.
 
@@ -17,7 +19,7 @@
 
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -110,6 +112,25 @@ def host_to_device(src: Any, dst: torch.Tensor) -> None:
 
 def is_oom_error(exc: BaseException) -> bool:
     return isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError))
+
+
+def device_clone(tensors: Sequence[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+    """Private copies of CUDA ``tensors``, enqueued on each device's
+    current stream: work the caller queues there afterwards (the next
+    training step's in-place update) is ordered after the copies, so the
+    clones hold the values as of this call with no synchronisation.
+    Returns None, with the partial clones released, if the card ran out
+    of memory."""
+    clones: List[torch.Tensor] = []
+    try:
+        for tensor in tensors:
+            clones.append(tensor.detach().clone())
+    except Exception as e:
+        if is_oom_error(e):
+            clones.clear()
+            return None
+        raise
+    return clones
 
 
 def _best_gbps(nbytes: int, run) -> float:

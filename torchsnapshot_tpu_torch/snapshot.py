@@ -20,37 +20,76 @@ in place** (host→device through pinned bounce buffers), so restoring a
 model onto the card holds one copy of its state there, not two; the
 restored state dict then holds the template tensors themselves.
 
-``read_object`` fetches one value (or one subtree) without a restore.
+``async_take`` captures the same cut before it returns and drains it on
+a background thread. Tensors are mutable, so the cut must be complete in
+stream order before the caller may touch them again: ``stage="device"``
+clones CUDA tensors on the card, on the current stream (the caller's next
+in-place update is queued after the clones), and copies host tensors on
+the host; ``stage="host"`` stages every payload to host memory first;
+``stage="auto"`` clones and falls back to host staging, with a warning,
+when the clones do not fit on the card. The drain stages the clones to
+pinned host memory on side streams that wait on an event recorded after
+them, writes the payloads, and commits through the JAX package's storage
+markers: a ``.completed/<take_id>/<rank>`` document carrying the rank's
+manifest, then the metadata with the same ``take_id``. A snapshot taken
+asynchronously by either package restores through the other.
 
-Not yet ported from the JAX package: ``async_take``, ``verify``,
-``delete``, ``copy_to``, ``diff``, compression, incremental and
-content-chunked takes, replicated paths and multi-rank coordination.
-Snapshots using those features raise ``NotImplementedError`` where the
-port cannot read them. JAX PRNG-key leaves restore as their raw uint32
-key data.
+``read_object`` fetches one value (or one subtree) without a restore.
+``delete`` removes a snapshot, metadata first, and with ``sweep=True``
+the objects its manifest does not reference.
+
+Not yet ported from the JAX package: ``verify``, ``copy_to``, ``diff``,
+compression, incremental and content-chunked takes, replicated paths
+and multi-rank coordination. Snapshots using those features raise
+``NotImplementedError`` where the port cannot read or delete them. JAX
+PRNG-key leaves restore as their raw uint32 key data.
 """
 
 import asyncio
+import json
+import logging
+import os
+import threading
+import time
 import uuid
 import zlib
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from .coord import Coordinator, get_coordinator
 from .flatten import flatten, inflate
-from .io_preparer import prepare_read, prepare_write
-from .io_types import IOReq, ReadReq, StoragePlugin, WriteReq, io_payload
+from .io_preparer import device_clone_write_reqs, prepare_read, prepare_write
+from .io_types import (
+    BufferStager,
+    IOReq,
+    ReadReq,
+    StoragePlugin,
+    WriteReq,
+    io_payload,
+    is_not_found_error,
+)
 from .manifest import (
+    ArrayEntry,
     DictEntry,
     ListEntry,
     Manifest,
+    ObjectEntry,
+    ShardedArrayEntry,
     SnapshotMetadata,
     get_available_entries,
 )
 from .rng_state import RNGState
-from .scheduler import execute_read_reqs, execute_write_reqs, get_memory_budget_bytes
+from .scheduler import (
+    _MAX_STAGING_THREADS,
+    execute_read_reqs,
+    execute_write_reqs,
+    get_memory_budget_bytes,
+)
 from .stateful import AppState, Stateful
-from .storage_plugin import url_to_storage_plugin
+from .storage_plugin import resolve_base_ref, url_to_storage_plugin
 from .utils.env import env_int
+
+logger = logging.getLogger(__name__)
 
 # The format version this package writes: the JAX package's, whose
 # format it shares.
@@ -76,19 +115,7 @@ class Snapshot:
         caller may change its tensors afterwards."""
         coordinator = get_coordinator(coord)
         rank = coordinator.get_rank()
-        app_state = dict(app_state)
-        rng_key, rng_stateful = _pop_rng_state(app_state)
-        manifest: Manifest = {}
-        write_reqs: List[WriteReq] = []
-        rng_captured = None
-        if rng_stateful is not None:
-            rng_captured = rng_stateful.state_dict()
-            _save_stateful(rng_key, rng_captured, rank, manifest, write_reqs)
-        for key in sorted(app_state):
-            _save_stateful(
-                key, app_state[key].state_dict(), rank, manifest, write_reqs
-            )
-
+        manifest, write_reqs = _capture(app_state, rank)
         storage = url_to_storage_plugin(path)
         try:
             asyncio.run(
@@ -106,11 +133,150 @@ class Snapshot:
             asyncio.run(_write_metadata(storage, metadata))
         finally:
             storage.close()
-        if rng_stateful is not None:
-            rng_stateful.load_state_dict(rng_captured)
         snapshot = cls(path, coord)
         snapshot._metadata = metadata
         return snapshot
+
+    @classmethod
+    def async_take(
+        cls,
+        path: str,
+        app_state: AppState,
+        coord: Optional[Coordinator] = None,
+        stage: str = "auto",
+    ) -> "PendingSnapshot":
+        """Capture a consistent cut of ``app_state`` and return; the
+        payload writes and the metadata commit drain on a background
+        thread. Call ``.wait()`` (or check ``.done()``) before depending
+        on the snapshot.
+
+        ``stage`` chooses how the cut is captured:
+
+        - ``"device"`` — clone CUDA tensors on the card (the stall is one
+          on-card copy, which needs room for the clones there) and copy
+          host tensors on the host; raise if the clones do not fit;
+        - ``"host"`` — stage every payload to host memory before
+          returning (the stall is one full device→host copy);
+        - ``"auto"`` — as ``"device"``, falling back to ``"host"`` with a
+          warning when the clones do not fit.
+
+        The caller may mutate its tensors in place as soon as this
+        returns: work it queues on the current stream runs after the
+        clones.
+        """
+        if stage not in ("auto", "host", "device"):
+            raise ValueError(f'stage must be "auto", "host", or "device"; got {stage!r}')
+        coordinator = get_coordinator(coord)
+        rank = coordinator.get_rank()
+        world_size = coordinator.get_world_size()
+        manifest, write_reqs = _capture(app_state, rank)
+        budget = get_memory_budget_bytes()
+        _prestage_write_reqs(write_reqs, budget, stage, coordinator)
+        # Per-take nonce: completion markers and metadata from earlier or
+        # concurrent takes to the same path never satisfy this take's
+        # polls; it becomes the committed metadata's take_id.
+        background = _BackgroundTake()
+        background.take_id = coordinator.broadcast_object(
+            uuid.uuid4().hex if rank == 0 else None, src=0
+        )
+        storage = url_to_storage_plugin(path)
+
+        async def _drain() -> None:
+            background.phase = "storage writes"
+            await execute_write_reqs(write_reqs, storage, budget, rank)
+            # The marker carries the manifest, so it is serialised only
+            # now: staging fills in the payload checksums.
+            background.phase = "commit markers"
+            await _acommit_via_storage(
+                storage, rank, world_size, manifest, background.take_id
+            )
+
+        try:
+            background.start(lambda: asyncio.run(_drain()))
+        except BaseException:
+            storage.close()
+            raise
+        return PendingSnapshot(path, coord, background, storage)
+
+    def delete(self, sweep: bool = False, force: bool = False) -> None:
+        """Delete this snapshot from storage, as the JAX package does.
+
+        The metadata (the commit point) goes first, so an interrupted
+        delete leaves an unreadable snapshot, never a readable one with
+        missing payloads; then every payload its manifest references, its
+        commit markers and the records the JAX package keeps beside a
+        snapshot. Missing objects are skipped. Payloads borrowed from a
+        base snapshot (a JAX incremental take's) are the base's to delete.
+
+        If a live incremental snapshot still references this one (a
+        back-link under ``refs/`` naming a committed snapshot whose
+        entries borrow from here, or a young one naming a take still in
+        flight; ``TPUSNAPSHOT_REFS_MIN_AGE_S``, default 3600), delete
+        refuses with ``RuntimeError`` unless ``force=True``. The port
+        writes no incremental takes, but honours the JAX package's.
+
+        ``sweep=True`` also removes objects under the prefix that the
+        manifest does not reference (leftovers of interrupted takes); the
+        metadata may then be missing or unreadable. Unreferenced objects
+        younger than ``TPUSNAPSHOT_SWEEP_MIN_AGE_S`` (default 3600) are
+        spared: they may belong to a take in flight at the same path.
+        Single-process: run it from one rank.
+        """
+        min_age_s = _env_seconds("TPUSNAPSHOT_SWEEP_MIN_AGE_S")
+        refs_min_age_s = _env_seconds("TPUSNAPSHOT_REFS_MIN_AGE_S")
+        storage = url_to_storage_plugin(self.path)
+        try:
+            try:
+                metadata: Optional[SnapshotMetadata] = _read_metadata_doc(storage)
+            except Exception as e:
+                if not sweep:
+                    raise
+                if not is_not_found_error(e):
+                    logger.warning(
+                        f"Snapshot metadata at {self.path} is unreadable "
+                        f"({e!r}); sweeping without it."
+                    )
+                metadata = None
+            if metadata is not None and any(
+                getattr(e, "chunks", None) for e in _payload_entries(metadata.manifest)
+            ):
+                raise NotImplementedError(
+                    f"{self.path} holds content-chunked payloads; deleting "
+                    f"them (chunk-store GC) is not yet ported to "
+                    f"torchsnapshot_tpu_torch (deduplication slice)"
+                )
+            if not force:
+                refs = asyncio.run(
+                    _live_referencers(storage, self.path, refs_min_age_s)
+                )
+                if refs:
+                    raise RuntimeError(
+                        f"Snapshot {self.path} is still referenced by "
+                        f"incremental snapshot(s) {sorted(refs)}; deleting it "
+                        f"would corrupt them. Delete those first, or pass "
+                        f"force=True."
+                    )
+            asyncio.run(_delete_snapshot(storage, metadata, sweep, min_age_s))
+            if metadata is not None and metadata.base_paths:
+                asyncio.run(_gc_backlinks_in_bases(metadata, self.path))
+            self._metadata = None
+        finally:
+            storage.close()
+
+    def is_referenced(self) -> bool:
+        """Whether a live incremental snapshot still references this one
+        (see :meth:`delete`). Retention defers such a snapshot."""
+        storage = url_to_storage_plugin(self.path)
+        try:
+            return bool(
+                asyncio.run(
+                    _live_referencers(
+                        storage, self.path, _env_seconds("TPUSNAPSHOT_REFS_MIN_AGE_S")
+                    )
+                )
+            )
+        finally:
+            storage.close()
 
     def restore(self, app_state: AppState, coord: Optional[Coordinator] = None) -> None:
         """Restore ``app_state`` in place from this snapshot."""
@@ -202,12 +368,91 @@ class Snapshot:
 
     def _read_metadata(self, storage: StoragePlugin) -> SnapshotMetadata:
         if self._metadata is None:
-            io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
-            asyncio.run(storage.read(io_req))
-            self._metadata = SnapshotMetadata.from_yaml(
-                _decode_metadata_doc(bytes(io_payload(io_req)))
-            )
+            self._metadata = _read_metadata_doc(storage)
         return self._metadata
+
+
+class _BackgroundTake:
+    """The drain thread of one async take, its error and its phase."""
+
+    def __init__(self) -> None:
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
+        self.take_id: Optional[str] = None
+        # Where the drain is, for a wait() that times out: a hung storage
+        # backend reads differently from a slow commit.
+        self.phase = "pending"
+
+    def start(self, fn: Callable[[], None]) -> None:
+        def _run() -> None:
+            try:
+                fn()
+            except BaseException as e:  # surfaced by PendingSnapshot.wait
+                self.error = e
+
+        self.thread = threading.Thread(target=_run, name="tpusnapshot-take")
+        self.thread.start()
+
+
+class PendingSnapshot:
+    """Handle for an in-flight :meth:`Snapshot.async_take`."""
+
+    def __init__(
+        self,
+        path: str,
+        coord: Optional[Coordinator],
+        background: _BackgroundTake,
+        storage: StoragePlugin,
+    ) -> None:
+        self.path = path
+        self._coord = coord
+        self._background = background
+        self._storage = storage
+        self._result: Optional[Snapshot] = None
+
+    def done(self) -> bool:
+        thread = self._background.thread
+        return thread is not None and not thread.is_alive()
+
+    def wait(self, timeout_s: float = 1800.0) -> Snapshot:
+        """Block until the snapshot is committed; idempotent. A drain
+        error raises here. A drain still running after ``timeout_s``
+        raises ``TimeoutError`` naming its phase; the handle stays
+        usable, and a later ``wait()`` resumes."""
+        if self._result is not None:
+            return self._result
+        deadline = time.monotonic() + timeout_s
+        thread = self._background.thread
+        if thread is not None:
+            thread.join(timeout=timeout_s)
+            if thread.is_alive():
+                raise TimeoutError(
+                    f"async_take drain did not finish within {timeout_s}s "
+                    f"(stuck in phase: {self._background.phase}). The "
+                    f"background thread is still running; call wait() "
+                    f"again to keep waiting."
+                )
+        try:
+            if self._background.error is None:
+                # Rank 0 committed in its drain; other ranks see the
+                # commit only through storage.
+                asyncio.run(
+                    _wait_for_metadata(
+                        self._storage,
+                        self._background.take_id,
+                        max(0.0, deadline - time.monotonic()),
+                    )
+                )
+        except TimeoutError:
+            raise  # the storage plugin stays open for the next wait()
+        except BaseException:
+            self._storage.close()
+            raise
+        self._storage.close()
+        if self._background.error is not None:
+            raise self._background.error
+        self._result = Snapshot(self.path, self._coord)
+        return self._result
 
 
 def _pop_rng_state(
@@ -305,6 +550,380 @@ def _load_stateful(
         }
     )
     stateful.load_state_dict(inflate(inflate_manifest, flattened, prefix=key))
+
+
+def _capture(app_state: AppState, rank: int) -> Tuple[Manifest, List[WriteReq]]:
+    """The cut of ``app_state``: its manifest (without rank prefixes) and
+    the write requests of its payloads. The RNG stateful is saved first,
+    the others in sorted key order, and then the RNG streams captured are
+    loaded back, so side effects of the other ``state_dict()`` calls do
+    not reach the program."""
+    app_state = dict(app_state)
+    rng_key, rng_stateful = _pop_rng_state(app_state)
+    manifest: Manifest = {}
+    write_reqs: List[WriteReq] = []
+    rng_captured = None
+    if rng_stateful is not None:
+        rng_captured = rng_stateful.state_dict()
+        _save_stateful(rng_key, rng_captured, rank, manifest, write_reqs)
+    for key in sorted(app_state):
+        _save_stateful(key, app_state[key].state_dict(), rank, manifest, write_reqs)
+    if rng_stateful is not None:
+        rng_stateful.load_state_dict(rng_captured)
+    return manifest, write_reqs
+
+
+class _PreStagedStager(BufferStager):
+    """A payload already staged to host memory by ``stage="host"``."""
+
+    def __init__(self, buf: Any) -> None:
+        self._buf = buf
+
+    async def stage_buffer(self, executor: Any = None) -> Any:
+        return self._buf
+
+    def get_staging_cost_bytes(self) -> int:
+        # Already held in host memory: writing it frees nothing, so
+        # charging its size would only throttle the drain.
+        return 0
+
+
+def _prestage_write_reqs(
+    write_reqs: List[WriteReq], budget: int, stage: str, coordinator: Coordinator
+) -> None:
+    """Capture an async take's cut: device clones, or host staging.
+
+    The choice is collective, as in the JAX package: every rank gathers
+    every rank's clone result and all take the same branch."""
+    cloned = stage != "host" and device_clone_write_reqs(write_reqs)
+    if all(coordinator.all_gather_object(cloned)) and stage != "host":
+        return
+    if stage == "device":
+        raise RuntimeError(
+            "stage='device' was requested but the on-device clones did not "
+            "fit in device memory on at least one rank. Use stage='auto' or "
+            "'host'."
+        )
+    if stage == "auto":
+        logger.warning(
+            "Device-staged snapshot does not fit in device memory; falling "
+            "back to host staging."
+        )
+    total = sum(wr.buffer_stager.get_staging_cost_bytes() for wr in write_reqs)
+    if total > budget:
+        logger.warning(
+            f"async_take will retain ~{total // (1 << 20)} MB of staged host "
+            f"buffers, exceeding the per-process memory budget "
+            f"({budget // (1 << 20)} MB). If this host is RAM-constrained, "
+            f"use Snapshot.take (bounded pipeline) instead."
+        )
+
+    async def _stage_all() -> None:
+        with ThreadPoolExecutor(max_workers=_MAX_STAGING_THREADS) as executor:
+            bufs = await asyncio.gather(
+                *(wr.buffer_stager.stage_buffer(executor) for wr in write_reqs)
+            )
+        for wr, buf in zip(write_reqs, bufs):
+            wr.buffer_stager = _PreStagedStager(buf)
+
+    asyncio.run(_stage_all())
+
+
+_COMPLETION_TIMEOUT_S = 1800.0
+
+
+def _merge_manifests(all_manifests: List[Manifest]) -> Manifest:
+    """Per-rank manifests as the global, rank-prefixed view."""
+    return {
+        f"{rank}/{path}": entry
+        for rank, manifest in enumerate(all_manifests)
+        for path, entry in manifest.items()
+    }
+
+
+async def _read_marker(storage: StoragePlugin, path: str, nonce: str) -> Optional[Manifest]:
+    """The manifest of completion marker ``path`` if it exists and belongs
+    to take ``nonce``; a torn or stale document reads as absent."""
+    try:
+        io_req = IOReq(path=path)
+        await storage.read(io_req)
+    except Exception as e:
+        if not is_not_found_error(e):
+            raise
+        return None
+    try:
+        doc = SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
+    except Exception:  # a torn document: keep polling
+        return None
+    return doc.manifest if doc.take_id == nonce else None
+
+
+async def _acommit_via_storage(
+    storage: StoragePlugin,
+    rank: int,
+    world_size: int,
+    manifest: Manifest,
+    take_id: str,
+    timeout_s: float = _COMPLETION_TIMEOUT_S,
+) -> Optional[SnapshotMetadata]:
+    """Commit by completion markers, as the JAX package's async drain
+    does: every rank writes its manifest to ``.completed/<take_id>/<rank>``;
+    rank 0 polls for every marker, merges them, writes the metadata and
+    removes the markers. Returns the metadata on rank 0."""
+    marker = IOReq(path=f".completed/{take_id}/{rank}")
+    marker.buf.write(
+        _encode_metadata_doc(
+            SnapshotMetadata(
+                version=FORMAT_VERSION,
+                world_size=world_size,
+                manifest=manifest,
+                take_id=take_id,
+            ).to_yaml()
+        )
+    )
+    await storage.write(marker)
+    if rank != 0:
+        return None
+    deadline = time.monotonic() + timeout_s
+    manifests: List[Manifest] = []
+    for r in range(world_size):
+        delay = 0.02
+        while True:
+            found = await _read_marker(storage, f".completed/{take_id}/{r}", take_id)
+            if found is not None:
+                manifests.append(found)
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"Timed out waiting for rank {r}'s completion marker "
+                    f".completed/{take_id}/{r}; the snapshot is NOT committed."
+                )
+            await asyncio.sleep(delay)
+            delay = min(delay * 2, 1.0)
+    metadata = SnapshotMetadata(
+        version=FORMAT_VERSION,
+        world_size=world_size,
+        manifest=_merge_manifests(manifests),
+        take_id=take_id,
+    )
+    await _write_metadata(storage, metadata)
+    for r in range(world_size):
+        try:
+            await storage.delete(f".completed/{take_id}/{r}")
+        except Exception:  # a leftover marker is inert; delete() removes it
+            logger.debug(f"removing .completed/{take_id}/{r} failed", exc_info=True)
+    return metadata
+
+
+async def _wait_for_metadata(
+    storage: StoragePlugin, take_id: Optional[str], timeout_s: float
+) -> None:
+    """Poll until the metadata of take ``take_id`` is readable; a stale
+    document of an earlier take at the same path does not count."""
+    deadline = time.monotonic() + timeout_s
+    delay = 0.02
+    while True:
+        try:
+            io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
+            await storage.read(io_req)
+            try:
+                metadata = SnapshotMetadata.from_yaml(
+                    _decode_metadata_doc(bytes(io_payload(io_req)))
+                )
+            except Exception:  # a torn document: keep polling
+                metadata = None
+            if metadata is not None and (take_id is None or metadata.take_id == take_id):
+                return
+        except Exception as e:
+            if not is_not_found_error(e):
+                raise
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                "Timed out waiting for the snapshot metadata commit "
+                f"({SNAPSHOT_METADATA_FNAME} absent or stale)."
+            )
+        await asyncio.sleep(delay)
+        delay = min(delay * 2, 1.0)
+
+
+def _env_seconds(name: str) -> float:
+    """An age guard in seconds (default 3600). Unlike other knobs, a
+    malformed value raises: it is read before destructive work."""
+    raw = os.environ.get(name, "3600")
+    try:
+        return float(raw)
+    except ValueError as e:
+        raise ValueError(f"Malformed {name}={raw!r}: expected seconds as a number") from e
+
+
+def _read_metadata_doc(storage: StoragePlugin) -> SnapshotMetadata:
+    io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
+    asyncio.run(storage.read(io_req))
+    return SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
+
+
+def _payload_entries(manifest: Manifest):
+    """Every entry that names a stored payload object."""
+    for entry in manifest.values():
+        if isinstance(entry, ShardedArrayEntry):
+            yield from (shard.array for shard in entry.shards)
+        elif isinstance(entry, (ArrayEntry, ObjectEntry)):
+            yield entry
+
+
+async def _delete_ignore_missing(storage: StoragePlugin, path: str) -> None:
+    try:
+        await storage.delete(path)
+    except Exception as e:
+        if not is_not_found_error(e):
+            raise
+
+
+# Records the JAX package keeps beside a snapshot (incremental back-links,
+# flight reports, progress and sampler records, a bare snapshot's
+# telemetry ledger, the hot tier's watermark): they go with it.
+_OWN_RECORD_PREFIXES = ("refs/", ".report", ".progress", ".scope/", ".telemetry/")
+_TIERDOWN_FNAME = ".tierdown"
+
+
+async def _delete_snapshot(
+    storage: StoragePlugin,
+    metadata: Optional[SnapshotMetadata],
+    sweep: bool,
+    min_age_s: float,
+) -> None:
+    locations: Set[str] = set()
+    markers: List[str] = [_TIERDOWN_FNAME]
+    if metadata is not None:
+        locations = {
+            e.location
+            for e in _payload_entries(metadata.manifest)
+            if getattr(e, "base", None) is None
+        }
+        if metadata.take_id:
+            markers += [
+                f".completed/{metadata.take_id}/{r}" for r in range(metadata.world_size)
+            ]
+    for prefix in _OWN_RECORD_PREFIXES:
+        markers += await storage.list_prefix(prefix) or []
+    # Uncommit first; then payloads in any order, up to the backend's
+    # write concurrency.
+    await _delete_ignore_missing(storage, SNAPSHOT_METADATA_FNAME)
+    sem = asyncio.Semaphore(max(1, storage.max_write_concurrency))
+
+    async def _one(path: str, guarded: bool) -> None:
+        async with sem:
+            if guarded and min_age_s > 0:
+                try:
+                    age = await storage.object_age_s(path)
+                except Exception as e:  # fail closed: spare it
+                    logger.warning(f"sweep: sparing {path} (age probe failed: {e!r})")
+                    return
+                if age is not None and age < min_age_s:
+                    logger.info(
+                        f"sweep: sparing {path} (age {age:.0f}s < {min_age_s:.0f}s: "
+                        f"possibly a take in flight)"
+                    )
+                    return
+            await _delete_ignore_missing(storage, path)
+
+    known = locations | set(markers)
+    await asyncio.gather(*(_one(p, False) for p in sorted(known)))
+    if not sweep:
+        return
+    leftovers = await storage.list_prefix("")
+    if leftovers is None:
+        logger.warning(
+            "The storage backend cannot enumerate objects; sweep skipped, "
+            "orphans from interrupted takes may remain."
+        )
+        return
+    await asyncio.gather(
+        *(
+            _one(p, True)
+            for p in leftovers
+            if p not in known and p != SNAPSHOT_METADATA_FNAME
+        )
+    )
+
+
+async def _referencing_snapshots(
+    storage: StoragePlugin, own_path: str
+) -> List[Tuple[str, str]]:
+    """The JAX package's incremental back-links in this snapshot's
+    ``refs/``: (marker path, resolved referencing snapshot URL), the URL
+    empty for an unreadable marker."""
+    out: List[Tuple[str, str]] = []
+    for path in await storage.list_prefix("refs/") or []:
+        try:
+            io_req = IOReq(path=path)
+            await storage.read(io_req)
+            ref = json.loads(bytes(io_payload(io_req)).decode())["path"]
+            out.append((path, resolve_base_ref(ref, own_path)))
+        except Exception as e:
+            logger.warning(f"unreadable back-link marker {path}: {e!r}")
+            out.append((path, ""))
+    return out
+
+
+async def _live_referencers(
+    storage: StoragePlugin, own_path: str, min_age_s: float
+) -> Set[str]:
+    """Incremental snapshots that still borrow ``own_path``'s objects: a
+    back-link whose snapshot has committed metadata with entries whose
+    base resolves here, or, uncommitted, a back-link younger than
+    ``min_age_s`` (a take in flight; unknown age counts as young)."""
+    live: Set[str] = set()
+    own = own_path.rstrip("/")
+    for marker_path, ref_url in await _referencing_snapshots(storage, own_path):
+        if not ref_url or ref_url.rstrip("/") in live:
+            continue
+        ref_storage = url_to_storage_plugin(ref_url)
+        try:
+            io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
+            await ref_storage.read(io_req)
+            md = SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
+        except Exception:  # absent: in flight or stale, told apart by age
+            if min_age_s > 0:
+                try:
+                    age = await storage.object_age_s(marker_path)
+                except Exception:  # unknown age fails closed
+                    age = None
+                if age is None or age < min_age_s:
+                    live.add(ref_url.rstrip("/"))
+            continue
+        finally:
+            ref_storage.close()
+        own_idxs = {
+            i
+            for i, ref in enumerate(md.base_paths)
+            if resolve_base_ref(ref, ref_url).rstrip("/") == own
+        }
+        if own_idxs and any(
+            getattr(e, "base", None) in own_idxs for e in _payload_entries(md.manifest)
+        ):
+            live.add(ref_url.rstrip("/"))
+    return live
+
+
+async def _gc_backlinks_in_bases(metadata: SnapshotMetadata, own_path: str) -> None:
+    """After deleting an incremental snapshot (a JAX package's), remove
+    the back-links it left in its bases, so they become deletable.
+    Best-effort: a base's own delete sees a stale back-link anyway."""
+    own = own_path.rstrip("/")
+    for ref in metadata.base_paths:
+        root = resolve_base_ref(ref, own_path)
+        if root.rstrip("/").endswith("/.chunkstore"):
+            continue  # chunk-store GC state, not a base snapshot's back-links
+        base_storage = url_to_storage_plugin(root)
+        try:
+            for marker_path, ref_url in await _referencing_snapshots(base_storage, root):
+                if ref_url and ref_url.rstrip("/") == own:
+                    await _delete_ignore_missing(base_storage, marker_path)
+        except Exception as e:
+            logger.warning(f"back-link GC in {root} failed: {e!r}")
+        finally:
+            base_storage.close()
 
 
 def _encode_metadata_doc(doc: str) -> bytes:

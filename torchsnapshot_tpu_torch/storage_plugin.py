@@ -5,7 +5,7 @@ Protocols: ``fs`` (the default when no ``://`` is present) and
 ``snapserve``) are not ported yet and raise.
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 from .io_types import RetryingStoragePlugin, StoragePlugin
 from .storage_plugins.fs import FSStoragePlugin
@@ -37,3 +37,34 @@ def url_to_storage_plugin(url_path: str) -> StoragePlugin:
             f"torchsnapshot_tpu_torch; use a local path or memory://."
         )
     raise RuntimeError(f"Unsupported protocol: {protocol}")
+
+
+def _parent_url(url: str) -> Optional[str]:
+    """The parent "directory" of a snapshot URL, or None when it has none
+    (``memory://bucket``)."""
+    trimmed = url.rstrip("/")
+    if "://" in trimmed:
+        scheme, _, rest = trimmed.partition("://")
+        if "/" not in rest:
+            return None
+        return f"{scheme}://{rest.rpartition('/')[0]}"
+    if "/" not in trimmed:
+        return None
+    return trimmed.rpartition("/")[0]
+
+
+def resolve_base_ref(ref: str, own_path: str) -> str:
+    """Resolve a snapshot reference as the JAX package records them in
+    incremental back-links and ``base_paths``: ``rel:<name>`` names a
+    sibling of ``own_path``, ``abs:<url>`` any location."""
+    if ref.startswith("rel:"):
+        parent = _parent_url(own_path.rstrip("/"))
+        if parent is None:
+            raise ValueError(
+                f"Cannot resolve relative reference {ref!r}: snapshot path "
+                f"{own_path!r} has no parent directory"
+            )
+        return f"{parent}/{ref[4:]}"
+    if ref.startswith("abs:"):
+        return ref[4:]
+    raise ValueError(f"Malformed snapshot reference: {ref!r}")

@@ -12,7 +12,8 @@ import asyncio
 import errno
 import os
 import threading
-from typing import Set
+import time
+from typing import List, Optional, Set
 
 from ..io_types import IOReq, StoragePlugin
 
@@ -116,6 +117,39 @@ class FSStoragePlugin(StoragePlugin):
     async def read(self, io_req: IOReq) -> None:
         loop = asyncio.get_running_loop()
         await loop.run_in_executor(None, self._read_sync, io_req)
+
+    async def delete(self, path: str) -> None:
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, os.remove, os.path.join(self.root, path))
+
+    def _list_sync(self, prefix: str) -> List[str]:
+        # Object-store semantics: a plain string prefix over paths relative
+        # to the root. The walk never leaves the root (a sweep must not see
+        # sibling snapshots) and starts at the deepest directory the prefix
+        # names, so listing ".steps/" costs O(markers), not O(objects).
+        found: List[str] = []
+        walk_dir = self.root
+        if "/" in prefix:
+            walk_dir = os.path.join(self.root, prefix.rsplit("/", 1)[0])
+        if not os.path.isdir(walk_dir):
+            return found
+        for dirpath, _, filenames in os.walk(walk_dir):
+            for name in filenames:
+                rel = os.path.relpath(os.path.join(dirpath, name), self.root)
+                if rel.startswith(prefix):
+                    found.append(rel)
+        return found
+
+    async def list_prefix(self, prefix: str) -> Optional[List[str]]:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, self._list_sync, prefix)
+
+    async def object_age_s(self, path: str) -> Optional[float]:
+        try:
+            st = os.stat(os.path.join(self.root, path))
+        except FileNotFoundError:
+            return None  # vanished: deleting it is a no-op
+        return max(0.0, time.time() - st.st_mtime)
 
     def close(self) -> None:
         # A plugin retired without reaching a publish point (an aborted
