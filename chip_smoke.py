@@ -13,14 +13,18 @@ Phases, each printing JSON lines to stdout:
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    inputs (a yardstick only: the port never calls it) and the least time
    the card could take for the same work.
-4. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
+4. mma_rate — the card's issue rate of warp-level ``mma.sync`` (tf32
+   and bf16), the instruction of every product in the backward kernels.
+5. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
    the plain backward at the train path's shape and the shapes around
-   it, with the tolerance stated, each kernel's time and bound, the
-   plain version's time and, as the pair's yardstick, the backward of
+   it (f32, bf16, f16; causal or not; GQA; ragged S; head_dim 128 and
+   80), with the tolerance stated, a check that two launches give
+   bitwise-equal results, each kernel's time and bound, the plain
+   version's time and, as the pair's yardstick, the backward of
    ``scaled_dot_product_attention`` on the same inputs.
-5. transfer — pinned device→host and host→device copy rates over 1 GiB,
+6. transfer — pinned device→host and host→device copy rates over 1 GiB,
    and the rate at which fresh host memory is pinned.
-6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
+7. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
    float32 parameters, 6.23 GB): a forward pass on 4 requests of 1024
    tokens through the flash kernel; ``Snapshot.take`` of the model, a
    progress counter and the RNG streams to the local filesystem (twice:
@@ -30,7 +34,7 @@ Phases, each printing JSON lines to stdout:
    on the card; a second forward with bit-identical logits; one weight
    read back with ``read_object``. Then the flash forward is held against
    the einsum forward on a short input.
-7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
+8. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
    tokens, every step through the three flash kernels (48 launches each
    per step), checkpointed as a training job does through
    ``CheckpointManager(max_to_keep=1)``: a sync save, a step, an
@@ -39,7 +43,7 @@ Phases, each printing JSON lines to stdout:
    model, byte-equal to the state the async save captured. Then one
    step's gradients through the flash kernels are held against plain
    autograd of the einsum attention on a short input.
-8. kernels — one JSON line summarising every kernel of the paths.
+9. kernels — one JSON line summarising every kernel of the paths.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -51,6 +55,7 @@ passes over the same bytes give bit-identical logits. The train path
 claims no bit-identity and turns them off.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -79,11 +84,16 @@ from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
 from torchsnapshot_tpu_torch.serialization import dtype_itemsize  # noqa: E402
 
-KERNELS = ["flash_fwd", "flash_bwd"]
+KERNELS = ["flash_fwd", "flash_bwd", "mma_probe"]
 
-# NVIDIA H100 SXM data sheet, dense: f32 outside the tensor cores, bf16
-# and f16 on them; HBM3 bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
+# NVIDIA H100 SXM data sheet, dense tensor-core rates: 989 TFLOP/s for
+# bf16 and f16; 495 TFLOP/s for TF32. An f32-accurate product is at least
+# three TF32 products (3xTF32: hi·hi + hi·lo + lo·hi, each operand split
+# into two TF32 terms, as the backward kernels and PyTorch's
+# memory-efficient SDPA backward compute float), so the least time for f32
+# work is at 495/3 = 165 TFLOP/s; the 67 TFLOP/s f32 rate outside the
+# tensor cores is slower. HBM3 bandwidth.
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12, torch.float16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # |kernel - plain| <= atol + rtol * |plain|. f32: the same f32 sums taken
@@ -130,12 +140,21 @@ BWD_SHAPES = [
     ("noncausal_bf16", 1, 25, 25, 1024, 64, torch.bfloat16, False),
     ("gqa_bf16", 2, 32, 8, 2048, 128, torch.bfloat16, True),
     ("ragged_f32", 1, 25, 25, 1000, 64, torch.float32, True),
+    ("single_f16", 1, 25, 25, 1024, 64, torch.float16, True),
+    ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True),
+    ("odd_d_bf16", 1, 8, 8, 512, 80, torch.bfloat16, False),
 ]
 
-# |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. Both sides
-# compute in f32 from the same inputs (bf16 inputs are exact in f32), so
-# every dtype is held to one f32 tolerance: sums of up to S·D products
-# taken in another order.
+# K2 and K3 at the train path's shape before their redesign for the
+# tensor cores (scalar f32 FMAs), as this script measured them on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; kept beside the new times.
+EARLIER_BWD_MS = {"dq": 0.985, "dkv": 1.078}
+
+# |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. The plain
+# version computes in f32 from the same inputs (bf16/f16 inputs are exact
+# in f32); the kernels' products are f32-accurate (3xTF32 for f32, exact
+# 16-bit products and hi + lo splits of p and ds otherwise) and sum in
+# another order, so every dtype is held to one f32-level tolerance.
 BWD_TOL = (1e-4, 1e-4)
 
 
@@ -173,18 +192,18 @@ def flash_bound(b, hq, hkv, s, d, dtype, causal):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def bwd_bound(b, hq, hkv, s, d, dtype, causal, products, outputs):
+def bwd_bound(b, hq, hkv, s, d, dtype, causal, products, out_heads):
     """(least ms, "bytes" or "operations") for one backward kernel:
     ``products`` matrix products of 2·D flops per (query, key) pair the
-    mask keeps, at the card's peak for the input type; q, k, v read once
-    in their type, dO, lse and delta in f32 (as the wrapper hands them
-    over), and ``outputs`` f32 [B,Hq,S,D] planes written once."""
+    mask keeps, at the card's peak for the input type; q, dO, k, v read
+    once in their type, lse and delta in f32, and f32 [B,h,S,D] outputs of
+    ``out_heads`` heads in all written once."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = products * 2 * d * b * hq * pairs
     itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = ((b * hq + 2 * b * hkv) * s * d * itemsize
-              + (b * hq * s * d + 2 * b * hq * s) * 4
-              + outputs * b * hq * s * d * 4)
+    nbytes = ((2 * b * hq + 2 * b * hkv) * s * d * itemsize
+              + 2 * b * hq * s * 4
+              + out_heads * b * s * d * 4)
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -224,6 +243,28 @@ def phase_build():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
     emit({"phase": "build", "kernels": KERNELS, "seconds": seconds})
+
+
+def phase_mma_rate():
+    """The card's issue rate of warp-level mma.sync (``csrc/mma_probe.cu``),
+    the instruction of every product in the backward kernels: TFLOP/s of
+    m16n8k8 tf32 and m16n8k16 bf16 with operands in registers."""
+    lib = build.load_library("mma_probe")
+    lib.mma_probe.restype = ctypes.c_int
+    lib.mma_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    out = torch.empty(blocks * 128, device="cuda")
+    record = {"phase": "mma_rate", "blocks": blocks, "warps_per_block": 4}
+    for kind, name, k in ((0, "tf32", 8), (1, "bf16", 16)):
+        def run(kind=kind):
+            _checked(lib.mma_probe(kind, blocks, iters, out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream))
+        ms = cuda_ms(run, 3)
+        flops = blocks * 4 * iters * 8 * 2 * 16 * 8 * k
+        record[f"{name}_tflops"] = flops / ms / 1e9
+    emit(record)
+    return record
 
 
 def phase_kernel():
@@ -275,36 +316,24 @@ def phase_kernel():
     return results
 
 
-def _bwd_kernel_calls(q, k, v, d_out, lse, delta, causal):
-    """The two backward kernels' C entry points bound to preallocated
-    outputs, exactly as the wrapper launches them, for timing each
-    kernel alone."""
-    b, hq, s, d = q.shape
-    d_out, lse, delta = (x.float().contiguous() for x in (d_out, lse, delta))
-    out = [torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(3)]
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
-              lse.data_ptr(), delta.data_ptr())
-    shape = (b, hq, k.shape[1], s, d, attention._DTYPE_CODES[q.dtype], int(causal),
-             1.0 / d**0.5)
-    dq_fn = attention._kernel_fn("flash_bwd", "flash_bwd_dq", 7)
-    dkv_fn = attention._kernel_fn("flash_bwd", "flash_bwd_dkv", 8)
-
-    held = (d_out, lse, delta, out)  # the pointers above stay valid
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def dq(held=held):
-        assert dq_fn(*inputs, held[3][0].data_ptr(), *shape, stream()) == 0
-
-    def dkv(held=held):
-        assert dkv_fn(*inputs, held[3][1].data_ptr(), held[3][2].data_ptr(), *shape,
-                      stream()) == 0
-
-    return dq, dkv
+def _checked(err):
+    if err != 0:
+        raise RuntimeError(f"kernel launch failed: cudaError_t {err}")
 
 
-def phase_kernel_bwd():
+def mma_floor_ms(b, hq, s, d, dtype, causal, products, mma_rate):
+    """(ms) the mma.sync instructions of one backward kernel need at the
+    rates ``phase_mma_rate`` measured: every product is three tf32 mma
+    for f32 inputs (3xTF32); for 16-bit inputs the products that consume
+    p or ds (all but the first two) are two mma (their hi + lo split)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 2 * d * b * hq * pairs
+    if dtype == torch.float32:
+        return 3 * products * flops / (mma_rate["tf32_tflops"] * 1e9)
+    return (2 + 2 * (products - 2)) * flops / (mma_rate["bf16_tflops"] * 1e9)
+
+
+def phase_kernel_bwd(mma_rate):
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(4321)
     for name, b, hq, hkv, s, d, dtype, causal in BWD_SHAPES:
@@ -335,11 +364,17 @@ def phase_kernel_bwd():
             record[f"{grad}_max_abs"] = float(r.abs().max())
             ok = ok and within(err, r, *BWD_TOL)
         record["max_abs_err"] = max(record[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv"))
+        again = attention._launch_flash_backward(q, k, v, d_out, lse, delta, causal)
+        torch.cuda.synchronize()
+        record["determinism"] = all(
+            torch.equal(a.view(torch.int32), b_.view(torch.int32)) for a, b_ in zip(got, again))
         record["within_tolerance"] = ok
-        del got, ref
-        dq_call, dkv_call = _bwd_kernel_calls(q, k, v, d_out, lse, delta, causal)
-        record["dq_kernel_ms"] = cuda_ms(dq_call, 10)
-        record["dkv_kernel_ms"] = cuda_ms(dkv_call, 10)
+        del got, ref, again
+        # The C entry points alone, bound as the wrapper binds them.
+        dq_call, dkv_call, _ = attention._backward_kernel_calls(
+            q, k, v, d_out, lse, delta, causal)
+        record["dq_kernel_ms"] = cuda_ms(lambda: _checked(dq_call()), 10)
+        record["dkv_kernel_ms"] = cuda_ms(lambda: _checked(dkv_call()), 10)
         record["plain_ms"] = cuda_ms(
             lambda: attention.flash_attention_backward_reference(
                 q, k, v, out, lse, d_out, delta, causal), 3, 1)
@@ -348,13 +383,17 @@ def phase_kernel_bwd():
         sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, **gqa)
         record["library_ms"] = cuda_ms(
             lambda: torch.autograd.grad(sdpa, (qg, kg, vg), d_out, retain_graph=True), 10)
-        for kernel, products, outputs in (("dq", 3, 1), ("dkv", 4, 2)):
-            bound, bound_by = bwd_bound(b, hq, hkv, s, d, dtype, causal, products, outputs)
+        for kernel, products, out_heads in (("dq", 3, hq), ("dkv", 4, 2 * hkv)):
+            bound, bound_by = bwd_bound(b, hq, hkv, s, d, dtype, causal, products, out_heads)
             record[f"{kernel}_bound_ms"] = bound
             record[f"{kernel}_bound_by"] = bound_by
+            record[f"{kernel}_mma_floor_ms"] = mma_floor_ms(
+                b, hq, s, d, dtype, causal, products, mma_rate)
         emit(record)
         if not ok:
             raise AssertionError(f"flash_bwd disagrees with its plain version: {record}")
+        if not record["determinism"]:
+            raise AssertionError(f"flash_bwd gave two results on one input: {record}")
         results[name] = record
         del q, k, v, d_out, out, lse, delta, qg, kg, vg, sdpa, dq_call, dkv_call
         torch.cuda.empty_cache()
@@ -737,7 +776,8 @@ def main():
     smi, device = phase_device()
     phase_build()
     flash = phase_kernel()
-    flash_bwd = phase_kernel_bwd()
+    mma_rate = phase_mma_rate()
+    flash_bwd = phase_kernel_bwd(mma_rate)
     phase_transfer()
     main_path = phase_main_path()
     train = phase_train()
@@ -768,6 +808,7 @@ def main():
             "max_abs_err": bwd["max_abs_err"],
             "ms": bwd[f"{key}_kernel_ms"],
             "kernel_ms": bwd[f"{key}_kernel_ms"],
+            "earlier_kernel_ms": EARLIER_BWD_MS[key],
             # The plain backward and SDPA's backward compute the pair.
             "plain_ms": bwd["plain_ms"],
             "bound_ms": bwd[f"{key}_bound_ms"],

@@ -121,6 +121,94 @@ def test_plain_backward_matches_jax_kernels(causal, heads, dtype):
         )
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, on the low 13 mantissa bits of the int32 view."""
+    bits = (x.view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the backward kernels take an f32 product on the tensor
+    cores: each operand split into tf32 hi + lo, and hi·hi + hi·lo + lo·hi
+    summed in f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def _mm_split16(p, b, dtype):
+    """p @ b as the 16-bit kernels take it: f32 p split into hi + lo terms
+    of the input type, b exact in it; two products summed in f32."""
+    hi = p.to(dtype).float()
+    lo = (p - hi).to(dtype).float()
+    return lo @ b + hi @ b
+
+
+def _emulated_kernel_backward(q, k, v, lse, d_out, delta, causal):
+    """flash_attention_backward_reference with the CUDA kernels' operand
+    rounding: 3xTF32 for every f32 product; for 16-bit inputs, exact
+    Q·Kᵀ and dO·Vᵀ and two-term splits of p and ds."""
+    group = q.shape[1] // k.shape[1]
+    b, hq, s, d = q.shape
+    scale = 1.0 / d**0.5
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    do = d_out.float()
+    if q.dtype == torch.float32:
+        plain = rounded = _mm_3xtf32
+    else:
+        plain = torch.matmul
+
+        def rounded(p, x):
+            return _mm_split16(p, x, q.dtype)
+
+    lse = lse.float().reshape(b, hq, s, 1)
+    p = torch.exp(plain(qf, kf.transpose(-1, -2)) * scale - lse.clamp(min=-5e29))
+    p = torch.where(lse > -5e29, p, 0.0)
+    if causal:
+        p = torch.where(torch.ones(s, s, dtype=torch.bool).tril(), p, 0.0)
+    ds = p * (plain(do, vf.transpose(-1, -2)) - delta.float().reshape(b, hq, s, 1))
+    dq = scale * rounded(ds, kf)
+    dk = scale * rounded(ds.transpose(-1, -2), qf)
+    dv = rounded(p.transpose(-1, -2), do)
+    return dq, tattn._group_sum(dk, group), tattn._group_sum(dv, group)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    x = torch.tensor([1.0 + 2**-11, 1.0 + 2**-12, -(1.0 + 2**-11), 3.0 + 2**-10 + 2**-12])
+    assert _tf32(x).tolist() == [1.0 + 2**-10, 1.0, -(1.0 + 2**-10), 3.0 + 2**-9]
+    hi = _tf32(x)
+    assert torch.equal(hi + _tf32(x - hi), x)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_kernel_operand_rounding_matches_jax_kernels(causal, heads, dtype):
+    """The numerics of the tensor-core backward kernels, emulated on the
+    CPU, against the Pallas backward in interpret mode at the tolerance
+    chip_smoke.py holds the kernels to (BWD_TOL: 1e-4 + 1e-4·|ref|)."""
+    hq, hkv = heads
+    q, k, v = _qkv(1, hq, hkv, 64, 16, seed=50 + hq + causal)
+    g = np.random.default_rng(51 + hq).standard_normal((1, hq, 64, 16)).astype(np.float32)
+    if dtype == "bf16":
+        q, k, v, g = (x.astype(ml_dtypes.bfloat16) for x in (q, k, v, g))
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    out, lse = jattn.flash_chunk_attention(jq, jk, jv, causal, 32, 32, True)
+    delta = jnp.sum(jg.astype(jnp.float32) * out.astype(jnp.float32), axis=-1, keepdims=True)
+    expected = jattn._flash_backward(jq, jk, jv, jg, lse, delta, causal, 32, 32, True)
+    to_torch = _bf16 if dtype == "bf16" else torch.from_numpy
+    got = _emulated_kernel_backward(
+        to_torch(q), to_torch(k), to_torch(v), torch.from_numpy(np.array(lse)),
+        to_torch(g), torch.from_numpy(np.array(delta)), causal,
+    )
+    for name, t, e in zip("qkv", got, expected):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=1e-4, rtol=1e-4,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
 def test_autograd_through_flash_attention_matches_jax_grad(heads):
     hq, hkv = heads

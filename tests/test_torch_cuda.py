@@ -58,6 +58,11 @@ def test_flash_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, dtype, causa
         (1, 2, 2, 200, 64, torch.float32, False),
         (2, 4, 2, 200, 128, torch.bfloat16, True),
         (1, 2, 1, 130, 32, torch.float16, False),
+        (1, 4, 4, 192, 80, torch.bfloat16, True),
+        (2, 8, 2, 256, 128, torch.float16, True),
+        (1, 2, 2, 200, 128, torch.float32, False),
+        (1, 2, 2, 70, 36, torch.bfloat16, True),
+        (1, 2, 1, 100, 30, torch.float32, True),
     ],
 )
 def test_flash_backward_kernels_match_plain_version(cuda, b, hq, hkv, s, d, dtype, causal):
@@ -81,6 +86,50 @@ def test_flash_backward_kernels_match_plain_version(cuda, b, hq, hkv, s, d, dtyp
         assert g.dtype == torch.float32 and g.shape == e.shape
         # f32 sums in another order, relative to the gradient's size.
         torch.testing.assert_close(g, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
+
+
+def _backward_inputs(cuda, b, hq, hkv, s, d, dtype, causal, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (
+        torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
+        for h in (hq, hkv, hkv)
+    )
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal)
+    d_out = torch.randn((b, hq, s, d), generator=gen, device=cuda)
+    return q, k, v, out, lse, d_out
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,dtype,causal",
+    [
+        (2, 4, 4, 256, 64, torch.float32, True),
+        (1, 8, 2, 200, 128, torch.bfloat16, False),
+        (1, 4, 4, 192, 80, torch.float16, True),
+    ],
+)
+def test_flash_backward_kernels_are_deterministic(cuda, b, hq, hkv, s, d, dtype, causal):
+    q, k, v, out, lse, d_out = _backward_inputs(cuda, b, hq, hkv, s, d, dtype, causal, 3)
+    d_out = d_out.to(dtype)
+    first = attention.flash_attention_backward(q, k, v, out, lse, d_out, None, causal)
+    second = attention.flash_attention_backward(q, k, v, out, lse, d_out, None, causal)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+
+
+def test_flash_backward_wide_cotangent_stays_exact(cuda):
+    """A bf16 q with an f32 dO: dO is not rounded to bf16."""
+    q, k, v, out, lse, d_out = _backward_inputs(cuda, 1, 4, 2, 192, 64, torch.bfloat16, True, 4)
+    got = attention.flash_attention_backward(q, k, v, out, lse, d_out, None, True)
+    delta = (d_out * out.float()).sum(-1, keepdim=True)
+    expected = attention.flash_attention_backward_reference(
+        q, k, v, out, lse, d_out, delta, True)
+    rounded = attention.flash_attention_backward_reference(
+        q, k, v, out, lse, d_out.to(torch.bfloat16), delta, True)
+    for g, e, r in zip(got, expected, rounded):
+        torch.testing.assert_close(g, e, atol=1e-4 * float(e.abs().max()), rtol=1e-4)
+        # Rounding dO to bf16 would be visible at this tolerance.
+        assert float((r - e).abs().max()) > 1e-4 * float(e.abs().max())
 
 
 def test_flash_attention_autograd_launches_backward_kernels(cuda):

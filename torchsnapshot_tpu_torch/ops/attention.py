@@ -220,6 +220,64 @@ def flash_attention_backward_reference(
     return dq, _group_sum(dk, group), _group_sum(dv, group)
 
 
+def _kernel_operand(x: torch.Tensor, dtype: torch.dtype, width: int) -> torch.Tensor:
+    """``x`` as the backward kernels read it: ``dtype``, contiguous,
+    16-byte aligned, zero-padded to ``width`` along its last axis."""
+    x = x.to(dtype)
+    if x.shape[-1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _backward_kernel_calls(q, k, v, d_out, lse, delta, causal):
+    """The two backward kernels bound to their inputs and to fresh f32
+    outputs, as ``_launch_flash_backward`` launches them: (dq call, dkv
+    call, (dq, dk, dv)). Each call returns the launch's cudaError_t and
+    counts nothing; the outputs are ``[B, Hq, S, W]`` for dq and
+    ``[B, Hkv, S, W]`` for dk and dv, valid after both calls ran, where
+    W >= D is the kernels' padded head_dim (see below).
+
+    The kernels read dO in q's dtype, as every autograd call hands it
+    over. A dO of another dtype is not rounded into q's: the kernels then
+    run in f32 on exact upcasts of all four operands. The kernels copy
+    rows in 16-byte pieces, so a head_dim whose rows are not a multiple of
+    16 bytes is zero-padded and the padding cut from the outputs."""
+    _check_kernel_inputs(q, k, v)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if d_out.shape != q.shape or lse.numel() != b * hq * s or delta.numel() != b * hq * s:
+        raise ValueError(
+            f"d_out must be {tuple(q.shape)} and lse, delta [B, Hq, S, 1]; got "
+            f"{tuple(d_out.shape)}, {tuple(lse.shape)}, {tuple(delta.shape)}"
+        )
+    dtype = q.dtype if d_out.dtype == q.dtype else torch.float32
+    per_copy = 16 // torch.empty((), dtype=dtype).element_size()
+    width = -(-d // per_copy) * per_copy
+    q, k, v, d_out = (_kernel_operand(x, dtype, width) for x in (q, k, v, d_out))
+    lse, delta = (_kernel_operand(x.reshape(b, hq, s), torch.float32, s) for x in (lse, delta))
+    dq = torch.empty((b, hq, s, width), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, hkv, s, width), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    shape = (b, hq, hkv, s, width, _DTYPE_CODES[dtype], int(bool(causal)), 1.0 / (d**0.5))
+    dq_fn = _kernel_fn("flash_bwd", "flash_bwd_dq", 7)
+    dkv_fn = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8)
+    held = (q, k, v, d_out, lse, delta)  # the pointers above stay valid
+
+    def stream():
+        return torch.cuda.current_stream(dq.device).cuda_stream
+
+    def dq_call(held=held):
+        return dq_fn(*inputs, dq.data_ptr(), *shape, stream())
+
+    def dkv_call(held=held):
+        return dkv_fn(*inputs, dk.data_ptr(), dv.data_ptr(), *shape, stream())
+
+    return dq_call, dkv_call, (dq, dk, dv)
+
+
 def _launch_flash_backward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -230,39 +288,20 @@ def _launch_flash_backward(
     causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
-    _check_kernel_inputs(q, k, v)
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    # dO in f32 is exact for a bf16/f16 cotangent and is what the kernels
-    # read: one kernel per q dtype, not one per (q, dO) dtype pair.
-    d_out = d_out.float().contiguous()
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
-    if d_out.shape != q.shape or lse.numel() != b * hq * s or delta.numel() != b * hq * s:
-        raise ValueError(
-            f"d_out must be {tuple(q.shape)} and lse, delta [B, Hq, S, 1]; got "
-            f"{tuple(d_out.shape)}, {tuple(lse.shape)}, {tuple(delta.shape)}"
-        )
-    dq_fn = _kernel_fn("flash_bwd", "flash_bwd_dq", 7)
-    dkv_fn = _kernel_fn("flash_bwd", "flash_bwd_dkv", 8)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
-              lse.data_ptr(), delta.data_ptr())
-    shape = (b, hq, hkv, s, d, _DTYPE_CODES[q.dtype], int(bool(causal)), 1.0 / (d**0.5))
+    dq_call, dkv_call, grads = _backward_kernel_calls(q, k, v, d_out, lse, delta, causal)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = dq_fn(*inputs, dq.data_ptr(), *shape, stream)
+        err = dq_call()
         if err != 0:
             raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError_t {err}")
         flash_bwd_dq_launches += 1
-        err = dkv_fn(*inputs, dk.data_ptr(), dv.data_ptr(), *shape, stream)
+        err = dkv_call()
         if err != 0:
             raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError_t {err}")
         flash_bwd_dkv_launches += 1
-    group = hq // hkv
-    return dq, _group_sum(dk, group), _group_sum(dv, group)
+    d = q.shape[-1]
+    if grads[0].shape[-1] != d:
+        grads = tuple(g[..., :d].contiguous() for g in grads)
+    return grads
 
 
 def flash_attention_backward(
