@@ -13,18 +13,16 @@ Phases, each printing JSON lines to stdout:
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    inputs (a yardstick only: the port never calls it) and the least time
    the card could take for the same work.
-4. mma_rate — the card's issue rate of warp-level ``mma.sync`` (tf32
-   and bf16), the instruction of every product in the backward kernels.
-5. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
+4. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
    the plain backward at the train path's shape and the shapes around
    it (f32, bf16, f16; causal or not; GQA; ragged S; head_dim 128 and
    80), with the tolerance stated, a check that two launches give
    bitwise-equal results, each kernel's time and bound, the plain
    version's time and, as the pair's yardstick, the backward of
    ``scaled_dot_product_attention`` on the same inputs.
-6. transfer — pinned device→host and host→device copy rates over 1 GiB,
+5. transfer — pinned device→host and host→device copy rates over 1 GiB,
    and the rate at which fresh host memory is pinned.
-7. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
+6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
    float32 parameters, 6.23 GB): a forward pass on 4 requests of 1024
    tokens through the flash kernel; ``Snapshot.take`` of the model, a
    progress counter and the RNG streams to the local filesystem (twice:
@@ -34,7 +32,7 @@ Phases, each printing JSON lines to stdout:
    on the card; a second forward with bit-identical logits; one weight
    read back with ``read_object``. Then the flash forward is held against
    the einsum forward on a short input.
-8. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
+7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
    tokens, every step through the three flash kernels (48 launches each
    per step), checkpointed as a training job does through
    ``CheckpointManager(max_to_keep=1)``: a sync save, a step, an
@@ -43,7 +41,7 @@ Phases, each printing JSON lines to stdout:
    model, byte-equal to the state the async save captured. Then one
    step's gradients through the flash kernels are held against plain
    autograd of the einsum attention on a short input.
-9. kernels — one JSON line summarising every kernel of the paths.
+8. kernels — one JSON line summarising every kernel of the paths.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -55,7 +53,6 @@ passes over the same bytes give bit-identical logits. The train path
 claims no bit-identity and turns them off.
 """
 
-import ctypes
 import dataclasses
 import json
 import math
@@ -84,7 +81,7 @@ from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
 from torchsnapshot_tpu_torch.serialization import dtype_itemsize  # noqa: E402
 
-KERNELS = ["flash_fwd", "flash_bwd", "mma_probe"]
+KERNELS = ["flash_fwd", "flash_bwd"]
 
 # NVIDIA H100 SXM data sheet, dense tensor-core rates: 989 TFLOP/s for
 # bf16 and f16; 495 TFLOP/s for TF32. An f32-accurate product is at least
@@ -144,11 +141,6 @@ BWD_SHAPES = [
     ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True),
     ("odd_d_bf16", 1, 8, 8, 512, 80, torch.bfloat16, False),
 ]
-
-# K2 and K3 at the train path's shape before their redesign for the
-# tensor cores (scalar f32 FMAs), as this script measured them on an
-# NVIDIA H100 80GB HBM3 at 700.00 W; kept beside the new times.
-EARLIER_BWD_MS = {"dq": 0.985, "dkv": 1.078}
 
 # |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. The plain
 # version computes in f32 from the same inputs (bf16/f16 inputs are exact
@@ -245,28 +237,6 @@ def phase_build():
     emit({"phase": "build", "kernels": KERNELS, "seconds": seconds})
 
 
-def phase_mma_rate():
-    """The card's issue rate of warp-level mma.sync (``csrc/mma_probe.cu``),
-    the instruction of every product in the backward kernels: TFLOP/s of
-    m16n8k8 tf32 and m16n8k16 bf16 with operands in registers."""
-    lib = build.load_library("mma_probe")
-    lib.mma_probe.restype = ctypes.c_int
-    lib.mma_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
-    iters = 4096
-    out = torch.empty(blocks * 128, device="cuda")
-    record = {"phase": "mma_rate", "blocks": blocks, "warps_per_block": 4}
-    for kind, name, k in ((0, "tf32", 8), (1, "bf16", 16)):
-        def run(kind=kind):
-            _checked(lib.mma_probe(kind, blocks, iters, out.data_ptr(),
-                                   torch.cuda.current_stream().cuda_stream))
-        ms = cuda_ms(run, 3)
-        flops = blocks * 4 * iters * 8 * 2 * 16 * 8 * k
-        record[f"{name}_tflops"] = flops / ms / 1e9
-    emit(record)
-    return record
-
-
 def phase_kernel():
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -321,19 +291,7 @@ def _checked(err):
         raise RuntimeError(f"kernel launch failed: cudaError_t {err}")
 
 
-def mma_floor_ms(b, hq, s, d, dtype, causal, products, mma_rate):
-    """(ms) the mma.sync instructions of one backward kernel need at the
-    rates ``phase_mma_rate`` measured: every product is three tf32 mma
-    for f32 inputs (3xTF32); for 16-bit inputs the products that consume
-    p or ds (all but the first two) are two mma (their hi + lo split)."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 2 * d * b * hq * pairs
-    if dtype == torch.float32:
-        return 3 * products * flops / (mma_rate["tf32_tflops"] * 1e9)
-    return (2 + 2 * (products - 2)) * flops / (mma_rate["bf16_tflops"] * 1e9)
-
-
-def phase_kernel_bwd(mma_rate):
+def phase_kernel_bwd():
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(4321)
     for name, b, hq, hkv, s, d, dtype, causal in BWD_SHAPES:
@@ -387,8 +345,6 @@ def phase_kernel_bwd(mma_rate):
             bound, bound_by = bwd_bound(b, hq, hkv, s, d, dtype, causal, products, out_heads)
             record[f"{kernel}_bound_ms"] = bound
             record[f"{kernel}_bound_by"] = bound_by
-            record[f"{kernel}_mma_floor_ms"] = mma_floor_ms(
-                b, hq, s, d, dtype, causal, products, mma_rate)
         emit(record)
         if not ok:
             raise AssertionError(f"flash_bwd disagrees with its plain version: {record}")
@@ -776,8 +732,7 @@ def main():
     smi, device = phase_device()
     phase_build()
     flash = phase_kernel()
-    mma_rate = phase_mma_rate()
-    flash_bwd = phase_kernel_bwd(mma_rate)
+    flash_bwd = phase_kernel_bwd()
     phase_transfer()
     main_path = phase_main_path()
     train = phase_train()
@@ -808,7 +763,6 @@ def main():
             "max_abs_err": bwd["max_abs_err"],
             "ms": bwd[f"{key}_kernel_ms"],
             "kernel_ms": bwd[f"{key}_kernel_ms"],
-            "earlier_kernel_ms": EARLIER_BWD_MS[key],
             # The plain backward and SDPA's backward compute the pair.
             "plain_ms": bwd["plain_ms"],
             "bound_ms": bwd[f"{key}_bound_ms"],

@@ -36,10 +36,9 @@
 //     exact products; p and ds (f32) are split into hi + lo terms of the
 //     input type, two mma per product, so they are not rounded to 16 bits.
 //
-// mma.sync itself reaches about two thirds of the data sheet's tensor-core
-// rates on the H100 (chip_smoke.py's mma_rate phase); the f32 kernels also
-// spend an issue slot on every integer op of the operand splits, and with
-// 8 warps an SM little of the load → split → mma latency is hidden.
+// The f32 kernels spend an issue slot on every integer op of the operand
+// splits, and with 8 warps an SM little of the load → split → mma latency
+// is hidden.
 //
 // Structure. Four warps own one 64-row tile of one head, 16 rows each; the
 // other axis is a loop in the block, its tiles streamed through a
