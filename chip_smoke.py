@@ -53,6 +53,7 @@ passes over the same bytes give bit-identical logits. The train path
 claims no bit-identity and turns them off.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -127,6 +128,9 @@ FLASH_SHAPES = [
     ("noncausal_bf16", 1, 25, 25, 1024, 64, torch.bfloat16, False),
     ("gqa_bf16", 2, 32, 8, 2048, 128, torch.bfloat16, True),
     ("ragged_f32", 1, 25, 25, 1000, 64, torch.float32, True),
+    ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True),
+    ("odd_d_bf16", 1, 8, 8, 512, 80, torch.bfloat16, False),
+    ("gqa_f16", 2, 32, 8, 2048, 128, torch.float16, True),
 ]
 
 
@@ -234,7 +238,16 @@ def phase_build():
         for line in build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
-    emit({"phase": "build", "kernels": KERNELS, "seconds": seconds})
+    # ptxas reports static shared memory only; the forward's is dynamic.
+    smem = build.load_library("flash_fwd").flash_fwd_smem_bytes
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    fwd_smem = {
+        f"{str(dtype).replace('torch.', '')}_d{d}": smem(code, d)
+        for dtype, code in attention._DTYPE_CODES.items() for d in (64, 128)
+    }
+    emit({"phase": "build", "kernels": KERNELS, "seconds": seconds,
+          "flash_fwd_smem_bytes": fwd_smem})
 
 
 def phase_kernel():
@@ -253,7 +266,13 @@ def phase_kernel():
         ok = within(out_err, ref.float(), atol, rtol) and within(
             lse_err, ref_lse, *LSE_TOL
         )
-        kernel_ms = cuda_ms(lambda: attention.flash_attention_with_lse(q, k, v, causal), 20)
+        again, again_lse = attention.flash_attention_with_lse(q, k, v, causal)
+        torch.cuda.synchronize()
+        determinism = _bitwise_equal(out, again) and _bitwise_equal(lse, again_lse)
+        del again, again_lse
+        # The C entry point alone, bound as the wrapper binds it.
+        call, _ = attention._forward_kernel_call(q, k, v, causal)
+        kernel_ms = cuda_ms(lambda: _checked(call()), 20)
         plain_ms = cuda_ms(lambda: attention.flash_attention_reference(q, k, v, causal), 5, 1)
         gqa = {"enable_gqa": True} if hkv != hq else {}
         library_ms = cuda_ms(
@@ -271,6 +290,7 @@ def phase_kernel():
             "lse_max_abs_err": float(lse_err.max()),
             "tolerance": {"out": [atol, rtol], "lse": list(LSE_TOL)},
             "within_tolerance": ok,
+            "determinism": determinism,
             "kernel_ms": kernel_ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
@@ -280,10 +300,17 @@ def phase_kernel():
         emit(record)
         if not ok:
             raise AssertionError(f"flash_fwd disagrees with its plain version: {record}")
+        if not determinism:
+            raise AssertionError(f"flash_fwd gave two results on one input: {record}")
         results[name] = record
-        del q, k, v, out, lse, ref, ref_lse
+        del q, k, v, out, lse, ref, ref_lse, call
         torch.cuda.empty_cache()
     return results
+
+
+def _bitwise_equal(a, b):
+    view = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return torch.equal(a.view(view), b.view(view))
 
 
 def _checked(err):
@@ -324,8 +351,7 @@ def phase_kernel_bwd():
         record["max_abs_err"] = max(record[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv"))
         again = attention._launch_flash_backward(q, k, v, d_out, lse, delta, causal)
         torch.cuda.synchronize()
-        record["determinism"] = all(
-            torch.equal(a.view(torch.int32), b_.view(torch.int32)) for a, b_ in zip(got, again))
+        record["determinism"] = all(_bitwise_equal(a, b_) for a, b_ in zip(got, again))
         record["within_tolerance"] = ok
         del got, ref, again
         # The C entry points alone, bound as the wrapper binds them.

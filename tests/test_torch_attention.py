@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import LSE_TOL, OUT_TOL
 from torchsnapshot_tpu.ops import attention as jattn
 from torchsnapshot_tpu_torch.ops import attention as tattn
 
@@ -176,6 +177,56 @@ def _emulated_kernel_backward(q, k, v, lse, d_out, delta, causal):
     return dq, tattn._group_sum(dk, group), tattn._group_sum(dv, group)
 
 
+def _emulated_kernel_forward(q, k, v, causal):
+    """flash_attention_reference with the forward kernel's operand
+    rounding: 3xTF32 for Q·Kᵀ and P·V in f32; for 16-bit inputs, exact
+    Q·Kᵀ and p split into hi + lo terms of the input type for P·V. The
+    softmax is taken over whole rows here, online over key tiles in the
+    kernel: both f32, in other orders."""
+    group = q.shape[1] // k.shape[1]
+    s, d = q.shape[2], q.shape[3]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    if q.dtype == torch.float32:
+        scores = _mm_3xtf32(qf, kf.transpose(-1, -2))
+        weighted = _mm_3xtf32
+    else:
+        scores = qf @ kf.transpose(-1, -2)
+
+        def weighted(p, x):
+            return _mm_split16(p, x, q.dtype)
+
+    scores = scores * (1.0 / d**0.5)
+    if causal:
+        scores = torch.where(torch.ones(s, s, dtype=torch.bool).tril(), scores, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (weighted(p, vf) / denom).to(q.dtype), m + torch.log(denom)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_forward_kernel_operand_rounding_matches_jax_kernel(causal, heads, dtype):
+    """The numerics of the tensor-core forward kernel, emulated on the
+    CPU, against the Pallas forward in interpret mode at the tolerances
+    chip_smoke.py holds the kernel to (OUT_TOL for out, LSE_TOL for lse)."""
+    hq, hkv = heads
+    q, k, v = _qkv(1, hq, hkv, 64, 16, seed=60 + hq + causal)
+    if dtype == "bf16":
+        q, k, v = (x.astype(ml_dtypes.bfloat16) for x in (q, k, v))
+    expected_out, expected_lse = _jax_flash(q, k, v, causal, with_lse=True)
+    to_torch = _bf16 if dtype == "bf16" else torch.from_numpy
+    out, lse = _emulated_kernel_forward(to_torch(q), to_torch(k), to_torch(v), causal)
+    atol, rtol = OUT_TOL[out.dtype]
+    assert out.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
+    np.testing.assert_allclose(out.float().numpy(), expected_out, atol=atol, rtol=rtol)
+    np.testing.assert_allclose(lse.numpy(), expected_lse, atol=LSE_TOL[0], rtol=LSE_TOL[1])
+
+
 def test_tf32_rounding_is_round_to_nearest_away():
     x = torch.tensor([1.0 + 2**-11, 1.0 + 2**-12, -(1.0 + 2**-11), 3.0 + 2**-10 + 2**-12])
     assert _tf32(x).tolist() == [1.0 + 2**-10, 1.0, -(1.0 + 2**-10), 3.0 + 2**-9]
@@ -266,6 +317,34 @@ def test_wrapper_rejects_bad_inputs():
         tattn.flash_attention(q, k, v[:, :, :8], causal=True)
     with pytest.raises(TypeError, match="dtypes differ"):
         tattn.flash_attention(q, k.double(), v, causal=True)
+
+
+@pytest.mark.parametrize(
+    "d,dtype,width",
+    [(64, torch.float32, 64), (30, torch.float32, 32), (80, torch.bfloat16, 80),
+     (36, torch.bfloat16, 40), (1, torch.float16, 8)],
+)
+def test_kernel_rows_are_padded_to_16_bytes(d, dtype, width):
+    assert tattn._padded_width(d, dtype) == width
+
+
+def test_library_path_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited header gives a new library path, so no library built
+    from the old header is loaded."""
+    from torchsnapshot_tpu_torch.ops import build
+
+    assert sorted(p.name for p in build.CSRC_DIR.glob("*.cuh")) == ["flash_common.cuh"]
+    (tmp_path / "kernel.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// first\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build._library_path("kernel")
+    assert build._library_path("kernel") == first
+    header.write_text("// second\n")
+    second = build._library_path("kernel")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert build._library_path("kernel") not in (first, second)
 
 
 def test_kernel_build_failures_raise(tmp_path, monkeypatch):

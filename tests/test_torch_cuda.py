@@ -32,6 +32,11 @@ def cuda():
         (1, 4, 4, 256, 64, torch.float32, True),
         (2, 4, 2, 200, 128, torch.bfloat16, True),
         (1, 2, 1, 130, 32, torch.float16, False),
+        (1, 4, 4, 192, 80, torch.bfloat16, True),
+        (2, 8, 2, 256, 128, torch.float16, True),
+        (1, 2, 2, 200, 128, torch.float32, False),
+        (1, 2, 2, 70, 36, torch.bfloat16, True),
+        (1, 2, 1, 100, 30, torch.float32, True),
     ],
 )
 def test_flash_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, dtype, causal):
@@ -45,10 +50,32 @@ def test_flash_kernel_matches_plain_version(cuda, b, hq, hkv, s, d, dtype, causa
     torch.cuda.synchronize()
     assert attention.flash_forward_launches == before + 1
     ref, ref_lse = attention.flash_attention_reference(q, k, v, causal)
-    # f32: sums in another order; bf16/f16: one ulp of the output type.
+    # f32: 3xTF32 products summed in another order; bf16/f16: one ulp of the
+    # output type.
     atol = {torch.float32: 2e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=8e-3)
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,dtype,causal",
+    [
+        (2, 4, 2, 320, 64, torch.float32, True),
+        (1, 4, 4, 200, 128, torch.bfloat16, False),
+    ],
+)
+def test_flash_forward_kernel_is_deterministic(cuda, b, hq, hkv, s, d, dtype, causal):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (
+        torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
+        for h in (hq, hkv, hkv)
+    )
+    first = attention.flash_attention_with_lse(q, k, v, causal)
+    second = attention.flash_attention_with_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(first[0].view(view), second[0].view(view))
+    assert torch.equal(first[1].view(torch.int32), second[1].view(torch.int32))
 
 
 @pytest.mark.parametrize(

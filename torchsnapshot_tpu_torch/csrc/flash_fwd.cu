@@ -1,272 +1,632 @@
 // Flash attention forward for Hopper (sm_90a): O = softmax(Q·Kᵀ·D^-½)·V
 // and the per-row log-sum-exp, without materialising the S×S scores.
 //
-// Replaces torchsnapshot_tpu/ops/attention.py:_flash_kernel (the Pallas
-// kernel launched by _flash_forward). The arithmetic is the same: Q, K
-// and V are cast to f32 before the products, the scale is applied after
-// Q·Kᵀ, causally masked scores are -1e30, the running max, denominator
-// and accumulator are f32, a row whose denominator is 0 divides by 1, and
-// lse = m + log(denominator). GQA maps q-head h to kv-head h / group from
-// the row index, as _kv_index_map does; K/V are never repeated in memory.
+// Replaces torchsnapshot_tpu/ops/attention.py:_flash_kernel (:103, the
+// Pallas kernel launched by _flash_forward). The arithmetic is the same:
+// the scale is applied after Q·Kᵀ, causally masked scores are -1e30, keys
+// past a ragged end give p = 0, the running max, denominator and output
+// accumulator are f32, a row whose denominator is 0 divides by 1, and
+// lse = m + log(denominator). GQA maps q-head h to kv-head h / group, as
+// _kv_index_map does; K and V are never repeated in memory. O comes out in
+// the input type, lse in f32. Deterministic: no atomics, every output is
+// summed by one thread in one fixed order.
 //
-// Structure. The Pallas kernel steps a sequential third grid axis over
-// key blocks and carries the online-softmax state in VMEM scratch. Here
-// one thread block owns one 64-row query tile of one (batch, q-head) row
-// and loops over 64-key tiles itself; the loop stops at the diagonal tile
-// when causal. The softmax state and the output accumulator live in
-// registers: thread (ty, tx) of the 16×16 layout holds rows ty*4..ty*4+3,
-// score columns tx+16j and output columns tx+16c, and the 16 threads
-// sharing a row reduce its max and sum with warp shuffles. Keys past the
-// end of a sequence whose length is not a multiple of 64 get p = 0.
+// What bounds it. Two products of 2·D flops per kept (query, key) pair
+// against O(S·D) bytes: ~S/2 flop per byte, far above the H100's ridge,
+// so at the main path's shape ([4,25,1024,64] f32 causal) the bound is
+// operations on the tensor cores. Every product runs there as warp-level
+// mma.sync with f32 accumulators in registers:
 //
-// What bounds it. Its arithmetic intensity is ~S/2 flop per byte of
-// Q/K/V, far above the H100's ~20 flop/byte for f32, so the bound is
-// operations, not bytes. This version does them as scalar f32 FMAs out of
-// shared memory (padded row strides keep the loads free of bank
-// conflicts; K and V share one tile buffer to fit two blocks on an SM at
-// head_dim 128), which caps it well below the f32 peak of 67 TFLOP/s and
-// far below the tensor cores' 989 TFLOP/s for bf16 inputs. mma/wgmma
-// tiles and TMA-fed pipelining are the next step.
+//   f32 inputs: 3xTF32. hi = tf32(x), lo = tf32(x − hi), and A·B is taken
+//     as Ahi·Bhi + Ahi·Blo + Alo·Bhi with m16n8k8 tf32 mma: f32 accuracy
+//     at a third of the 495 TFLOP/s TF32 rate.
+//   bf16/f16 inputs: m16n8k16 mma in the input type. Q·Kᵀ is exact; p
+//     (f32) is split into hi + lo terms of the input type, two mma, so
+//     P·V is not rounded to 16 bits.
+//
+// What the design does about it. Such kernels are held back less by the
+// tensor cores than by the instruction stream around each mma, above all
+// the operand splits of the f32 path. So each operand is split as few
+// times as the registers allow: Q once per block, its A fragments held in
+// registers across the key loop (or read from pre-split tf32 planes in
+// shared memory where the registers cannot hold them: f32 at head_dim
+// 128); K and V once per block, by the threads that copied them, into tf32
+// hi and lo planes, so no warp splits a B fragment; p from the
+// accumulator registers, once per warp, the only split in the loop.
+//
+// Structure. Four warps own 16 query rows each of a 64-row tile of one
+// (batch, q-head); a loop in the block streams the key tiles through a
+// two-stage cp.async ring (tile t+1 lands while tile t is computed; one
+// barrier a tile). S stays in registers, and p feeds P·V straight from the
+// accumulator layout: for 16 bits two n8 accumulator tiles are one k16
+// operand; for tf32 the k order inside an 8-wide step is permuted
+// (operand column t is key 2t, column t+4 is key 2t+1) and the V rows are
+// read in the same order. The online softmax reduces each row's max over
+// the 4 lanes that share it; the denominator is summed per lane and
+// reduced once at the end. Masks are applied only on tiles that cross the
+// diagonal or the ragged end; a warp skips a tile whose keys all lie past
+// its rows. Causal: the loop stops at the diagonal, and blockIdx.y is
+// mapped so that the blocks with the most tiles launch first. O is staged
+// through shared memory and written with 16-byte stores; lse by one lane a
+// row. Shared strides are padded so that fragment loads and ldmatrix are
+// free of bank conflicts; columns past d are zero in shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 64;   // keys per tile
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 constexpr float kMaskValue = -1e30f;
+// f32: n-tiles of B read together, then each 3xTF32 term issued across
+// them, so no mma waits on the one before it.
+constexpr int kChunk = 4;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
+// One configuration of the kernel. T is the input type; kD the head_dim it
+// is compiled for (the true one is at most kD; columns past it are zero);
+// each warp owns kMT m16 tiles of query rows; a key tile has kN keys;
+// kPlanes: the threads that copied an f32 K or V tile split it into tf32
+// hi (in place) and lo planes, else each warp splits what it reads.
+template <typename T, int kD_, int kMT_, int kN_, bool kPlanes_>
+struct Cfg {
+  using Elem = T;
+  static constexpr int kD = kD_, kMT = kMT_, kN = kN_;
+  static constexpr bool kF32 = is_f32<T>();
+  static constexpr bool kPlanes = kPlanes_ && kF32;
+  static constexpr int kSD = smem_stride<T, kD>();
+  static constexpr int kBM = 16 * kMT * kWarps;  // query rows of a block
+  static constexpr int kNT = kN / 8;             // key n8 tiles of S
+  static constexpr int kDT = kD / 8;             // column n8 tiles of O
+  // Q's A fragments stay in registers where they fit beside S and O.
+  static constexpr bool kQRegs = kMT == 1 && (!kF32 || kD <= 64);
+  static constexpr int kQFrags = kQRegs ? (kF32 ? 2 * kD / 8 : kD / 16) : 1;
+  static constexpr int kTile = kN * kSD;                    // one K or V tile
+  static constexpr int kStage = (kPlanes ? 4 : 2) * kTile;  // K [lo] V [lo]
+  // Q resident in shared memory when not in registers (f32: hi and lo
+  // planes). Q in registers lands in the ring's second stage, which the
+  // ring first fills after every warp has read Q.
+  static constexpr int kQ = kQRegs ? 0 : (kF32 ? 2 : 1) * kBM * kSD;
+  static constexpr int kElems = kQ + 2 * kStage;
+  static constexpr size_t kBytes = sizeof(T) * (size_t)kElems;
+  static_assert(!kQRegs || kBM * kSD <= kStage, "Q lands in one ring stage");
+  static_assert(kBM * kSD <= kElems, "O is staged through shared memory");
+  static_assert(kNT % kChunk == 0 && kDT % kChunk == 0, "n-tiles come in whole chunks");
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
-
-template <int kDMax>
-constexpr size_t smem_bytes() {
-  // Q tile and the shared K/V tile with a padded stride, plus the P tile.
-  return sizeof(float) *
-         (size_t)(2 * kBlockM * (kDMax + 1) + kBlockM * (kBlockN + 1));
-}
-
-// Loads rows [row0, row0+64) of a [s_len, d] matrix into a [64][kDMax+1]
-// f32 tile, zero-filling rows past s_len and columns past d.
-template <typename T, int kDMax>
-__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src,
-                                          int row0, int s_len, int d) {
-  constexpr int kStride = kDMax + 1;
-  for (int idx = threadIdx.x; idx < kBlockM * kDMax; idx += kThreads) {
-    const int r = idx / kDMax;
-    const int c = idx - r * kDMax;
-    float val = 0.f;
-    if (row0 + r < s_len && c < d) val = to_f32(src[(size_t)(row0 + r) * d + c]);
-    tile[r * kStride + c] = val;
+// Rows [row0, row0 + kRows) of a [s_len, d] matrix into columns [0, d) of
+// a [kRows][kSD] tile in 16-byte copies; rows past s_len zero-filled.
+// d·sizeof(T) is a multiple of 16 (the wrapper pads).
+template <typename T, int kRows, int kSD>
+__device__ __forceinline__ void load_rows_async(T* tile, const T* __restrict__ src, int row0,
+                                                int s_len, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int chunks = d / kVec;
+  for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int c = (idx - r * chunks) * kVec;
+    const bool valid = row0 + r < s_len;
+    cp_async16(tile + r * kSD + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
   }
 }
 
-template <typename T, int kDMax>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int hq, int group, int s_len, int d,
-                 float scale, int causal) {
-  constexpr int kStride = kDMax + 1;
-  constexpr int kPStride = kBlockN + 1;
-  constexpr int kCols = kDMax / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_tile = smem;
-  float* kv_tile = q_tile + kBlockM * kStride;
-  float* p_tile = kv_tile + kBlockN * kStride;
+// The f32 values this thread copied with load_rows_async<float, kRows>,
+// once landed, split into tf32 hi (in place) and lo (same offset in lo).
+template <int kRows, int kSD>
+__device__ __forceinline__ void split_rows(float* tile, float* lo, int d) {
+  const int chunks = d / 4;
+  for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int off = r * kSD + (idx - r * chunks) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(tile + off);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(tile + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
 
+// Zeroes columns [d, kD) of n_rows rows of stride kSD: the fragment loads
+// read kD columns, the copies write only [0, d).
+template <typename T, int kD, int kSD>
+__device__ __forceinline__ void zero_tail_columns(T* rows, int n_rows, int d) {
+  const int width = kD - d;
+  if (width <= 0) return;
+  for (int idx = threadIdx.x; idx < n_rows * width; idx += kThreads) {
+    const int r = idx / width;
+    rows[r * kSD + d + (idx - r * width)] = T(0.f);
+  }
+}
+
+// tf32 hi and lo of the f32 operand at p: read from pre-split planes (hi
+// at p, lo at p + lo_off), or split here.
+template <bool kPlanes>
+__device__ __forceinline__ void tf32_operand(const float* p, int lo_off, uint32_t& hi,
+                                             uint32_t& lo) {
+  if constexpr (kPlanes) {
+    hi = __float_as_uint(p[0]);
+    lo = __float_as_uint(p[lo_off]);
+  } else {
+    split_tf32(p[0], hi, lo);
+  }
+}
+
+// The warp's Q A-fragments, loaded (and for f32 split) once per block:
+// f32 qf[2·kt] hi and qf[2·kt+1] lo of k-step kt; 16 bits qf[kt].
+template <class C>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[C::kQFrags][4],
+                                             const typename C::Elem* q_w) {
+  constexpr int kSD = C::kSD;
+  const int lane = threadIdx.x & 31;
+  if constexpr (C::kF32) {
+    const float* a = q_w + (lane >> 2) * kSD + (lane & 3);
+#pragma unroll
+    for (int kt = 0; kt < C::kD / 8; ++kt) {
+      split_tf32(a[8 * kt], qf[2 * kt][0], qf[2 * kt + 1][0]);
+      split_tf32(a[8 * kSD + 8 * kt], qf[2 * kt][1], qf[2 * kt + 1][1]);
+      split_tf32(a[8 * kt + 4], qf[2 * kt][2], qf[2 * kt + 1][2]);
+      split_tf32(a[8 * kSD + 8 * kt + 4], qf[2 * kt][3], qf[2 * kt + 1][3]);
+    }
+  } else {
+#pragma unroll
+    for (int kt = 0; kt < C::kD / 16; ++kt)
+      ldsm_x4(qf[kt], q_w + (lane % 16) * kSD + 16 * kt + (lane / 16) * 8);
+  }
+}
+
+// s[mt][n] = Q·Kᵀ for the warp's kMT m16 tiles (rows from q_w, stride
+// kSD) and the kNT key n-tiles of the tile k_t, over kD.
+template <class C>
+__device__ __forceinline__ void qk_product(float (&s)[C::kMT][C::kNT][4],
+                                           const uint32_t (&qf)[C::kQFrags][4],
+                                           const typename C::Elem* q_w,
+                                           const typename C::Elem* k_t) {
+  constexpr int kSD = C::kSD, kMT = C::kMT, kNT = C::kNT;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  if constexpr (C::kF32) {
+#pragma unroll
+    for (int kt = 0; kt < C::kD / 8; ++kt) {
+      uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if constexpr (C::kQRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a_hi[mt][i] = qf[2 * kt][i];
+            a_lo[mt][i] = qf[2 * kt + 1][i];
+          }
+        } else {
+          constexpr int kLo = C::kBM * kSD;  // Q's lo plane
+          const float* a = q_w + (16 * mt + g) * kSD + 8 * kt + t;
+          tf32_operand<true>(a, kLo, a_hi[mt][0], a_lo[mt][0]);
+          tf32_operand<true>(a + 8 * kSD, kLo, a_hi[mt][1], a_lo[mt][1]);
+          tf32_operand<true>(a + 4, kLo, a_hi[mt][2], a_lo[mt][2]);
+          tf32_operand<true>(a + 8 * kSD + 4, kLo, a_hi[mt][3], a_lo[mt][3]);
+        }
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < kNT; n0 += kChunk) {
+        uint32_t b_hi[kChunk][2], b_lo[kChunk][2];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const float* b = k_t + (8 * (n0 + c) + g) * kSD + 8 * kt + t;
+          tf32_operand<C::kPlanes>(b, C::kTile, b_hi[c][0], b_lo[c][0]);
+          tf32_operand<C::kPlanes>(b + 4, C::kTile, b_hi[c][1], b_lo[c][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_tf32(s[mt][n0 + c], a_lo[mt], b_hi[c][0], b_hi[c][1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_tf32(s[mt][n0 + c], a_hi[mt], b_lo[c][0], b_lo[c][1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_tf32(s[mt][n0 + c], a_hi[mt], b_hi[c][0], b_hi[c][1]);
+      }
+    }
+  } else {
+    using T = typename C::Elem;
+#pragma unroll
+    for (int kt = 0; kt < C::kD / 16; ++kt) {
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if constexpr (C::kQRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) af[mt][i] = qf[kt][i];
+        } else {
+          ldsm_x4(af[mt], q_w + (16 * mt + lane % 16) * kSD + 16 * kt + (lane / 16) * 8);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, k_t + (16 * np + (lane % 8) + (lane / 16) * 8) * kSD + 16 * kt +
+                        ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_16<T>(s[mt][2 * np], af[mt], bf[0], bf[1]);
+          mma_16<T>(s[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// o[mt][n] += P·V for the warp's kMT m16 tiles: P is f32 in the
+// accumulator layout of S (split hi + lo here), v_t the [kN][kSD] V tile.
+template <class C>
+__device__ __forceinline__ void pv_product(float (&o)[C::kMT][C::kDT][4],
+                                           const float (&p)[C::kMT][C::kNT][4],
+                                           const typename C::Elem* v_t) {
+  constexpr int kSD = C::kSD, kMT = C::kMT, kNT = C::kNT, kDT = C::kDT;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  if constexpr (C::kF32) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      // Operand column t is key 2t of the step and column t+4 key 2t+1:
+      // the accumulator layout, read with V rows in the same order.
+      uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        split_tf32(p[mt][j][0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(p[mt][j][2], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(p[mt][j][1], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(p[mt][j][3], a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < kDT; n0 += kChunk) {
+        uint32_t b_hi[kChunk][2], b_lo[kChunk][2];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const float* b = v_t + (8 * j + 2 * t) * kSD + 8 * (n0 + c) + g;
+          tf32_operand<C::kPlanes>(b, C::kTile, b_hi[c][0], b_lo[c][0]);
+          tf32_operand<C::kPlanes>(b + kSD, C::kTile, b_hi[c][1], b_lo[c][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_tf32(o[mt][n0 + c], a_lo[mt], b_hi[c][0], b_hi[c][1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_tf32(o[mt][n0 + c], a_hi[mt], b_lo[c][0], b_lo[c][1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            mma_tf32(o[mt][n0 + c], a_hi[mt], b_hi[c][0], b_hi[c][1]);
+      }
+    }
+  } else {
+    using T = typename C::Elem;
+#pragma unroll
+    for (int j = 0; j < kNT / 2; ++j) {
+      // Two n8 accumulator tiles are one k16 operand.
+      uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        split_pack<T>(p[mt][2 * j][0], p[mt][2 * j][1], a_hi[mt][0], a_lo[mt][0]);
+        split_pack<T>(p[mt][2 * j][2], p[mt][2 * j][3], a_hi[mt][1], a_lo[mt][1]);
+        split_pack<T>(p[mt][2 * j + 1][0], p[mt][2 * j + 1][1], a_hi[mt][2], a_lo[mt][2]);
+        split_pack<T>(p[mt][2 * j + 1][2], p[mt][2 * j + 1][3], a_hi[mt][3], a_lo[mt][3]);
+      }
+      const int row = 16 * j + (lane % 8) + ((lane / 8) % 2) * 8;
+#pragma unroll
+      for (int np = 0; np < kDT / 2; ++np) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, v_t + row * kSD + (lane / 16) * 8 + 16 * np);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_16<T>(o[mt][2 * np], a_lo[mt], bf[0], bf[1]);
+          mma_16<T>(o[mt][2 * np + 1], a_lo[mt], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_16<T>(o[mt][2 * np], a_hi[mt], bf[0], bf[1]);
+          mma_16<T>(o[mt][2 * np + 1], a_hi[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// One key tile of the online softmax for the warp's rows (first row
+// row0): S (raw Q·Kᵀ) becomes p in place; the running max, the lane's
+// part of the denominator and O are rescaled. kMask: the tile crosses the
+// diagonal or the ragged end.
+template <class C, bool kMask>
+__device__ __forceinline__ void online_softmax(float (&s)[C::kMT][C::kNT][4],
+                                               float (&m_run)[C::kMT][2],
+                                               float (&l_run)[C::kMT][2],
+                                               float (&o)[C::kMT][C::kDT][4], float scale,
+                                               int row0, int k0, int s_len, bool causal) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < C::kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * mt + g + 8 * h;
+      float row_max = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = s[mt][nt][2 * h + i] * scale;
+          if constexpr (kMask) {
+            const int key = k0 + 8 * nt + 2 * t + i;
+            if (key >= s_len) {
+              x = -INFINITY;  // no such key: p = 0
+            } else if (causal && key > row) {
+              x = kMaskValue;
+            }
+          }
+          s[mt][nt][2 * h + i] = x;
+          row_max = fmaxf(row_max, x);
+        }
+      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+      const float m_new = fmaxf(m_run[mt][h], row_max);
+      const float alpha = expf(m_run[mt][h] - m_new);
+      m_run[mt][h] = m_new;
+      float row_sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float p = expf(s[mt][nt][2 * h + i] - m_new);
+          s[mt][nt][2 * h + i] = p;
+          row_sum += p;
+        }
+      l_run[mt][h] = l_run[mt][h] * alpha + row_sum;
+#pragma unroll
+      for (int dt = 0; dt < C::kDT; ++dt) {
+        o[mt][dt][2 * h] *= alpha;
+        o[mt][dt][2 * h + 1] *= alpha;
+      }
+    }
+}
+
+// Two f32 values as one packed pair of T (x0 in the low half), or as
+// themselves for f32, for the staged O.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, float x0, float x1) {
+  if constexpr (is_f32<T>()) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(x0, x1);
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem* __restrict__ k,
+                 const typename C::Elem* __restrict__ v, typename C::Elem* __restrict__ o,
+                 float* __restrict__ lse, int hq, int group, int s_len, int d, float scale,
+                 int causal) {
+  using T = typename C::Elem;
+  constexpr int kSD = C::kSD, kBM = C::kBM, kN = C::kN, kMT = C::kMT;
+  constexpr int kVOff = (C::kPlanes ? 2 : 1) * C::kTile;  // V within a stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  T* const ring = smem + C::kQ;  // two stages
+  T* const q_s = C::kQRegs ? ring + C::kStage : smem;
+
+  const int n_q_tiles = (s_len + kBM - 1) / kBM;
+  // Causal: the last query tiles read the most key tiles; launch them first.
+  const int q_tile = causal ? n_q_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = q_tile * kBM;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockM;
   const int hkv = hq / group;
   const int kv_row = (bh / hq) * hkv + (bh % hq) / group;
   const size_t plane = (size_t)s_len * d;
-  const T* q_bh = q + (size_t)bh * plane;
   const T* k_bh = k + (size_t)kv_row * plane;
   const T* v_bh = v + (size_t)kv_row * plane;
+  const int n_tiles_all = (s_len + kN - 1) / kN;
+  const int n_tiles = causal ? min(n_tiles_all, (q0 + kBM - 1) / kN + 1) : n_tiles_all;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  auto issue = [&](int tile, int stage) {
+    T* st = ring + stage * C::kStage;
+    load_rows_async<T, kN, kSD>(st, k_bh, tile * kN, s_len, d);
+    load_rows_async<T, kN, kSD>(st + kVOff, v_bh, tile * kN, s_len, d);
+  };
 
-  load_tile<T, kDMax>(q_tile, q_bh, q0, s_len, d);
+  zero_tail_columns<T, C::kD, kSD>(smem, C::kElems / kSD, d);
+  load_rows_async<T, kBM, kSD>(q_s, q + (size_t)bh * plane, q0, s_len, d);
+  issue(0, 0);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][kCols];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int w_row0 = 16 * kMT * warp;  // the warp's first row in the block
+  const T* q_w = q_s + w_row0 * kSD;
+  uint32_t qf[C::kQFrags][4];
+  float o_acc[kMT][C::kDT][4];
+  float m_run[kMT][2], l_run[kMT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMaskValue;
-    l[i] = 0.f;
+  for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      m_run[mt][h] = kMaskValue;
+      l_run[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int dt = 0; dt < C::kDT; ++dt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_acc[mt][dt][i] = 0.f;
   }
 
-  const int n_tiles_all = (s_len + kBlockN - 1) / kBlockN;
-  const int n_tiles =
-      causal ? min(n_tiles_all, (q0 + kBlockM - 1) / kBlockN + 1) : n_tiles_all;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();  // the previous tile's P·V reads are done
-    load_tile<T, kDMax>(kv_tile, k_bh, k0, s_len, d);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    T* const st = ring + stage * C::kStage;
+    cp_async_wait<0>();  // this thread's copies of tile it (and Q) landed
+    if constexpr (C::kPlanes) {
+      split_rows<kN, kSD>(st, st + C::kTile, d);
+      split_rows<kN, kSD>(st + kVOff, st + kVOff + C::kTile, d);
+    }
+    if constexpr (C::kF32 && !C::kQRegs) {
+      if (it == 0) split_rows<kBM, kSD>(q_s, q_s + kBM * kSD, d);
+    }
+    // Tile it is visible to every thread, and every warp is done with
+    // tile it - 1, whose stage the next copies overwrite.
     __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < d; ++dd) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_tile[(ty * 4 + i) * kStride + dd];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kv_tile[(tx + 16 * j) * kStride + dd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + ty * 4 + i;
-      float row_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + tx + 16 * j;
-        float s = sc[i][j] * scale;
-        if (k_pos >= s_len) {
-          s = -INFINITY;  // no such key
-        } else if (causal && k_pos > q_pos) {
-          s = kMaskValue;
-        }
-        sc[i][j] = s;
-        row_max = fmaxf(row_max, s);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[i], row_max);
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float p = (k0 + col >= s_len) ? 0.f : expf(sc[i][j] - m_new);
-        p_tile[(ty * 4 + i) * kPStride + col] = p;
-        row_sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[i] = l[i] * alpha + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-    }
-
-    __syncthreads();  // K reads done, P visible
-    load_tile<T, kDMax>(kv_tile, v_bh, k0, s_len, d);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockN; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_tile[(ty * 4 + i) * kPStride + kk];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = kv_tile[kk * kStride + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+    if constexpr (C::kQRegs) {
+      if (it == 0) {
+        load_q_frags<C>(qf, q_w);
+        __syncthreads();  // Q is read before its stage is overwritten
       }
     }
+    if (it + 1 < n_tiles) issue(it + 1, stage ^ 1);
+    cp_async_commit();  // possibly empty: keeps one group per tile
+
+    const int k0 = it * kN;
+    const int row0 = q0 + w_row0;
+    if (causal && k0 > row0 + 16 * kMT - 1) continue;  // every key past the warp's rows
+    float s[kMT][C::kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
+    qk_product<C>(s, qf, q_w, st);
+    if ((causal && k0 + kN - 1 > row0) || k0 + kN > s_len) {
+      online_softmax<C, true>(s, m_run, l_run, o_acc, scale, row0, k0, s_len, causal);
+    } else {
+      online_softmax<C, false>(s, m_run, l_run, o_acc, scale, row0, k0, s_len, causal);
+    }
+    pv_product<C>(o_acc, s, st + kVOff);
   }
 
+  // O through shared memory (every warp is done with the ring), then
+  // 16-byte stores of whole rows.
+  __syncthreads();
+  T* const o_s = smem;
+  const int g = lane >> 2;
+  const int t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= s_len) continue;
-    const float denom = (l[i] == 0.f) ? 1.f : l[i];
-    T* o_row = o + (size_t)bh * plane + (size_t)row * d;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) o_row[col] = from_f32<T>(acc[i][c] / denom);
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[mt][h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float denom = l == 0.f ? 1.f : l;
+      const int r = w_row0 + 16 * mt + g + 8 * h;
+#pragma unroll
+      for (int dt = 0; dt < C::kDT; ++dt)
+        store_pair<T>(o_s + r * kSD + 8 * dt + 2 * t, o_acc[mt][dt][2 * h] / denom,
+                      o_acc[mt][dt][2 * h + 1] / denom);
+      if (t == 0 && q0 + r < s_len) lse[(size_t)bh * s_len + q0 + r] = m_run[mt][h] + logf(denom);
     }
-    if (tx == 0) lse[(size_t)bh * s_len + row] = m[i] + logf(denom);
+  __syncthreads();
+  constexpr int kVec = 16 / sizeof(T);
+  const int chunks = d / kVec;
+  T* o_bh = o + (size_t)bh * plane;
+  for (int idx = threadIdx.x; idx < kBM * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int c = (idx - r * chunks) * kVec;
+    if (q0 + r < s_len)
+      *reinterpret_cast<uint4*>(o_bh + (size_t)(q0 + r) * d + c) =
+          *reinterpret_cast<const uint4*>(o_s + r * kSD + c);
   }
 }
 
-template <typename T, int kDMax>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int b, int hq, int hkv, int s_len, int d, float scale,
-                   int causal, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, kDMax>;
-  constexpr size_t smem = smem_bytes<kDMax>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <class C>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+                   int hq, int hkv, int s_len, int d, float scale, int causal,
+                   cudaStream_t stream) {
+  using T = typename C::Elem;
+  if (d > C::kD || (d * sizeof(T)) % 16 != 0 || (s_len + C::kBM - 1) / C::kBM > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * hq, (s_len + kBlockM - 1) / kBlockM);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(b * hq, (s_len + C::kBM - 1) / C::kBM);
+  kernel<<<grid, kThreads, C::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), hq, hq / hkv, s_len, d, scale,
-      causal);
+      static_cast<T*>(o), static_cast<float*>(lse), hq, hq / hkv, s_len, d, scale, causal);
   return cudaGetLastError();
 }
 
+// The configuration each input type and head_dim runs: f32 K/V split into
+// planes once per block; 16 bits read K and V as they are.
+template <typename T, int kD>
+using Chosen = Cfg<T, kD, 1, is_f32<T>() ? 32 : 64, true>;
+
 template <typename T>
-cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int b, int hq, int hkv, int s_len, int d,
-                         float scale, int causal, cudaStream_t stream) {
+cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int b, int hq, int hkv, int s_len, int d, float scale, int causal,
+                         cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, stream);
-  return launch<T, 128>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, stream);
+    return launch<Chosen<T, 64>>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, stream);
+  return launch<Chosen<T, 128>>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, stream);
+}
+
+template <typename T>
+size_t smem_bytes(int d) {
+  return d <= 64 ? Chosen<T, 64>::kBytes : Chosen<T, 128>::kBytes;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Tensors are contiguous:
-// q, o [b, hq, s_len, d]; k, v [b, hkv, s_len, d]; lse [b, hq, s_len] f32.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int b, int hq, int hkv, int s_len, int d,
-                         int dtype, int causal, float scale, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 || d <= 0 ||
-      d > 128 || (s_len + kBlockM - 1) / kBlockM > 65535)
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Tensors are contiguous
+// and 16-byte aligned, with d·itemsize a multiple of 16 (the wrapper
+// pads): q, o [b, hq, s_len, d]; k, v [b, hkv, s_len, d]; lse [b, hq,
+// s_len] f32. Returns the cudaError_t of the launch (0 on success).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                         int b, int hq, int hkv, int s_len, int d, int dtype, int causal,
+                         float scale, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s_len <= 0 || d <= 0 || d > 128)
     return (int)cudaErrorInvalidValue;
+  const uintptr_t pointers = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+  if (pointers % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return (int)dispatch_dim<float>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, st);
     case 1:
-      return (int)dispatch_dim<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, st);
+      return (int)dispatch_dim<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale,
+                                              causal, st);
     case 2:
       return (int)dispatch_dim<__half>(q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory in bytes of the launch that flash_fwd makes for
+// this dtype and head_dim (-1 for an unknown dtype).
+extern "C" long long flash_fwd_smem_bytes(int dtype, int d) {
+  switch (dtype) {
+    case 0:
+      return (long long)smem_bytes<float>(d);
+    case 1:
+      return (long long)smem_bytes<__nv_bfloat16>(d);
+    case 2:
+      return (long long)smem_bytes<__half>(d);
+    default:
+      return -1;
   }
 }

@@ -138,25 +138,61 @@ def _kernel_fn(library: str, name: str, n_pointers: int):
     return fn
 
 
+def _padded_width(d: int, dtype: torch.dtype) -> int:
+    """``d`` rounded up so that a row of ``dtype`` is a multiple of 16
+    bytes: the kernels copy rows in 16-byte pieces."""
+    per_copy = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-d // per_copy) * per_copy
+
+
+def _kernel_operand(x: torch.Tensor, dtype: torch.dtype, width: int) -> torch.Tensor:
+    """``x`` as the kernels read it: ``dtype``, contiguous,
+    16-byte aligned, zero-padded to ``width`` along its last axis."""
+    x = x.to(dtype)
+    if x.shape[-1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _forward_kernel_call(q, k, v, causal):
+    """The forward kernel bound to its inputs and to fresh outputs, as
+    ``_launch_flash_forward`` launches it: (call, (out, lse)). The call
+    returns the launch's cudaError_t and counts nothing; ``out`` is
+    ``[B, Hq, S, W]`` in q's dtype and ``lse`` ``[B, Hq, S, 1]`` f32, valid
+    after the call ran, where W >= D is the head_dim zero-padded to rows
+    of 16 bytes. The scale stays that of the true D."""
+    _check_kernel_inputs(q, k, v)
+    b, hq, s, d = q.shape
+    width = _padded_width(d, q.dtype)
+    q, k, v = (_kernel_operand(x, q.dtype, width) for x in (q, k, v))
+    out = torch.empty((b, hq, s, width), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    fn = _kernel_fn("flash_fwd", "flash_fwd", 5)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, hq, k.shape[1], s, width, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            1.0 / (d**0.5))
+    held = (q, k, v)  # the pointers above stay valid
+
+    def call(held=held):
+        return fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
+
+    return call, (out, lse)
+
+
 def _launch_flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     global flash_forward_launches
-    _check_kernel_inputs(q, k, v)
-    b, hq, s, d = q.shape
-    fn = _kernel_fn("flash_fwd", "flash_fwd", 5)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    call, (out, lse) = _forward_kernel_call(q, k, v, causal)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), 1.0 / (d**0.5), stream,
-        )
+        err = call()
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
     flash_forward_launches += 1
+    d = q.shape[-1]
+    if out.shape[-1] != d:
+        out = out[..., :d].contiguous()
     return out, lse
 
 
@@ -220,16 +256,6 @@ def flash_attention_backward_reference(
     return dq, _group_sum(dk, group), _group_sum(dv, group)
 
 
-def _kernel_operand(x: torch.Tensor, dtype: torch.dtype, width: int) -> torch.Tensor:
-    """``x`` as the backward kernels read it: ``dtype``, contiguous,
-    16-byte aligned, zero-padded to ``width`` along its last axis."""
-    x = x.to(dtype)
-    if x.shape[-1] != width:
-        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _backward_kernel_calls(q, k, v, d_out, lse, delta, causal):
     """The two backward kernels bound to their inputs and to fresh f32
     outputs, as ``_launch_flash_backward`` launches them: (dq call, dkv
@@ -252,8 +278,7 @@ def _backward_kernel_calls(q, k, v, d_out, lse, delta, causal):
             f"{tuple(d_out.shape)}, {tuple(lse.shape)}, {tuple(delta.shape)}"
         )
     dtype = q.dtype if d_out.dtype == q.dtype else torch.float32
-    per_copy = 16 // torch.empty((), dtype=dtype).element_size()
-    width = -(-d // per_copy) * per_copy
+    width = _padded_width(d, dtype)
     q, k, v, d_out = (_kernel_operand(x, dtype, width) for x in (q, k, v, d_out))
     lse, delta = (_kernel_operand(x.reshape(b, hq, s), torch.float32, s) for x in (lse, delta))
     dq = torch.empty((b, hq, s, width), dtype=torch.float32, device=q.device)

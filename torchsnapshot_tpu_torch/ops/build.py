@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on first use, by ``nvcc`` for
 ``sm_90a``, into a shared library with a plain C interface under
 ``build/torch_kernels/`` at the repository root (``build/`` is not
-committed). The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never
-loaded. A failed build raises with the compiler's output; there is no
+committed). The library's file name carries a hash of its source, of
+every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. A failed build raises with the compiler's output; there is no
 fallback. Nothing here runs at import time.
 """
 
@@ -48,10 +48,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    sources = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        sources.update(header.name.encode() + header.read_bytes())
+    sources.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{sources.hexdigest()[:16]}.so"
 
 
 def build_all(names: List[str]) -> None:
