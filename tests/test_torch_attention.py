@@ -9,6 +9,8 @@ slow for interpret-mode cost). The CUDA kernels themselves are compared
 with the plain versions on the card by ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -180,9 +182,10 @@ def _emulated_kernel_backward(q, k, v, lse, d_out, delta, causal):
 def _emulated_kernel_forward(q, k, v, causal):
     """flash_attention_reference with the forward kernel's operand
     rounding: 3xTF32 for Q·Kᵀ and P·V in f32; for 16-bit inputs, exact
-    Q·Kᵀ and p split into hi + lo terms of the input type for P·V. The
-    softmax is taken over whole rows here, online over key tiles in the
-    kernel: both f32, in other orders."""
+    Q·Kᵀ and p split into hi + lo terms of the input type for P·V; exp
+    taken as 2^x of x = (s − m)·log2 e rounded to f32, as the kernel's
+    ex2. The softmax is taken over whole rows here, online over key tiles
+    in the kernel: both f32, in other orders."""
     group = q.shape[1] // k.shape[1]
     s, d = q.shape[2], q.shape[3]
     qf = q.float()
@@ -201,7 +204,7 @@ def _emulated_kernel_forward(q, k, v, causal):
     if causal:
         scores = torch.where(torch.ones(s, s, dtype=torch.bool).tril(), scores, -1e30)
     m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
+    p = torch.exp2((scores - m) * math.log2(math.e))
     l = p.sum(dim=-1, keepdim=True)
     denom = torch.where(l == 0.0, torch.ones_like(l), l)
     return (weighted(p, vf) / denom).to(q.dtype), m + torch.log(denom)

@@ -2,20 +2,21 @@
 """Times configurations of the flash forward kernel against each other on
 one NVIDIA GPU.
 
-    python3 tools/flash_fwd_variants.py [--rounds 3]
+    python3 tools/flash_fwd_variants.py [--rounds 3] [--baseline DIR]
 
-``csrc/flash_fwd.cu`` is one kernel template, ``Cfg<T, kD, kMT, kN,
-kPlanes>``: each warp owns kMT m16 tiles of query rows, a key tile has kN
-keys, and kPlanes splits each f32 K/V tile once per block into tf32 hi
-and lo planes (else every warp splits the fragments it reads). The entry
-point ``flash_fwd`` runs one configuration per input type and head_dim;
-this script builds the others, each into its own library (the source
-included as it is, one ``nvcc`` each, all started together), and runs
-every configuration of a case on the same inputs in turns (each round in
-the opposite order of the one before), with the entry point's own
-configuration among them. Every result is held against
-``flash_attention_reference`` at ``chip_smoke.py``'s tolerance and
-checked bitwise deterministic across two launches.
+``csrc/flash_fwd.cu`` is one kernel template, ``Cfg<T, kD, kMT, kN>``:
+each warp owns kMT m16 tiles of query rows and a key tile has kN keys.
+The entry point ``flash_fwd`` runs one configuration per input type and
+head_dim; this script builds the others, each into its own library (the
+source included as it is, one ``nvcc`` each, all started together), and
+runs every configuration of a case on the same inputs in turns (each
+round in the opposite order of the one before), with the entry point
+among them. ``--baseline DIR`` adds the ``flash_fwd`` entry point built
+from another checkout's ``csrc`` directory (an earlier commit, unpacked),
+so two versions of the kernel are compared within one process on one
+card. Every result is held against ``flash_attention_reference`` at
+``chip_smoke.py``'s tolerance and checked bitwise deterministic across
+two launches.
 
 Prints one JSON line per (case, configuration) with its mean ms over the
 rounds, the ptxas report of each build, and the card's name and power
@@ -24,7 +25,6 @@ limit. Needs CUDA and nvcc; exits non-zero without them.
 
 import argparse
 import ctypes
-import json
 import os
 import subprocess
 import sys
@@ -41,24 +41,20 @@ from torchsnapshot_tpu_torch.ops import attention, build  # noqa: E402
 _CTYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
            torch.float16: "__half"}
 
-# (case, B, Hq, Hkv, S, D, dtype, causal, [(kMT, kN, kPlanes), ...]).
+# (case, B, Hq, Hkv, S, D, dtype, causal, [(kMT, kN), ...]).
 CASES = [
     ("main_path", 4, 25, 25, 1024, 64, torch.float32, True,
-     [(1, 32, True), (1, 64, True), (2, 32, False), (2, 64, False),
-      (1, 64, False), (1, 32, False), (2, 32, True)]),
-    ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True,
-     [(1, 32, True), (1, 64, False), (1, 32, False)]),
-    ("single_bf16", 1, 25, 25, 1024, 64, torch.bfloat16, True,
-     [(1, 64, False), (1, 32, False), (2, 32, False), (2, 64, False)]),
-    ("gqa_f16", 2, 32, 8, 2048, 128, torch.float16, True,
-     [(1, 64, False), (1, 32, False)]),
+     [(2, 32), (1, 32), (1, 64), (2, 64)]),
+    ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True, [(1, 64), (1, 32)]),
+    ("single_bf16", 1, 25, 25, 1024, 64, torch.bfloat16, True, [(1, 64), (1, 32)]),
+    ("gqa_f16", 2, 32, 8, 2048, 128, torch.float16, True, [(1, 64), (1, 32)]),
 ]
 
 _SOURCE = """#include "{src}"
 extern "C" int flash_fwd_variant(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int b, int hq, int hkv, int s_len, int d,
                                  float scale, int causal, void* stream) {{
-  return (int)launch<Cfg<{ctype}, {kd}, {mt}, {kn}, {planes}>>(
+  return (int)launch<Cfg<{ctype}, {kd}, {mt}, {kn}>>(
       q, k, v, o, lse, b, hq, hkv, s_len, d, scale, causal,
       static_cast<cudaStream_t>(stream));
 }}
@@ -66,31 +62,37 @@ extern "C" int flash_fwd_variant(const void* q, const void* k, const void* v, vo
 
 
 def _name(dtype, kd, cfg):
-    mt, kn, planes = cfg
-    return f"{str(dtype).replace('torch.', '')}_d{kd}_mt{mt}_n{kn}_{'planes' if planes else 'warpsplit'}"
+    mt, kn = cfg
+    return f"{str(dtype).replace('torch.', '')}_d{kd}_mt{mt}_n{kn}"
 
 
-def build_variants(workdir):
-    """{name: (library path, ptxas report)} for every configuration."""
+def build_variants(workdir, baseline):
+    """{name: (library path, ptxas report)} for every configuration, and
+    "baseline" for the entry point of ``baseline``/flash_fwd.cu if given."""
     os.makedirs(workdir, exist_ok=True)
     src = os.path.join(build.CSRC_DIR, "flash_fwd.cu")
     started = {}
+
+    def start(name, cu):
+        lib = os.path.join(workdir, f"lib{name}.so")
+        proc = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (lib, proc)
+
+    if baseline:
+        start("baseline", os.path.join(os.path.abspath(baseline), "flash_fwd.cu"))
     for _, _, _, _, _, d, dtype, _, cfgs in CASES:
         kd = 64 if d <= 64 else 128
         for cfg in cfgs:
             name = _name(dtype, kd, cfg)
             if name in started:
                 continue
-            mt, kn, planes = cfg
             cu = os.path.join(workdir, f"{name}.cu")
             with open(cu, "w") as f:
-                f.write(_SOURCE.format(src=src, ctype=_CTYPES[dtype], kd=kd, mt=mt, kn=kn,
-                                       planes="true" if planes else "false"))
-            lib = os.path.join(workdir, f"lib{name}.so")
-            proc = subprocess.Popen(
-                [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            started[name] = (lib, proc)
+                f.write(_SOURCE.format(src=src, ctype=_CTYPES[dtype], kd=kd, mt=cfg[0],
+                                       kn=cfg[1]))
+            start(name, cu)
     built = {}
     for name, (lib, proc) in started.items():
         log, _ = proc.communicate()
@@ -103,15 +105,26 @@ def build_variants(workdir):
 
 
 def _variant_call(lib_path, q, k, v, causal):
-    fn = ctypes.CDLL(lib_path).flash_fwd_variant
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                                                ctypes.c_void_p]
+    """A configuration's launch, or with lib "baseline" the entry point
+    ``flash_fwd`` (its C signature is that of attention._kernel_fn), on
+    contiguous inputs whose rows are whole 16-byte pieces."""
+    lib = ctypes.CDLL(lib_path)
     b, hq, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, hq, k.shape[1], s, d, 1.0 / d**0.5, int(causal))
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if hasattr(lib, "flash_fwd_variant"):
+        fn = lib.flash_fwd_variant
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        args = (*pointers, b, hq, k.shape[1], s, d, 1.0 / d**0.5, int(causal))
+    else:
+        fn = lib.flash_fwd
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        args = (*pointers, b, hq, k.shape[1], s, d, attention._DTYPE_CODES[q.dtype],
+                int(causal), 1.0 / d**0.5)
+    fn.restype = ctypes.c_int
 
     def call():
         return fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -123,13 +136,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--baseline", help="a csrc directory whose flash_fwd.cu to time too")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("flash_fwd_variants.py needs a CUDA device; none is available.", file=sys.stderr)
         return 2
     smi, _ = chip_smoke.phase_device()
     begin = time.perf_counter()
-    built = build_variants(os.path.join(build.BUILD_DIR, "variants"))
+    built = build_variants(os.path.join(build.BUILD_DIR, "variants"), args.baseline)
     build.build_all(["flash_fwd"])
     chip_smoke.emit({"phase": "variants_build", "seconds": time.perf_counter() - begin,
                      "ptxas": {name: report for name, (_, report) in built.items()}})
@@ -141,6 +155,8 @@ def main():
         ref, ref_lse = attention.flash_attention_reference(q, k, v, causal)
         kd = 64 if d <= 64 else 128
         calls = {"entry_point": attention._forward_kernel_call(q, k, v, causal)}
+        if args.baseline:
+            calls["baseline"] = _variant_call(built["baseline"][0], q, k, v, causal)
         for cfg in cfgs:
             name = _name(dtype, kd, cfg)
             calls[name] = _variant_call(built[name][0], q, k, v, causal)

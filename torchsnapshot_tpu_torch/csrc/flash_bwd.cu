@@ -68,42 +68,12 @@ constexpr int kStages = 2;   // cp.async ring depth of the streamed tiles
 constexpr float kMaskValue = -1e30f;
 constexpr float kLseFloor = -5e29f;  // lse at or below this: all-masked row
 
-// Rows [row0, row0+64) of a [s_len, d] matrix into columns [0, d) of a
-// [64][kSD] tile in 16-byte copies; rows past s_len zero-filled.
-// d·sizeof(T) is a multiple of 16 (the wrapper pads).
-template <typename T, int kSD>
-__device__ __forceinline__ void load_tile_async(T* tile, const T* __restrict__ src,
-                                                int row0, int s_len, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int chunks = d / kVec;
-  for (int idx = threadIdx.x; idx < kBlockM * chunks; idx += kThreads) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * kVec;
-    const bool valid = row0 + r < s_len;
-    const T* from = valid ? src + (size_t)(row0 + r) * d + c : src;
-    cp_async16(tile + r * kSD + c, from, valid);
-  }
-}
-
 // 64 f32 values [row0, row0+64) of a length-s_len vector; zero past s_len.
 __device__ __forceinline__ void load_vec_async(float* dst, const float* __restrict__ src,
                                                int row0, int s_len) {
   for (int r = threadIdx.x; r < kBlockM; r += kThreads) {
     const bool valid = row0 + r < s_len;
     cp_async4(dst + r, valid ? src + row0 + r : src, valid);
-  }
-}
-
-// Zeroes columns [d, kD) of n_tiles consecutive [64][kSD] tiles: the
-// fragment loads read kD columns, the ring writes only [0, d).
-template <typename T, int kD, int kSD>
-__device__ __forceinline__ void zero_tail_columns(T* tiles, int n_tiles, int d) {
-  const int width = kD - d;
-  if (width <= 0) return;
-  const int rows = n_tiles * kBlockM;
-  for (int idx = threadIdx.x; idx < rows * width; idx += kThreads) {
-    const int r = idx / width;
-    tiles[r * kSD + d + (idx - r * width)] = T(0.f);
   }
 }
 
@@ -332,14 +302,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* v_bh = v + (size_t)kv_row * plane;
   const int n_tiles = causal ? min(n_tiles_all, q_tile + 1) : n_tiles_all;
 
-  zero_tail_columns<T, kD, kSD>(q_s, 2 + 2 * kStages, d);
-  load_tile_async<T, kSD>(q_s, q + (size_t)bh * plane, q0, s_len, d);
-  load_tile_async<T, kSD>(do_s, d_out + (size_t)bh * plane, q0, s_len, d);
+  zero_tail_columns<T, kD, kSD>(q_s, (2 + 2 * kStages) * kBlockM, d);
+  load_rows_async<T, kBlockM, kSD>(q_s, q + (size_t)bh * plane, q0, s_len, d);
+  load_rows_async<T, kBlockM, kSD>(do_s, d_out + (size_t)bh * plane, q0, s_len, d);
 #pragma unroll
   for (int st = 0; st < kStages; ++st) {
     if (st < n_tiles) {
-      load_tile_async<T, kSD>(k_ring + st * kTile, k_bh, st * kBlockM, s_len, d);
-      load_tile_async<T, kSD>(v_ring + st * kTile, v_bh, st * kBlockM, s_len, d);
+      load_rows_async<T, kBlockM, kSD>(k_ring + st * kTile, k_bh, st * kBlockM, s_len, d);
+      load_rows_async<T, kBlockM, kSD>(v_ring + st * kTile, v_bh, st * kBlockM, s_len, d);
     }
     cp_async_commit();
   }
@@ -395,8 +365,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // every warp is done with this stage
     const int next = it + kStages;
     if (next < n_tiles) {
-      load_tile_async<T, kSD>(k_ring + stage * kTile, k_bh, next * kBlockM, s_len, d);
-      load_tile_async<T, kSD>(v_ring + stage * kTile, v_bh, next * kBlockM, s_len, d);
+      load_rows_async<T, kBlockM, kSD>(k_ring + stage * kTile, k_bh, next * kBlockM, s_len, d);
+      load_rows_async<T, kBlockM, kSD>(v_ring + stage * kTile, v_bh, next * kBlockM, s_len, d);
     }
     cp_async_commit();  // possibly empty: keeps one group per tile
   }
@@ -451,16 +421,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_step = [&](int step, int stage) {
     const int bh = b * hq + kv_head * group + step / per_head;
     const int q0 = (first + step % per_head) * kBlockM;
-    load_tile_async<T, kSD>(q_ring + stage * kTile, q + (size_t)bh * plane, q0, s_len, d);
-    load_tile_async<T, kSD>(do_ring + stage * kTile, d_out + (size_t)bh * plane, q0, s_len, d);
+    load_rows_async<T, kBlockM, kSD>(q_ring + stage * kTile, q + (size_t)bh * plane, q0,
+                                     s_len, d);
+    load_rows_async<T, kBlockM, kSD>(do_ring + stage * kTile, d_out + (size_t)bh * plane, q0,
+                                     s_len, d);
     load_vec_async(lse_ring + stage * kBlockM, lse + (size_t)bh * s_len, q0, s_len);
     load_vec_async(delta_ring + stage * kBlockM, delta + (size_t)bh * s_len, q0, s_len);
   };
 
-  zero_tail_columns<T, kD, kSD>(k_s, 2 + 2 * kStages, d);
+  zero_tail_columns<T, kD, kSD>(k_s, (2 + 2 * kStages) * kBlockM, d);
   const size_t kv_off = (size_t)(b * hkv + kv_head) * plane;
-  load_tile_async<T, kSD>(k_s, k + kv_off, k0, s_len, d);
-  load_tile_async<T, kSD>(v_s, v + kv_off, k0, s_len, d);
+  load_rows_async<T, kBlockM, kSD>(k_s, k + kv_off, k0, s_len, d);
+  load_rows_async<T, kBlockM, kSD>(v_s, v + kv_off, k0, s_len, d);
 #pragma unroll
   for (int st = 0; st < kStages; ++st) {
     if (st < n_iter) load_step(st, st);

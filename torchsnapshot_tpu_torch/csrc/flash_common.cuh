@@ -1,7 +1,7 @@
 // Building blocks shared by the flash attention kernels for Hopper
-// (sm_90a): shared-memory strides, cp.async copies, and the warp-level
-// tensor-core fragments (mma.sync, ldmatrix) with the operand splits that
-// give f32 accuracy from tf32 and from 16-bit products.
+// (sm_90a): shared-memory strides, cp.async copies of row tiles, and the
+// warp-level tensor-core fragments (mma.sync, ldmatrix) with the operand
+// splits that give f32 accuracy from tf32 and from 16-bit products.
 
 #pragma once
 
@@ -46,6 +46,35 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + kRows) of a [s_len, d] matrix into columns [0, d) of
+// a [kRows][kS] tile in 16-byte copies, spread over the block's threads;
+// rows past s_len zero-filled. d·sizeof(T) is a multiple of 16 (the
+// wrappers pad).
+template <typename T, int kRows, int kS>
+__device__ __forceinline__ void load_rows_async(T* tile, const T* __restrict__ src, int row0,
+                                                int s_len, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int chunks = d / kVec;
+  for (int idx = threadIdx.x; idx < kRows * chunks; idx += blockDim.x) {
+    const int r = idx / chunks;
+    const int c = (idx - r * chunks) * kVec;
+    const bool valid = row0 + r < s_len;
+    cp_async16(tile + r * kS + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
+  }
+}
+
+// Zeroes columns [d, kD) of n_rows rows of stride kS: the fragment loads
+// read kD columns, the copies write only [0, d).
+template <typename T, int kD, int kS>
+__device__ __forceinline__ void zero_tail_columns(T* rows, int n_rows, int d) {
+  const int width = kD - d;
+  if (width <= 0) return;
+  for (int idx = threadIdx.x; idx < n_rows * width; idx += blockDim.x) {
+    const int r = idx / width;
+    rows[r * kS + d + (idx - r * width)] = T(0.f);
+  }
 }
 
 // ---- tensor-core fragments -------------------------------------------------

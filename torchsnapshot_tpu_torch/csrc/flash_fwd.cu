@@ -26,30 +26,38 @@
 //
 // What the design does about it. Such kernels are held back less by the
 // tensor cores than by the instruction stream around each mma, above all
-// the operand splits of the f32 path. So each operand is split as few
-// times as the registers allow: Q once per block, its A fragments held in
-// registers across the key loop (or read from pre-split tf32 planes in
-// shared memory where the registers cannot hold them: f32 at head_dim
-// 128); K and V once per block, by the threads that copied them, into tf32
-// hi and lo planes, so no warp splits a B fragment; p from the
-// accumulator registers, once per warp, the only split in the loop.
+// the tf32 splits of the f32 path, and by how few warps an SM holds to
+// hide its latency. So each operand is split as few times as the
+// registers allow. f32 Q is split once per block, into tf32 hi and lo
+// planes in shared memory (its A fragments do not fit in registers beside
+// S and O at 32 rows a warp or at head_dim 128); 16-bit Q needs no split,
+// and each warp holds its A fragments in registers across the key loop.
+// For f32 at head_dim 64 a warp owns 32 query rows, so each K or V
+// fragment it splits feeds two m16 tiles. Splitting K and V once per
+// block instead, into hi and lo planes, doubles the shared-memory bytes
+// of every B fragment and the block's footprint, and was slower on the
+// card (PERF.md). p is split from the accumulator registers, once per
+// warp. exp is ex2.approx (two instructions, where expf takes about
+// eight).
 //
-// Structure. Four warps own 16 query rows each of a 64-row tile of one
+// Structure. Four warps own 16 or 32 query rows each of a tile of one
 // (batch, q-head); a loop in the block streams the key tiles through a
 // two-stage cp.async ring (tile t+1 lands while tile t is computed; one
 // barrier a tile). S stays in registers, and p feeds P·V straight from the
 // accumulator layout: for 16 bits two n8 accumulator tiles are one k16
 // operand; for tf32 the k order inside an 8-wide step is permuted
 // (operand column t is key 2t, column t+4 is key 2t+1) and the V rows are
-// read in the same order. The online softmax reduces each row's max over
-// the 4 lanes that share it; the denominator is summed per lane and
-// reduced once at the end. Masks are applied only on tiles that cross the
-// diagonal or the ragged end; a warp skips a tile whose keys all lie past
-// its rows. Causal: the loop stops at the diagonal, and blockIdx.y is
-// mapped so that the blocks with the most tiles launch first. O is staged
-// through shared memory and written with 16-byte stores; lse by one lane a
-// row. Shared strides are padded so that fragment loads and ldmatrix are
-// free of bank conflicts; columns past d are zero in shared memory.
+// read in the same order; Q·Kᵀ permutes its k order the same way, so each
+// lane reads Q and K in 8-byte pairs. The online softmax reduces each
+// row's max over the 4 lanes that share it; the denominator is summed per
+// lane and reduced once at the end. Masks are applied only on tiles that
+// cross the diagonal or the ragged end; a warp skips a tile whose keys
+// all lie past its rows. Causal: the loop stops at the diagonal, and
+// blockIdx.y is mapped so that the blocks with the most tiles launch
+// first. O is staged through shared memory and written with 16-byte
+// stores; lse by one lane a row. Shared strides are padded so that
+// fragment loads and ldmatrix are free of bank conflicts; columns past d
+// are zero in shared memory.
 
 #include <math.h>
 
@@ -66,59 +74,42 @@ constexpr int kChunk = 4;
 
 // One configuration of the kernel. T is the input type; kD the head_dim it
 // is compiled for (the true one is at most kD; columns past it are zero);
-// each warp owns kMT m16 tiles of query rows; a key tile has kN keys;
-// kPlanes: the threads that copied an f32 K or V tile split it into tf32
-// hi (in place) and lo planes, else each warp splits what it reads.
-template <typename T, int kD_, int kMT_, int kN_, bool kPlanes_>
+// each warp owns kMT m16 tiles of query rows; a key tile has kN keys.
+template <typename T, int kD_, int kMT_, int kN_>
 struct Cfg {
   using Elem = T;
   static constexpr int kD = kD_, kMT = kMT_, kN = kN_;
   static constexpr bool kF32 = is_f32<T>();
-  static constexpr bool kPlanes = kPlanes_ && kF32;
-  static constexpr int kSD = smem_stride<T, kD>();
+  // Q and K rows: f32 is read in 8-byte k-pairs, a half-warp at a time,
+  // conflict-free at a stride ≡ 8 mod 32 words; 16 bits by ldmatrix.
+  static constexpr int kSK = kD + 8;
+  // V rows (and the staged O): f32 B fragments of P·V read two keys 2t,
+  // 2t+1 of one column, conflict-free at the common stride rule.
+  static constexpr int kSV = smem_stride<T, kD>();
   static constexpr int kBM = 16 * kMT * kWarps;  // query rows of a block
   static constexpr int kNT = kN / 8;             // key n8 tiles of S
   static constexpr int kDT = kD / 8;             // column n8 tiles of O
-  // Q's A fragments stay in registers where they fit beside S and O.
-  static constexpr bool kQRegs = kMT == 1 && (!kF32 || kD <= 64);
-  static constexpr int kQFrags = kQRegs ? (kF32 ? 2 * kD / 8 : kD / 16) : 1;
-  static constexpr int kTile = kN * kSD;                    // one K or V tile
-  static constexpr int kStage = (kPlanes ? 4 : 2) * kTile;  // K [lo] V [lo]
-  // Q resident in shared memory when not in registers (f32: hi and lo
-  // planes). Q in registers lands in the ring's second stage, which the
-  // ring first fills after every warp has read Q.
-  static constexpr int kQ = kQRegs ? 0 : (kF32 ? 2 : 1) * kBM * kSD;
-  static constexpr int kElems = kQ + 2 * kStage;
-  static constexpr size_t kBytes = sizeof(T) * (size_t)kElems;
-  static_assert(!kQRegs || kBM * kSD <= kStage, "Q lands in one ring stage");
-  static_assert(kBM * kSD <= kElems, "O is staged through shared memory");
+  // Q: f32 as pre-split tf32 hi and lo planes (their A fragments do not
+  // fit in registers beside S and O at 32 rows a warp or head_dim 128);
+  // 16 bits as a tile whose A fragments each warp holds in registers.
+  static constexpr int kQ = (kF32 ? 2 : 1) * kBM * kSK;
+  static constexpr int kStage = kN * (kSK + kSV);  // a K and a V tile
+  static constexpr int kQFrags = kF32 ? 1 : kD / 16;
+  static constexpr size_t kBytes = sizeof(T) * (size_t)(kQ + 2 * kStage);
+  static_assert(kF32 || kMT == 1, "16-bit warps own 16 rows");
+  static_assert(kBM * kSV <= kQ, "O is staged where Q was");
   static_assert(kNT % kChunk == 0 && kDT % kChunk == 0, "n-tiles come in whole chunks");
 };
 
-// Rows [row0, row0 + kRows) of a [s_len, d] matrix into columns [0, d) of
-// a [kRows][kSD] tile in 16-byte copies; rows past s_len zero-filled.
-// d·sizeof(T) is a multiple of 16 (the wrapper pads).
-template <typename T, int kRows, int kSD>
-__device__ __forceinline__ void load_rows_async(T* tile, const T* __restrict__ src, int row0,
-                                                int s_len, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int chunks = d / kVec;
-  for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * kVec;
-    const bool valid = row0 + r < s_len;
-    cp_async16(tile + r * kSD + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
-  }
-}
-
-// The f32 values this thread copied with load_rows_async<float, kRows>,
-// once landed, split into tf32 hi (in place) and lo (same offset in lo).
-template <int kRows, int kSD>
+// The f32 values this thread copied with load_rows_async<float, kRows>
+// (the same pieces, by the same thread), once landed, split into tf32 hi
+// (in place) and lo (same offset in lo): Q's planes, split once per block.
+template <int kRows, int kS>
 __device__ __forceinline__ void split_rows(float* tile, float* lo, int d) {
   const int chunks = d / 4;
-  for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kRows * chunks; idx += blockDim.x) {
     const int r = idx / chunks;
-    const int off = r * kSD + (idx - r * chunks) * 4;
+    const int off = r * kS + (idx - r * chunks) * 4;
     const float4 x = *reinterpret_cast<const float4*>(tile + off);
     uint4 h, l;
     split_tf32(x.x, h.x, l.x);
@@ -130,94 +121,73 @@ __device__ __forceinline__ void split_rows(float* tile, float* lo, int d) {
   }
 }
 
-// Zeroes columns [d, kD) of n_rows rows of stride kSD: the fragment loads
-// read kD columns, the copies write only [0, d).
-template <typename T, int kD, int kSD>
-__device__ __forceinline__ void zero_tail_columns(T* rows, int n_rows, int d) {
-  const int width = kD - d;
-  if (width <= 0) return;
-  for (int idx = threadIdx.x; idx < n_rows * width; idx += kThreads) {
-    const int r = idx / width;
-    rows[r * kSD + d + (idx - r * width)] = T(0.f);
-  }
+// e^x as ex2.approx(x·log2 e): two instructions where expf takes about
+// eight. The result is within ~2 ulp of 2^(x·log2 e), whose rounded
+// exponent moves it by at most |x|·2^-24 relative: below 1e-6 for every
+// p > 1e-7; an x of -inf or -1e30 gives 0.
+__device__ __forceinline__ float exp_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
-// tf32 hi and lo of the f32 operand at p: read from pre-split planes (hi
-// at p, lo at p + lo_off), or split here.
-template <bool kPlanes>
-__device__ __forceinline__ void tf32_operand(const float* p, int lo_off, uint32_t& hi,
-                                             uint32_t& lo) {
-  if constexpr (kPlanes) {
-    hi = __float_as_uint(p[0]);
-    lo = __float_as_uint(p[lo_off]);
-  } else {
-    split_tf32(p[0], hi, lo);
-  }
-}
-
-// The warp's Q A-fragments, loaded (and for f32 split) once per block:
-// f32 qf[2·kt] hi and qf[2·kt+1] lo of k-step kt; 16 bits qf[kt].
+// The warp's 16-bit Q A-fragments, loaded once per block: qf[kt] of
+// k-step kt.
 template <class C>
 __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[C::kQFrags][4],
                                              const typename C::Elem* q_w) {
-  constexpr int kSD = C::kSD;
   const int lane = threadIdx.x & 31;
-  if constexpr (C::kF32) {
-    const float* a = q_w + (lane >> 2) * kSD + (lane & 3);
 #pragma unroll
-    for (int kt = 0; kt < C::kD / 8; ++kt) {
-      split_tf32(a[8 * kt], qf[2 * kt][0], qf[2 * kt + 1][0]);
-      split_tf32(a[8 * kSD + 8 * kt], qf[2 * kt][1], qf[2 * kt + 1][1]);
-      split_tf32(a[8 * kt + 4], qf[2 * kt][2], qf[2 * kt + 1][2]);
-      split_tf32(a[8 * kSD + 8 * kt + 4], qf[2 * kt][3], qf[2 * kt + 1][3]);
-    }
-  } else {
-#pragma unroll
-    for (int kt = 0; kt < C::kD / 16; ++kt)
-      ldsm_x4(qf[kt], q_w + (lane % 16) * kSD + 16 * kt + (lane / 16) * 8);
-  }
+  for (int kt = 0; kt < C::kD / 16; ++kt)
+    ldsm_x4(qf[kt], q_w + (lane % 16) * C::kSK + 16 * kt + (lane / 16) * 8);
 }
 
-// s[mt][n] = Q·Kᵀ for the warp's kMT m16 tiles (rows from q_w, stride
-// kSD) and the kNT key n-tiles of the tile k_t, over kD.
+// s[mt][n] = Q·Kᵀ for the warp's kMT m16 tiles and the kNT key n-tiles of
+// the tile k_t, over kD: f32 Q from its planes at q_w, 16-bit Q from the
+// registers qf; stride kSK.
 template <class C>
 __device__ __forceinline__ void qk_product(float (&s)[C::kMT][C::kNT][4],
                                            const uint32_t (&qf)[C::kQFrags][4],
                                            const typename C::Elem* q_w,
                                            const typename C::Elem* k_t) {
-  constexpr int kSD = C::kSD, kMT = C::kMT, kNT = C::kNT;
+  constexpr int kSK = C::kSK, kMT = C::kMT, kNT = C::kNT;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
   if constexpr (C::kF32) {
+    // The k order inside a step is free: operand column t is k 2t and
+    // column t+4 is k 2t+1, for A and B alike, so each lane reads 8-byte
+    // pairs. Each K value is split by the warp that reads it, once for
+    // all kMT m-tiles.
 #pragma unroll
     for (int kt = 0; kt < C::kD / 8; ++kt) {
       uint32_t a_hi[kMT][4], a_lo[kMT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        if constexpr (C::kQRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            a_hi[mt][i] = qf[2 * kt][i];
-            a_lo[mt][i] = qf[2 * kt + 1][i];
-          }
-        } else {
-          constexpr int kLo = C::kBM * kSD;  // Q's lo plane
-          const float* a = q_w + (16 * mt + g) * kSD + 8 * kt + t;
-          tf32_operand<true>(a, kLo, a_hi[mt][0], a_lo[mt][0]);
-          tf32_operand<true>(a + 8 * kSD, kLo, a_hi[mt][1], a_lo[mt][1]);
-          tf32_operand<true>(a + 4, kLo, a_hi[mt][2], a_lo[mt][2]);
-          tf32_operand<true>(a + 8 * kSD + 4, kLo, a_hi[mt][3], a_lo[mt][3]);
-        }
+        constexpr int kLo = C::kBM * kSK;  // Q's lo plane
+        const float* a = q_w + (16 * mt + g) * kSK + 8 * kt + 2 * t;
+        const uint2 top_hi = *reinterpret_cast<const uint2*>(a);
+        const uint2 top_lo = *reinterpret_cast<const uint2*>(a + kLo);
+        const uint2 bottom_hi = *reinterpret_cast<const uint2*>(a + 8 * kSK);
+        const uint2 bottom_lo = *reinterpret_cast<const uint2*>(a + 8 * kSK + kLo);
+        a_hi[mt][0] = top_hi.x;
+        a_hi[mt][1] = bottom_hi.x;
+        a_hi[mt][2] = top_hi.y;
+        a_hi[mt][3] = bottom_hi.y;
+        a_lo[mt][0] = top_lo.x;
+        a_lo[mt][1] = bottom_lo.x;
+        a_lo[mt][2] = top_lo.y;
+        a_lo[mt][3] = bottom_lo.y;
       }
 #pragma unroll
       for (int n0 = 0; n0 < kNT; n0 += kChunk) {
         uint32_t b_hi[kChunk][2], b_lo[kChunk][2];
 #pragma unroll
         for (int c = 0; c < kChunk; ++c) {
-          const float* b = k_t + (8 * (n0 + c) + g) * kSD + 8 * kt + t;
-          tf32_operand<C::kPlanes>(b, C::kTile, b_hi[c][0], b_lo[c][0]);
-          tf32_operand<C::kPlanes>(b + 4, C::kTile, b_hi[c][1], b_lo[c][1]);
+          const float2 b =
+              *reinterpret_cast<const float2*>(k_t + (8 * (n0 + c) + g) * kSK + 8 * kt + 2 * t);
+          split_tf32(b.x, b_hi[c][0], b_lo[c][0]);
+          split_tf32(b.y, b_hi[c][1], b_lo[c][1]);
         }
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
@@ -240,38 +210,27 @@ __device__ __forceinline__ void qk_product(float (&s)[C::kMT][C::kNT][4],
     using T = typename C::Elem;
 #pragma unroll
     for (int kt = 0; kt < C::kD / 16; ++kt) {
-      uint32_t af[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        if constexpr (C::kQRegs) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) af[mt][i] = qf[kt][i];
-        } else {
-          ldsm_x4(af[mt], q_w + (16 * mt + lane % 16) * kSD + 16 * kt + (lane / 16) * 8);
-        }
-      }
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t bf[4];
-        ldsm_x4(bf, k_t + (16 * np + (lane % 8) + (lane / 16) * 8) * kSD + 16 * kt +
+        ldsm_x4(bf, k_t + (16 * np + (lane % 8) + (lane / 16) * 8) * kSK + 16 * kt +
                         ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_16<T>(s[mt][2 * np], af[mt], bf[0], bf[1]);
-          mma_16<T>(s[mt][2 * np + 1], af[mt], bf[2], bf[3]);
-        }
+        mma_16<T>(s[0][2 * np], qf[kt], bf[0], bf[1]);
+        mma_16<T>(s[0][2 * np + 1], qf[kt], bf[2], bf[3]);
       }
     }
   }
 }
 
 // o[mt][n] += P·V for the warp's kMT m16 tiles: P is f32 in the
-// accumulator layout of S (split hi + lo here), v_t the [kN][kSD] V tile.
+// accumulator layout of S (split hi + lo here), v_t the [kN][kSV] V tile
+// (f32: each value split by the warp that reads it, once for all kMT
+// m-tiles).
 template <class C>
 __device__ __forceinline__ void pv_product(float (&o)[C::kMT][C::kDT][4],
                                            const float (&p)[C::kMT][C::kNT][4],
                                            const typename C::Elem* v_t) {
-  constexpr int kSD = C::kSD, kMT = C::kMT, kNT = C::kNT, kDT = C::kDT;
+  constexpr int kSV = C::kSV, kMT = C::kMT, kNT = C::kNT, kDT = C::kDT;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -293,9 +252,9 @@ __device__ __forceinline__ void pv_product(float (&o)[C::kMT][C::kDT][4],
         uint32_t b_hi[kChunk][2], b_lo[kChunk][2];
 #pragma unroll
         for (int c = 0; c < kChunk; ++c) {
-          const float* b = v_t + (8 * j + 2 * t) * kSD + 8 * (n0 + c) + g;
-          tf32_operand<C::kPlanes>(b, C::kTile, b_hi[c][0], b_lo[c][0]);
-          tf32_operand<C::kPlanes>(b + kSD, C::kTile, b_hi[c][1], b_lo[c][1]);
+          const float* b = v_t + (8 * j + 2 * t) * kSV + 8 * (n0 + c) + g;
+          split_tf32(b[0], b_hi[c][0], b_lo[c][0]);
+          split_tf32(b[kSV], b_hi[c][1], b_lo[c][1]);
         }
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
@@ -331,7 +290,7 @@ __device__ __forceinline__ void pv_product(float (&o)[C::kMT][C::kDT][4],
 #pragma unroll
       for (int np = 0; np < kDT / 2; ++np) {
         uint32_t bf[4];
-        ldsm_x4_trans(bf, v_t + row * kSD + (lane / 16) * 8 + 16 * np);
+        ldsm_x4_trans(bf, v_t + row * kSV + (lane / 16) * 8 + 16 * np);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           mma_16<T>(o[mt][2 * np], a_lo[mt], bf[0], bf[1]);
@@ -385,14 +344,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[C::kMT][C::kNT][4],
       row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
       row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
       const float m_new = fmaxf(m_run[mt][h], row_max);
-      const float alpha = expf(m_run[mt][h] - m_new);
+      const float alpha = exp_approx(m_run[mt][h] - m_new);
       m_run[mt][h] = m_new;
       float row_sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const float p = expf(s[mt][nt][2 * h + i] - m_new);
+          const float p = exp_approx(s[mt][nt][2 * h + i] - m_new);
           s[mt][nt][2 * h + i] = p;
           row_sum += p;
         }
@@ -425,12 +384,11 @@ flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem*
                  float* __restrict__ lse, int hq, int group, int s_len, int d, float scale,
                  int causal) {
   using T = typename C::Elem;
-  constexpr int kSD = C::kSD, kBM = C::kBM, kN = C::kN, kMT = C::kMT;
-  constexpr int kVOff = (C::kPlanes ? 2 : 1) * C::kTile;  // V within a stage
+  constexpr int kSK = C::kSK, kSV = C::kSV, kBM = C::kBM, kN = C::kN, kMT = C::kMT;
+  constexpr int kVOff = kN * kSK;  // V within a stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  T* const ring = smem + C::kQ;  // two stages
-  T* const q_s = C::kQRegs ? ring + C::kStage : smem;
+  T* const q_s = reinterpret_cast<T*>(smem_raw);  // then O
+  T* const ring = q_s + C::kQ;                     // two stages
 
   const int n_q_tiles = (s_len + kBM - 1) / kBM;
   // Causal: the last query tiles read the most key tiles; launch them first.
@@ -447,19 +405,24 @@ flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem*
 
   auto issue = [&](int tile, int stage) {
     T* st = ring + stage * C::kStage;
-    load_rows_async<T, kN, kSD>(st, k_bh, tile * kN, s_len, d);
-    load_rows_async<T, kN, kSD>(st + kVOff, v_bh, tile * kN, s_len, d);
+    load_rows_async<T, kN, kSK>(st, k_bh, tile * kN, s_len, d);
+    load_rows_async<T, kN, kSV>(st + kVOff, v_bh, tile * kN, s_len, d);
   };
 
-  zero_tail_columns<T, C::kD, kSD>(smem, C::kElems / kSD, d);
-  load_rows_async<T, kBM, kSD>(q_s, q + (size_t)bh * plane, q0, s_len, d);
+  zero_tail_columns<T, C::kD, kSK>(q_s, C::kQ / kSK, d);
+#pragma unroll
+  for (int stage = 0; stage < 2; ++stage) {
+    zero_tail_columns<T, C::kD, kSK>(ring + stage * C::kStage, kN, d);
+    zero_tail_columns<T, C::kD, kSV>(ring + stage * C::kStage + kVOff, kN, d);
+  }
+  load_rows_async<T, kBM, kSK>(q_s, q + (size_t)bh * plane, q0, s_len, d);
   issue(0, 0);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int w_row0 = 16 * kMT * warp;  // the warp's first row in the block
-  const T* q_w = q_s + w_row0 * kSD;
+  const T* q_w = q_s + w_row0 * kSK;
   uint32_t qf[C::kQFrags][4];
   float o_acc[kMT][C::kDT][4];
   float m_run[kMT][2], l_run[kMT][2];
@@ -480,21 +443,14 @@ flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem*
     const int stage = it & 1;
     T* const st = ring + stage * C::kStage;
     cp_async_wait<0>();  // this thread's copies of tile it (and Q) landed
-    if constexpr (C::kPlanes) {
-      split_rows<kN, kSD>(st, st + C::kTile, d);
-      split_rows<kN, kSD>(st + kVOff, st + kVOff + C::kTile, d);
+    if constexpr (C::kF32) {
+      if (it == 0) split_rows<kBM, kSK>(q_s, q_s + kBM * kSK, d);
     }
-    if constexpr (C::kF32 && !C::kQRegs) {
-      if (it == 0) split_rows<kBM, kSD>(q_s, q_s + kBM * kSD, d);
-    }
-    // Tile it is visible to every thread, and every warp is done with
-    // tile it - 1, whose stage the next copies overwrite.
+    // Tile it (and Q) is visible to every thread, and every warp is done
+    // with tile it - 1, whose stage the next copies overwrite.
     __syncthreads();
-    if constexpr (C::kQRegs) {
-      if (it == 0) {
-        load_q_frags<C>(qf, q_w);
-        __syncthreads();  // Q is read before its stage is overwritten
-      }
+    if constexpr (!C::kF32) {
+      if (it == 0) load_q_frags<C>(qf, q_w);
     }
     if (it + 1 < n_tiles) issue(it + 1, stage ^ 1);
     cp_async_commit();  // possibly empty: keeps one group per tile
@@ -518,10 +474,10 @@ flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem*
     pv_product<C>(o_acc, s, st + kVOff);
   }
 
-  // O through shared memory (every warp is done with the ring), then
+  // O through shared memory where Q was (every warp is done with it), then
   // 16-byte stores of whole rows.
   __syncthreads();
-  T* const o_s = smem;
+  T* const o_s = q_s;
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
@@ -535,7 +491,7 @@ flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem*
       const int r = w_row0 + 16 * mt + g + 8 * h;
 #pragma unroll
       for (int dt = 0; dt < C::kDT; ++dt)
-        store_pair<T>(o_s + r * kSD + 8 * dt + 2 * t, o_acc[mt][dt][2 * h] / denom,
+        store_pair<T>(o_s + r * kSV + 8 * dt + 2 * t, o_acc[mt][dt][2 * h] / denom,
                       o_acc[mt][dt][2 * h + 1] / denom);
       if (t == 0 && q0 + r < s_len) lse[(size_t)bh * s_len + q0 + r] = m_run[mt][h] + logf(denom);
     }
@@ -548,7 +504,7 @@ flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem*
     const int c = (idx - r * chunks) * kVec;
     if (q0 + r < s_len)
       *reinterpret_cast<uint4*>(o_bh + (size_t)(q0 + r) * d + c) =
-          *reinterpret_cast<const uint4*>(o_s + r * kSD + c);
+          *reinterpret_cast<const uint4*>(o_s + r * kSV + c);
   }
 }
 
@@ -570,10 +526,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
-// The configuration each input type and head_dim runs: f32 K/V split into
-// planes once per block; 16 bits read K and V as they are.
+// The configuration each input type and head_dim runs, the fastest that
+// tools/flash_fwd_variants.py found on the card (PERF.md): f32 at head_dim
+// 64 with 32 rows a warp, so each split K or V fragment feeds two m-tiles,
+// and 32-key tiles; 16 rows a warp otherwise, with 64-key tiles for f32 at
+// 128 and 16 bits at 64, 32-key tiles for 16 bits at 128.
 template <typename T, int kD>
-using Chosen = Cfg<T, kD, 1, is_f32<T>() ? 32 : 64, true>;
+constexpr int chosen_mt() { return is_f32<T>() && kD <= 64 ? 2 : 1; }
+template <typename T, int kD>
+constexpr int chosen_n() {
+  return is_f32<T>() ? (kD <= 64 ? 32 : 64) : (kD <= 64 ? 64 : 32);
+}
+template <typename T, int kD>
+using Chosen = Cfg<T, kD, chosen_mt<T, kD>(), chosen_n<T, kD>()>;
 
 template <typename T>
 cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o, void* lse,

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` is compiled on first use, by ``nvcc`` for
 ``build/torch_kernels/`` at the repository root (``build/`` is not
 committed). The library's file name carries a hash of its source, of
 every shared header ``csrc/*.cuh`` and of the flags, so an edited source
-or header is rebuilt and a stale library is never loaded. A failed build raises with the compiler's output; there is no
-fallback. Nothing here runs at import time.
+or header is rebuilt and a stale library is never loaded. A failed build
+raises with the compiler's output; there is no fallback. Nothing here
+runs at import time.
 """
 
 import ctypes
