@@ -49,15 +49,15 @@
 // (operand column t is key 2t, column t+4 is key 2t+1) and the V rows are
 // read in the same order; Q·Kᵀ permutes its k order the same way, so each
 // lane reads Q and K in 8-byte pairs. The online softmax reduces each
-// row's max over the 4 lanes that share it; the denominator is summed per
-// lane and reduced once at the end. Masks are applied only on tiles that
-// cross the diagonal or the ragged end; a warp skips a tile whose keys
-// all lie past its rows. Causal: the loop stops at the diagonal, and
-// blockIdx.y is mapped so that the blocks with the most tiles launch
-// first. O is staged through shared memory and written with 16-byte
-// stores; lse by one lane a row. Shared strides are padded so that
-// fragment loads and ldmatrix are free of bank conflicts; columns past d
-// are zero in shared memory.
+// row's max over the 4 lanes that share it and rescales O only when some
+// row's max moved; the denominator is summed per lane and reduced once at
+// the end. Masks are applied only on tiles that cross the diagonal or the
+// ragged end; a warp skips a tile whose keys all lie past its rows.
+// Causal: the loop stops at the diagonal, and blockIdx.y is mapped so that
+// the blocks with the most tiles launch first. O is staged through shared
+// memory and written with 16-byte stores; lse by one lane a row. Shared
+// strides are padded so that fragment loads and ldmatrix are free of bank
+// conflicts; columns past d are zero in shared memory.
 
 #include <math.h>
 
@@ -96,6 +96,9 @@ struct Cfg {
   static constexpr int kStage = kN * (kSK + kSV);  // a K and a V tile
   static constexpr int kQFrags = kF32 ? 1 : kD / 16;
   static constexpr size_t kBytes = sizeof(T) * (size_t)(kQ + 2 * kStage);
+  // 16 bits: three blocks an SM, so at most 168 registers a thread (ptxas
+  // gave the f16 kernel at head_dim 128 171 unbounded, which fit two).
+  static constexpr int kMinBlocks = kF32 ? 1 : 3;
   static_assert(kF32 || kMT == 1, "16-bit warps own 16 rows");
   static_assert(kBM * kSV <= kQ, "O is staged where Q was");
   static_assert(kNT % kChunk == 0 && kDT % kChunk == 0, "n-tiles come in whole chunks");
@@ -356,10 +359,15 @@ __device__ __forceinline__ void online_softmax(float (&s)[C::kMT][C::kNT][4],
           row_sum += p;
         }
       l_run[mt][h] = l_run[mt][h] * alpha + row_sum;
+      // alpha is 1 where a row's max did not move, as it mostly does not
+      // after the first tiles; O is rescaled only if some row of the warp
+      // moved (x · 1 = x, so the result is the same).
+      if (__any_sync(0xffffffffu, alpha != 1.f)) {
 #pragma unroll
-      for (int dt = 0; dt < C::kDT; ++dt) {
-        o[mt][dt][2 * h] *= alpha;
-        o[mt][dt][2 * h + 1] *= alpha;
+        for (int dt = 0; dt < C::kDT; ++dt) {
+          o[mt][dt][2 * h] *= alpha;
+          o[mt][dt][2 * h + 1] *= alpha;
+        }
       }
     }
 }
@@ -378,7 +386,7 @@ __device__ __forceinline__ void store_pair(T* dst, float x0, float x1) {
 }
 
 template <class C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, C::kMinBlocks)
 flash_fwd_kernel(const typename C::Elem* __restrict__ q, const typename C::Elem* __restrict__ k,
                  const typename C::Elem* __restrict__ v, typename C::Elem* __restrict__ o,
                  float* __restrict__ lse, int hq, int group, int s_len, int d, float scale,
