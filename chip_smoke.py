@@ -94,12 +94,14 @@ KERNELS = ["flash_fwd", "flash_bwd"]
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12, torch.float16: 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-# |kernel - plain| <= atol + rtol * |plain|. f32: the same f32 sums taken
-# in another order, held as tests/test_flash_attention.py holds the Pallas
-# kernel to its einsum spec. bf16/f16: both round one f32 result to the output
-# type, and f32 results differing in the last bits may round to
-# neighbouring values, one ulp (2^-8 bf16, 2^-11 f16) apart. The lse is
-# f32 in every case.
+# |kernel - plain| <= atol + rtol * |plain|. f32: the kernel's products
+# are 3xTF32 (hi·hi + hi·lo + lo·hi of tf32 splits, f32-accurate; the CPU
+# emulation in tests/test_torch_attention.py lands at 1-2 % of this
+# tolerance), summed in another order: held as tests/test_flash_attention.py
+# holds the Pallas kernel to its einsum spec. bf16/f16: both round one f32
+# result to the output type, and f32 results differing in the last bits
+# may round to neighbouring values, one ulp (2^-8 bf16, 2^-11 f16) apart.
+# The lse is f32 in every case.
 OUT_TOL = {
     torch.float32: (2e-5, 1e-5),
     torch.bfloat16: (1e-2, 8e-3),
