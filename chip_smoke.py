@@ -41,7 +41,21 @@ Phases, each printing JSON lines to stdout:
    model, byte-equal to the state the async save captured. Then one
    step's gradients through the flash kernels are held against plain
    autograd of the einsum attention on a short input.
-8. kernels — one JSON line summarising every kernel of the paths.
+8. multi rank — the same model at full widths and depth across ranks
+   that share the card as processes of one gloo process group (NCCL
+   refuses two ranks on one GPU), each building the state on the card
+   from the same seed: at world 2, the Megatron tensor-parallel layout
+   on a ``{"tp": 2}`` DeviceMesh, ``CheckpointManager(max_to_keep=1)``
+   saves step 1 with ``replicated=["**"]``, an in-place change to one
+   leaf, an ``async_save(stage="device")`` of step 2 and the retention
+   that prunes step 1; at world 4, an FSDP-style layout (dim 0 of every
+   leaf over ``{"tp": 4}``) restores step 2, every local shard
+   byte-equal to its box of the changed state, reading only its boxes'
+   bytes; at world 1 (this process), the restore of step 2 into a plain
+   model on the card, byte-equal, and a forward on 4 × 1024 tokens
+   through the flash kernel with logits bit-identical to those of a
+   model built from the seed with the same change.
+9. kernels — one JSON line summarising every kernel of the paths.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -80,7 +94,12 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
 from torchsnapshot_tpu_torch.manifest import ArrayEntry  # noqa: E402
 from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
+from torchsnapshot_tpu_torch.parallel.mesh import make_mesh, shard_pytree  # noqa: E402
+from torchsnapshot_tpu_torch.resharding import shard_box  # noqa: E402
 from torchsnapshot_tpu_torch.serialization import dtype_itemsize  # noqa: E402
+from torchsnapshot_tpu_torch.storage_plugins import fs as fs_plugin  # noqa: E402
+from torchsnapshot_tpu_torch.utils.test_utils import run_multiprocess  # noqa: E402
+from torchsnapshot_tpu_torch.utils.train_state import PytreeStateful  # noqa: E402
 
 KERNELS = ["flash_fwd", "flash_bwd"]
 
@@ -753,6 +772,250 @@ def phase_train():
     return record
 
 
+# The multi-rank phase's ranks: one spawned process each, in one gloo
+# process group, all on cuda:0. A rank that fails or hangs fails the
+# phase (run_multiprocess's shared deadline).
+MR_RANK_TIMEOUT_S = 420.0
+
+
+def _mr_change(tree):
+    """The in-place change to one leaf between step 1 and step 2."""
+    w1 = tree["layers"][0]["mlp"]["w1"]
+    local = w1.to_local() if hasattr(w1, "to_local") else w1
+    with torch.no_grad():
+        local.add_(1.0)
+
+
+def _mr_count_payload_bytes():
+    """Count the payload bytes (not the dot-named metadata and markers)
+    this process writes and reads through the fs plugin."""
+    counts = {"written": 0, "read": 0}
+    write, read = fs_plugin.FSStoragePlugin._write_sync, fs_plugin.FSStoragePlugin._read_sync
+
+    def counting_write(self, io_req):
+        write(self, io_req)
+        if not io_req.path.startswith("."):
+            data = io_req.data if io_req.data is not None else io_req.buf.getbuffer()
+            counts["written"] += len(data)
+
+    def counting_read(self, io_req):
+        read(self, io_req)
+        if not io_req.path.startswith("."):
+            counts["read"] += len(io_req.data)
+
+    fs_plugin.FSStoragePlugin._write_sync = counting_write
+    fs_plugin.FSStoragePlugin._read_sync = counting_read
+    return counts
+
+
+def _mr_fsdp_rule(keys, leaf):
+    return ("tp",)
+
+
+def mr_save(rank, world, base, out_dir):
+    """World 2: Megatron tp 2, sync save of step 1, in-place change,
+    device-staged async save of step 2, retention."""
+    counts = _mr_count_payload_bytes()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    mesh = make_mesh({"tp": world}, "cuda")
+    full = tf.init_params(GPT2_XL, seed=0)
+    params = tf.shard_params(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    app = {"model": PytreeStateful(params), "progress": StateDict(step=1)}
+    mgr = CheckpointManager(base, max_to_keep=1)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    mgr.save(1, app, replicated=["**"])
+    save_s = time.perf_counter() - begin
+    save_bytes = counts["written"]
+    _mr_change(params)
+    app["progress"]["step"] = 2
+    begin = time.perf_counter()
+    pending = mgr.async_save(2, app, replicated=["**"], stage="device")
+    returned = time.perf_counter()
+    pending.wait()
+    done = time.perf_counter()
+    record = {
+        "rank": rank,
+        "local_bytes": sum(t.to_local().numel() * t.element_size() for t in tf.param_leaves(params)),
+        "save_bytes": save_bytes,
+        "save_s": save_s,
+        "async_stall_s": returned - begin,
+        "async_drain_s": done - returned,
+        "async_bytes": counts["written"] - save_bytes,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if rank == 0:
+        record["all_steps"] = mgr.all_steps()
+    with open(os.path.join(out_dir, f"save_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def mr_restore(rank, world, base, out_dir):
+    """World 4: restore the latest step into dim 0 of every leaf over
+    ``{"tp": 4}``; every local shard byte-equal to its box of the
+    changed seed state."""
+    counts = _mr_count_payload_bytes()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    mesh = make_mesh({"tp": world}, "cuda")
+    expected = tf.init_params(GPT2_XL, seed=0)
+    _mr_change(expected)
+    template = shard_pytree(expected, mesh, _mr_fsdp_rule)
+    for t in tf.param_leaves(template):
+        t.to_local().fill_(float("nan"))
+    state = PytreeStateful(template)
+    progress = StateDict(step=0)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    step = CheckpointManager(base).restore({"model": state, "progress": progress})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - begin
+    equal = 0
+    leaves = list(tf.param_leaves(state.tree))
+    for got, want in zip(leaves, tf.param_leaves(expected)):
+        offsets, sizes = shard_box(
+            list(want.shape), list(mesh.shape), mesh.get_coordinate(), got.placements
+        )
+        box = tuple(slice(o, o + n) for o, n in zip(offsets, sizes))
+        local = got.to_local()
+        equal += bool(
+            local.is_cuda and torch.equal(local.view(torch.uint8), want[box].contiguous().view(torch.uint8))
+        )
+    record = {
+        "rank": rank,
+        "step": step,
+        "progress": progress["step"],
+        "restore_s": restore_s,
+        "read_bytes": counts["read"],
+        "local_bytes": sum(t.to_local().numel() * t.element_size() for t in leaves),
+        "leaves": len(leaves),
+        "leaves_byte_equal": equal,
+        "embed_local_shape": list(state.tree["embed"].to_local().shape),
+    }
+    with open(os.path.join(out_dir, f"restore_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def _mr_records(out_dir, kind, world):
+    records = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"{kind}_{rank}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def phase_multi_rank():
+    cfg = GPT2_XL
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mr-")
+    base = os.path.join(workdir, "run")
+    out_dir = os.path.join(workdir, "records")
+    os.makedirs(out_dir)
+    record = {
+        "phase": "multi_rank",
+        "model": "GPT-2 XL widths, f32, flash attention",
+        "filesystem": list(_filesystem(os.path.realpath(workdir))),
+    }
+    try:
+        state_bytes = 4 * sum(
+            math.prod(s) for s in _gpt2_xl_shapes(cfg)
+        )
+        if shutil.disk_usage(workdir).free < 3 * state_bytes:
+            raise RuntimeError(
+                f"{workdir} has too little room for two steps of "
+                f"{state_bytes} bytes; point TMPDIR at a larger disk."
+            )
+        record["state_bytes"] = state_bytes
+        begin = time.perf_counter()
+        run_multiprocess(mr_save, 2, (base, out_dir), timeout_s=MR_RANK_TIMEOUT_S)
+        record["world2_s"] = time.perf_counter() - begin
+        saves = _mr_records(out_dir, "save", 2)
+        record["world2"] = saves
+        record["world2_save_gbps"] = sum(r["save_bytes"] for r in saves) / 1e9 / max(r["save_s"] for r in saves)
+        record["world2_drain_gbps"] = (
+            sum(r["async_bytes"] for r in saves) / 1e9 / max(r["async_drain_s"] for r in saves)
+        )
+        if saves[0]["all_steps"] != [2]:
+            raise AssertionError(f"all_steps() is {saves[0]['all_steps']} after retention, expected [2]")
+        if sum(r["local_bytes"] for r in saves) < state_bytes:
+            raise AssertionError("the world-2 shards do not cover the state")
+
+        begin = time.perf_counter()
+        run_multiprocess(mr_restore, 4, (base, out_dir), timeout_s=MR_RANK_TIMEOUT_S)
+        record["world4_s"] = time.perf_counter() - begin
+        restores = _mr_records(out_dir, "restore", 4)
+        record["world4"] = restores
+        record["world4_restore_gbps"] = (
+            sum(r["read_bytes"] for r in restores) / 1e9 / max(r["restore_s"] for r in restores)
+        )
+        record["world4_read_bytes_over_quarter_state"] = [
+            r["read_bytes"] / (state_bytes / 4) for r in restores
+        ]
+        for r in restores:
+            if r["step"] != 2 or r["progress"] != 2 or r["leaves_byte_equal"] != r["leaves"]:
+                raise AssertionError(f"world-4 rank {r['rank']}: {r}")
+
+        # World 1, this process: a plain model, and a forward through K1.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.use_deterministic_algorithms(True)
+        reference = tf.Transformer.init(cfg, seed=0)
+        _mr_change(reference.params())
+        model = tf.Transformer.init(cfg, seed=1)
+        progress = StateDict(step=0)
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        step = CheckpointManager(base).restore(
+            {"model": tf.TransformerState(model), "progress": progress}
+        )
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - begin
+        equal = sum(
+            b.is_cuda and torch.equal(a.detach().view(torch.uint8), b.detach().view(torch.uint8))
+            for a, b in zip(tf.param_leaves(reference.params()), tf.param_leaves(model.params()))
+        )
+        n_leaves = len(list(tf.param_leaves(model.params())))
+        record.update(
+            world1_restore_s=restore_s,
+            world1_restore_gbps=state_bytes / 1e9 / restore_s,
+            world1_leaves_byte_equal=equal,
+            world1_leaves=n_leaves,
+        )
+        if step != 2 or progress["step"] != 2 or equal != n_leaves:
+            raise AssertionError(f"world-1 restore: step {step}, {equal}/{n_leaves} leaves equal")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        # The multi-rank path's launch counts start here.
+        _reset_launch_counts()
+        with torch.no_grad():
+            logits = model(tokens)
+        torch.cuda.synchronize()
+        record["flash_launches"] = attention.flash_forward_launches
+        # The multi-rank path's launch counts end here.
+        with torch.no_grad():
+            want = reference(tokens)
+        record["logits_bit_identical"] = bool(torch.equal(logits, want))
+        record["logits_finite"] = bool(torch.isfinite(logits).all())
+        if record["flash_launches"] != cfg.n_layers:
+            raise AssertionError(f"{record['flash_launches']} flash launches in one forward")
+        if not (record["logits_bit_identical"] and record["logits_finite"]):
+            raise AssertionError("logits after the elastic restore differ")
+        del reference, model, logits, want
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit(record)
+    return record
+
+
+def _gpt2_xl_shapes(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    layer = [(d, d)] * 4 + [(d, f), (f, d), (d,), (d,)]
+    return [(cfg.vocab_size, d), (cfg.max_seq_len, d), (d,)] + layer * cfg.n_layers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.", file=sys.stderr)
@@ -764,6 +1027,7 @@ def main():
     phase_transfer()
     main_path = phase_main_path()
     train = phase_train()
+    multi_rank = phase_multi_rank()
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
     kernels = [{
@@ -773,6 +1037,7 @@ def main():
         "replaces": "torchsnapshot_tpu/ops/attention.py:103",
         "launches": train["launches"]["flash_fwd"],
         "launches_forward_path": main_path["flash_launches"],
+        "launches_multi_rank_path": multi_rank["flash_launches"],
         "max_abs_err": fwd["max_abs_err"],
         "ms": fwd["kernel_ms"],
         "kernel_ms": fwd["kernel_ms"],

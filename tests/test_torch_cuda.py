@@ -1,6 +1,7 @@
 """The port on the card: the CUDA flash kernels against their plain
-versions, CUDA-tensor take/restore, and the device-clone async take. Marked ``cuda``; every test skips on a host
-without a CUDA device. On a machine with one (``--noconftest``: the
+versions, CUDA-tensor take/restore, the device-clone async take, and
+two ranks sharing the card over gloo. Marked ``cuda``; every test skips
+on a host without a CUDA device. On a machine with one (``--noconftest``: the
 suite's conftest.py sets up JAX, which this file does not need):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -226,3 +227,32 @@ def test_device_staged_async_take_is_a_consistent_cut(cuda, tmp_path):
     pending.wait().restore({"m": target})
     assert torch.equal(target["w"], expected)
     assert not torch.equal(w, expected)
+
+
+def test_two_ranks_on_one_card_take_then_restore_at_world_1(cuda, tmp_path):
+    """Two spawned ranks share the card over gloo (NCCL refuses two ranks
+    on one GPU), take the tiny transformer tensor-parallel as CUDA
+    DTensors, and one process restores it onto the card byte-equal."""
+    import torch_rank_workers
+
+    from torchsnapshot_tpu_torch.utils.test_utils import run_multiprocess
+
+    cfg = tf.TransformerConfig(vocab_size=64, d_model=64, n_heads=4, n_kv_heads=2,
+                               n_layers=2, d_ff=128, max_seq_len=33)
+    params = tf.init_params(cfg, seed=5, device="cpu")
+
+    def to_numpy(tree):
+        if isinstance(tree, dict):
+            return {k: to_numpy(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_numpy(v) for v in tree]
+        return tree.numpy()
+
+    params_np = to_numpy(params)
+    path = str(tmp_path / "snap")
+    run_multiprocess(torch_rank_workers.cuda_take, 2, (path, params_np))
+    target = tf.TransformerState(tf.Transformer.init(cfg, seed=6, device=cuda))
+    Snapshot(path).restore({"model": target})
+    for got, want in zip(tf.param_leaves(target.model.params()), tf.param_leaves(params)):
+        assert got.is_cuda and torch.equal(got.detach().cpu().view(torch.uint8),
+                                           want.view(torch.uint8))

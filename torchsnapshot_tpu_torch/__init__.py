@@ -1,14 +1,24 @@
 """torchsnapshot_tpu_torch: the PyTorch/CUDA port of torchsnapshot_tpu.
 
 Takes (synchronously or asynchronously) and restores app states of CPU
-and CUDA tensors in the JAX package's on-disk format — a snapshot taken
-by either package restores through the other — manages step-indexed
-checkpoints with retention, and trains the flagship transformer with
-hand-written CUDA flash-attention kernels, forward and backward. Imports
-neither JAX nor the JAX package.
+and CUDA tensors and DTensors in the JAX package's on-disk format — a
+snapshot taken by either package restores through the other — from one
+rank or every rank of a ``torch.distributed`` job, elastically: a state
+of sharded and replicated values saved by N ranks restores on M. Manages
+step-indexed checkpoints with retention, and trains the flagship
+transformer with hand-written CUDA flash-attention kernels, forward and
+backward. Imports neither JAX nor the JAX package.
 """
 
-from .coord import Coordinator, DictStore, FileStore, NoOpCoordinator, get_coordinator
+from .coord import (
+    Coordinator,
+    DictStore,
+    FileStore,
+    NoOpCoordinator,
+    StoreCoordinator,
+    TorchStore,
+    get_coordinator,
+)
 from .manager import CheckpointManager, PendingManagedSnapshot
 from .rng_state import RNGState
 from .snapshot import FORMAT_VERSION as __version__, PendingSnapshot, Snapshot
@@ -31,6 +41,8 @@ __all__ = [
     "Snapshot",
     "StateDict",
     "Stateful",
+    "StoreCoordinator",
+    "TorchStore",
     "get_coordinator",
     "__version__",
 ]

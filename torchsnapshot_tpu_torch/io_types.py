@@ -20,7 +20,7 @@ import random
 import time
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 from .utils.env import env_float, env_int
 
@@ -125,6 +125,8 @@ class WriteReq:
 class ReadReq:
     path: str
     buffer_consumer: BufferConsumer
+    # [start, end) byte offsets: read only this part of the object.
+    byte_range: Optional[Tuple[int, int]] = None
 
 
 @dataclass
@@ -134,6 +136,8 @@ class IOReq:
     # Zero-copy payload. Writes: when set, plugins write `data` directly
     # instead of draining `buf`. Reads: plugins return the payload here.
     data: Optional[BufferType] = None
+    # Reads: [start, end) byte offsets of the object to return.
+    byte_range: Optional[Tuple[int, int]] = None
 
 
 def io_payload(io_req: IOReq) -> BufferType:

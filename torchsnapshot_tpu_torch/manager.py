@@ -266,17 +266,27 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- save
 
-    def save(self, step: int, app_state: AppState) -> Snapshot:
-        """Take a snapshot for ``step``; commit its marker; prune."""
+    def save(
+        self, step: int, app_state: AppState, replicated: Optional[List[str]] = None
+    ) -> Snapshot:
+        """Take a snapshot for ``step``; commit its marker; prune.
+        ``replicated`` is :meth:`Snapshot.take`'s."""
         coordinator = get_coordinator(self._coord)
         snapshot = Snapshot.take(
-            _step_dir(self.base_path, step), app_state, coord=coordinator
+            _step_dir(self.base_path, step),
+            app_state,
+            coord=coordinator,
+            replicated=replicated,
         )
         self._finalize(step, coordinator)
         return snapshot
 
     def async_save(
-        self, step: int, app_state: AppState, stage: str = "auto"
+        self,
+        step: int,
+        app_state: AppState,
+        replicated: Optional[List[str]] = None,
+        stage: str = "auto",
     ) -> "PendingManagedSnapshot":
         """Async take for ``step``; the handle's ``wait()`` writes the
         marker and prunes after the drain commits. Dropping the handle
@@ -284,7 +294,11 @@ class CheckpointManager:
         unpruned, until :meth:`reconcile` adopts it."""
         coordinator = get_coordinator(self._coord)
         pending = Snapshot.async_take(
-            _step_dir(self.base_path, step), app_state, coord=coordinator, stage=stage
+            _step_dir(self.base_path, step),
+            app_state,
+            coord=coordinator,
+            stage=stage,
+            replicated=replicated,
         )
         return PendingManagedSnapshot(self, step, pending, coordinator)
 

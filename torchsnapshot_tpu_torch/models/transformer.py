@@ -14,8 +14,10 @@ logical paths, dtypes, shapes and payload bytes as a JAX take of the same
 parameters, and one snapshot loads into either package.
 
 The single-device forward, the next-token loss and the SGD training
-step are ported; ring, Ulysses and mesh (sequence- and tensor-parallel)
-modes raise. ``flash_attention=True`` runs attention through the CUDA
+step are ported, and :func:`shard_params` places a parameter tree on a
+``"tp"`` DeviceMesh dim in the JAX package's tensor-parallel layout for
+checkpointing; the ring, Ulysses and mesh-sharded (sequence- and
+tensor-parallel) forwards raise. ``flash_attention=True`` runs attention through the CUDA
 flash kernels (``ops/attention.py``), forward and backward. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention, resolve_flash_block
+from ..parallel.mesh import Spec, shard_pytree
 
 
 @dataclass(frozen=True)
@@ -205,6 +208,26 @@ def forward(
     h = _layer_norm(h, params["final_ln"])
     logits = _matmul(h, params["embed"].transpose(0, 1))  # tied head
     return logits.float()
+
+
+def param_sharding_rules(keys: Tuple[str, ...], leaf: Any) -> Spec:
+    """tp-shard the big matrices; replicate norms and positions.
+
+    Column-parallel (wq/wk/wv/w1) shard the output dim, row-parallel
+    (wo/w2) the input dim — the Megatron layout — and the embedding its
+    vocab dim, as the JAX package's ``param_sharding_rules``."""
+    name = keys[-1]
+    if name in ("wq", "wk", "wv", "w1"):
+        return (None, "tp")
+    if name in ("wo", "w2", "embed"):
+        return ("tp", None)
+    return None
+
+
+def shard_params(params: Dict[str, Any], mesh: Any) -> Dict[str, Any]:
+    """The parameter tree as DTensors on ``mesh`` (which has a ``"tp"``
+    dim) per :func:`param_sharding_rules`; each rank keeps its box."""
+    return shard_pytree(params, mesh, param_sharding_rules)
 
 
 def param_leaves(params: Any) -> Iterator[torch.Tensor]:

@@ -8,11 +8,13 @@ A *chunk* is a saved region of a global array described by ``offsets`` and
 coordinates on both sides; the read path then copies
 ``chunk_view[chunk_slices] → target_buffer[target_slices]``.
 ``contiguous_byte_range`` says whether such a box is one run of the
-C-order layout, so it can be copied as a flat byte range.
+C-order layout, so it can be read and copied as a flat byte range.
+``shard_box`` gives the box a DTensor's local shard holds in its global
+array, where the JAX package reads a shard's index.
 """
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -57,6 +59,44 @@ def compute_overlap(
         sizes=tuple(sizes),
     )
 
+
+def shard_box(
+    global_shape: Sequence[int],
+    mesh_shape: Sequence[int],
+    coordinate: Sequence[int],
+    placements: Sequence[Any],
+) -> Tuple[List[int], List[int]]:
+    """(offsets, sizes) of the local shard of a DTensor at mesh
+    ``coordinate``: the public placement semantics, computed here.
+
+    Mesh dims apply in order; ``Shard(d)`` splits the current extent of
+    tensor dim ``d`` as ``torch.chunk`` does (chunks of ceil(n / k), the
+    last ones shorter or empty: vocab 50257 over 4 → 12565 × 3 + 12562);
+    ``Replicate`` keeps it. ``Partial`` (a pending reduction) and strided
+    shards have no box of their own and raise.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    offsets = [0] * len(global_shape)
+    sizes = list(global_shape)
+    for mesh_dim, placement in enumerate(placements):
+        if isinstance(placement, Replicate):
+            continue
+        if type(placement) is not Shard:
+            raise ValueError(
+                f"Cannot snapshot a DTensor with placement {placement!r} on "
+                f"mesh dim {mesh_dim}: only Shard and Replicate placements "
+                f"describe stored values (redistribute Partial placements "
+                f"to Replicate first)"
+            )
+        dim = placement.dim % len(global_shape)
+        n_chunks = mesh_shape[mesh_dim]
+        extent = sizes[dim]
+        chunk = -(-extent // n_chunks)
+        start = min(coordinate[mesh_dim] * chunk, extent)
+        offsets[dim] += start
+        sizes[dim] = min(start + chunk, extent) - start
+    return offsets, sizes
 
 
 def contiguous_byte_range(

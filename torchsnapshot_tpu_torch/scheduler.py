@@ -18,10 +18,11 @@ of budget, so a single over-budget buffer cannot deadlock the pipeline.
 import asyncio
 import logging
 import os
+import socket
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .io_types import IOReq, ReadReq, StoragePlugin, WriteReq, io_payload
 
@@ -44,14 +45,27 @@ def available_memory_bytes(meminfo: str = "/proc/meminfo") -> int:
     raise RuntimeError(f"{meminfo} reports no MemAvailable")
 
 
-def get_memory_budget_bytes() -> int:
-    """min(0.8 × available RAM, 32 GB) for this (single) snapshot process,
-    overridden by ``TPUSNAPSHOT_PER_RANK_MEMORY_BUDGET_BYTES``."""
+def get_local_world_size(coord: Any) -> int:
+    """Number of snapshot processes on this host (a hostname all-gather:
+    a collective, so every rank must call it)."""
+    hostnames = coord.all_gather_object(socket.gethostname())
+    return max(1, hostnames.count(socket.gethostname()))
+
+
+def get_memory_budget_bytes(coord: Any = None) -> int:
+    """min(0.8 × available RAM ÷ snapshot processes on this host, 32 GB),
+    overridden by ``TPUSNAPSHOT_PER_RANK_MEMORY_BUDGET_BYTES``.
+
+    With a coordinator the processes on the host are counted through it
+    (a collective: only from paths every rank runs); without one
+    (``read_object``, single-process reads) this process counts alone.
+    """
     env_val = os.environ.get(_MEMORY_BUDGET_ENV_VAR)
     if env_val is not None:
         return int(env_val)
+    local_world_size = 1 if coord is None else get_local_world_size(coord)
     return min(
-        int(available_memory_bytes() * _AVAILABLE_MEMORY_MULTIPLIER),
+        int(available_memory_bytes() * _AVAILABLE_MEMORY_MULTIPLIER) // local_world_size,
         _MAX_PER_RANK_MEMORY_BUDGET_BYTES,
     )
 
@@ -137,8 +151,8 @@ async def execute_read_reqs(
     bytes_read = 0
     executor = ThreadPoolExecutor(max_workers=_MAX_STAGING_THREADS)
 
-    async def _read(path: str) -> IOReq:
-        io_req = IOReq(path=path)
+    async def _read(rr: ReadReq) -> IOReq:
+        io_req = IOReq(path=rr.path, byte_range=rr.byte_range)
         await storage.read(io_req)
         return io_req
 
@@ -151,7 +165,7 @@ async def execute_read_reqs(
                     break
                 rr = pending.popleft()
                 budget -= cost
-                reading[asyncio.ensure_future(_read(rr.path))] = (rr, cost)
+                reading[asyncio.ensure_future(_read(rr))] = (rr, cost)
             done, _ = await asyncio.wait(
                 set(reading) | set(consuming),
                 return_when=asyncio.FIRST_COMPLETED,

@@ -12,13 +12,24 @@ on-disk format.
   3. write the metadata document last — the commit point: a snapshot
      without metadata is invisible.
 
+Every rank of a ``torch.distributed`` job takes part (the coordinator,
+``coord.py``): the ranks agree on the app-state keys and, per stateful,
+on the ``replicated=`` paths (the intersection of every rank's glob
+matches), each replicated value is written once, by an owner chosen to
+balance the bytes, and a sharded DTensor's boxes are written once each.
+Rank 0 commits the merged manifest of every rank. Values are per-rank,
+replicated or sharded, so a state saved by N ranks restores on M: a
+replicated or sharded value restores on any rank, a per-rank value only
+on the rank that saved it.
+
 ``restore`` reads the metadata, loads the statefuls in sorted key order
 and the RNG stateful last. An array restores onto the device of its
-template tensor. When the template's device, dtype, shape and layout
-match the stored array, the bytes are copied **into the template tensor
-in place** (host→device through pinned bounce buffers), so restoring a
-model onto the card holds one copy of its state there, not two; the
-restored state dict then holds the template tensors themselves.
+template tensor, a DTensor template takes its local box. When the
+template's device, dtype, shape and layout match the stored array (the
+box), the bytes are copied **into the template tensor in place**
+(host→device through pinned bounce buffers), so restoring a model onto
+the card holds one copy of its state there, not two; the restored state
+dict then holds the template tensors themselves.
 
 ``async_take`` captures the same cut before it returns and drains it on
 a background thread. Tensors are mutable, so the cut must be complete in
@@ -39,13 +50,13 @@ asynchronously by either package restores through the other.
 the objects its manifest does not reference.
 
 Not yet ported from the JAX package: ``verify``, ``copy_to``, ``diff``,
-compression, incremental and content-chunked takes, replicated paths
-and multi-rank coordination. Snapshots using those features raise
-``NotImplementedError`` where the port cannot read or delete them. JAX
-PRNG-key leaves restore as their raw uint32 key data.
+compression, incremental and content-chunked takes. Snapshots using
+those features raise ``NotImplementedError`` where the port cannot read
+or delete them. JAX PRNG-key leaves restore as their raw uint32 key data.
 """
 
 import asyncio
+import fnmatch
 import json
 import logging
 import os
@@ -56,7 +67,7 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
-from .coord import Coordinator, get_coordinator
+from .coord import Coordinator, barrier_compat, get_coordinator, get_rank
 from .flatten import flatten, inflate
 from .io_preparer import device_clone_write_reqs, prepare_read, prepare_write
 from .io_types import (
@@ -71,12 +82,15 @@ from .io_types import (
 from .manifest import (
     ArrayEntry,
     DictEntry,
+    Entry,
     ListEntry,
     Manifest,
     ObjectEntry,
     ShardedArrayEntry,
     SnapshotMetadata,
+    entry_has_content,
     get_available_entries,
+    is_replicated,
 )
 from .rng_state import RNGState
 from .scheduler import (
@@ -108,29 +122,48 @@ class Snapshot:
 
     @classmethod
     def take(
-        cls, path: str, app_state: AppState, coord: Optional[Coordinator] = None
+        cls,
+        path: str,
+        app_state: AppState,
+        coord: Optional[Coordinator] = None,
+        replicated: Optional[List[str]] = None,
     ) -> "Snapshot":
         """Persist ``app_state`` to ``path``; returns a handle. Returns
         once every payload is written and the metadata committed, so the
-        caller may change its tensors afterwards."""
+        caller may change its tensors afterwards. A collective: every
+        rank calls it with the same ``path``.
+
+        ``replicated`` is a list of globs over logical paths
+        (``"model/**"``, ``"**"``) whose values are the same on every
+        rank: each is written once and restores on any rank, at any
+        world size. A path counts as replicated only where every rank
+        matched it. Sharded DTensors are written by their own rule
+        whatever the globs say."""
         coordinator = get_coordinator(coord)
         rank = coordinator.get_rank()
-        manifest, write_reqs = _capture(app_state, rank)
+        world_size = coordinator.get_world_size()
+        manifest, write_reqs = _capture(app_state, coordinator, replicated or [])
+        budget = get_memory_budget_bytes(coordinator)
         storage = url_to_storage_plugin(path)
         try:
-            asyncio.run(
-                execute_write_reqs(
-                    write_reqs, storage, get_memory_budget_bytes(), rank
-                )
-            )
+            asyncio.run(execute_write_reqs(write_reqs, storage, budget, rank))
+            # Every object this rank wrote is durable before its manifest
+            # reaches rank 0, which may commit at once. Rank 0's take_id
+            # rides the same gather.
             storage.ensure_durable()
+            gathered = coordinator.all_gather_object(
+                (uuid.uuid4().hex if rank == 0 else None, manifest)
+            )
             metadata = SnapshotMetadata(
                 version=FORMAT_VERSION,
-                world_size=coordinator.get_world_size(),
-                manifest={f"{rank}/{p}": e for p, e in manifest.items()},
-                take_id=uuid.uuid4().hex,
+                world_size=world_size,
+                manifest=_merge_manifests([m for _, m in gathered]),
+                take_id=gathered[0][0],
             )
-            asyncio.run(_write_metadata(storage, metadata))
+            if rank == 0:
+                asyncio.run(_write_metadata(storage, metadata))
+            # No rank returns before rank 0's metadata write.
+            barrier_compat(coordinator, _COMPLETION_TIMEOUT_S)
         finally:
             storage.close()
         snapshot = cls(path, coord)
@@ -144,6 +177,7 @@ class Snapshot:
         app_state: AppState,
         coord: Optional[Coordinator] = None,
         stage: str = "auto",
+        replicated: Optional[List[str]] = None,
     ) -> "PendingSnapshot":
         """Capture a consistent cut of ``app_state`` and return; the
         payload writes and the metadata commit drain on a background
@@ -162,15 +196,15 @@ class Snapshot:
 
         The caller may mutate its tensors in place as soon as this
         returns: work it queues on the current stream runs after the
-        clones.
+        clones. ``replicated`` is as for :meth:`take`.
         """
         if stage not in ("auto", "host", "device"):
             raise ValueError(f'stage must be "auto", "host", or "device"; got {stage!r}')
         coordinator = get_coordinator(coord)
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
-        manifest, write_reqs = _capture(app_state, rank)
-        budget = get_memory_budget_bytes()
+        manifest, write_reqs = _capture(app_state, coordinator, replicated or [])
+        budget = get_memory_budget_bytes(coordinator)
         _prestage_write_reqs(write_reqs, budget, stage, coordinator)
         # Per-take nonce: completion markers and metadata from earlier or
         # concurrent takes to the same path never satisfy this take's
@@ -288,10 +322,21 @@ class Snapshot:
             available = get_available_entries(metadata.manifest, rank)
             app_state = dict(app_state)
             rng_key, rng_stateful = _pop_rng_state(app_state)
-            for key in sorted(app_state):
-                _load_stateful(key, app_state[key], available, storage, rank)
+            # Every rank joins every per-key barrier, whichever statefuls
+            # it holds, so the ranks stay in step.
+            global_keys = _gather_keys(coordinator, sorted(app_state))
+            budget = get_memory_budget_bytes(coordinator)
+            worlds = (coordinator.get_world_size(), metadata.world_size)
+            for key in global_keys:
+                if key in app_state:
+                    _load_stateful(
+                        key, app_state[key], available, storage, rank, budget, worlds
+                    )
+                coordinator.barrier()
             if rng_stateful is not None:
-                _load_stateful(rng_key, rng_stateful, available, storage, rank)
+                _load_stateful(
+                    rng_key, rng_stateful, available, storage, rank, budget, worlds
+                )
         finally:
             storage.close()
 
@@ -306,7 +351,7 @@ class Snapshot:
         array returns as a CPU tensor. A container path returns its whole
         subtree with host values."""
         if rank is None:
-            rank = get_coordinator(self._coord).get_rank()
+            rank = get_rank(self._coord)
         storage = url_to_storage_plugin(self.path)
         try:
             available = get_available_entries(
@@ -327,7 +372,7 @@ class Snapshot:
                 reqs, finalizers = prepare_read(
                     entry, template, lambda v: result.update(v=v)
                 )
-                _run_reads(reqs, finalizers, storage, rank)
+                _run_reads(reqs, finalizers, storage, rank, get_memory_budget_bytes())
                 return result["v"]
             if template is not None:
                 raise ValueError(
@@ -353,7 +398,7 @@ class Snapshot:
                 r, f = prepare_read(e, None, _cb)
                 reqs.extend(r)
                 finalizers.extend(f)
-            _run_reads(reqs, finalizers, storage, rank)
+            _run_reads(reqs, finalizers, storage, rank, get_memory_budget_bytes())
             return inflate(containers, flattened, prefix=logical_path)
         finally:
             storage.close()
@@ -475,18 +520,105 @@ def _pop_rng_state(
     return key, stateful
 
 
+def _gather_keys(coordinator: Coordinator, keys: List[str]) -> List[str]:
+    """Sorted union of every rank's app-state keys."""
+    out: Set[str] = set()
+    for k in coordinator.all_gather_object(keys):
+        out.update(k)
+    return sorted(out)
+
+
+def _safe_nbytes(value: Any) -> int:
+    """Size estimate for owner balancing only; 0 means "assign by
+    count" (objects, whose pickled size may differ per rank)."""
+    try:
+        return int(getattr(value, "nbytes", 0) or 0)
+    except (TypeError, ValueError, RuntimeError):
+        return 0
+
+
+def _negotiate_replicated_paths(
+    coordinator: Coordinator, flattened: Dict[str, Any], replicated_globs: List[str]
+) -> Dict[str, int]:
+    """``{path: size estimate}`` of the paths every rank matched with its
+    globs (rank-divergent globs degrade to the intersection), each size
+    the largest any rank estimated, so every rank derives the same owner
+    map. The gather runs whenever the world is larger than one, even for
+    empty globs or an absent stateful, so the ranks stay in step."""
+    matched: Dict[str, int] = {}
+    for path, value in flattened.items():
+        if any(fnmatch.fnmatch(path, glob) for glob in replicated_globs):
+            matched[path] = _safe_nbytes(value)
+    if coordinator.get_world_size() == 1:
+        return matched
+    all_matched = coordinator.all_gather_object(sorted(matched.items()))
+    inter = set(p for p, _ in all_matched[0])
+    for m in all_matched[1:]:
+        inter &= set(p for p, _ in m)
+    sizes: Dict[str, int] = {path: 0 for path in inter}
+    for m in all_matched:
+        for path, size in m:
+            if path in sizes:
+                sizes[path] = max(sizes[path], size)
+    return sizes
+
+
+def _assign_replicated_owners(sizes: Dict[str, int], world_size: int) -> Dict[str, int]:
+    """The rank that writes each replicated path: greedy LPT, paths in
+    (size desc, path) order each to the least byte-loaded rank, so every
+    rank writes about 1/N of the replicated bytes. Paths with a zero
+    estimate spread by count instead. A pure function of rank-identical
+    inputs: every rank computes the same map."""
+    if world_size <= 1:
+        return {path: 0 for path in sizes}
+    byte_loads = [0] * world_size
+    count_loads = [0] * world_size
+    owners: Dict[str, int] = {}
+    for path in sorted(sizes, key=lambda p: (-sizes[p], p)):
+        size = sizes[path]
+        if size > 0:
+            owner = min(range(world_size), key=lambda r: byte_loads[r])
+            byte_loads[owner] += size
+        else:
+            owner = min(range(world_size), key=lambda r: count_loads[r])
+        owners[path] = owner
+        count_loads[owner] += 1
+    return owners
+
+
 def _save_stateful(
     key: str,
-    state_dict: Dict[str, Any],
-    rank: int,
+    state_dict: Optional[Dict[str, Any]],
+    coordinator: Coordinator,
+    replicated_globs: List[str],
     manifest_out: Manifest,
     write_reqs_out: List[WriteReq],
 ) -> None:
-    container_manifest, flattened = flatten(state_dict, prefix=key)
+    # A rank without this stateful still joins the negotiation (with no
+    # paths), so the collective sequences of the ranks stay aligned.
+    if state_dict is None:
+        container_manifest: Manifest = {}
+        flattened: Dict[str, Any] = {}
+    else:
+        container_manifest, flattened = flatten(state_dict, prefix=key)
+    rank = coordinator.get_rank()
+    replicated_sizes = _negotiate_replicated_paths(coordinator, flattened, replicated_globs)
+    owners = _assign_replicated_owners(replicated_sizes, coordinator.get_world_size())
     manifest_out.update(container_manifest)
     for logical_path, value in sorted(flattened.items()):
-        entry, write_reqs = prepare_write(value, logical_path, rank)
+        replicated = logical_path in replicated_sizes
+        entry, write_reqs = prepare_write(value, logical_path, rank, replicated)
+        if isinstance(entry, ShardedArrayEntry) and not entry.replicated:
+            # Sharded DTensors go through their own writer rule, not
+            # striping (a chunked dense entry keeps its category).
+            replicated = False
         manifest_out[logical_path] = entry
+        if replicated and owners[logical_path] != rank:
+            # Another rank writes this value; only the stored bytes'
+            # checksum may be advertised, and those are the owner's.
+            if hasattr(entry, "checksum"):
+                entry.checksum = None
+            continue
         write_reqs_out.extend(write_reqs)
 
 
@@ -495,8 +627,9 @@ def _run_reads(
     finalizers: List[Callable[[], None]],
     storage: StoragePlugin,
     rank: int,
+    budget: int,
 ) -> None:
-    asyncio.run(execute_read_reqs(reqs, storage, get_memory_budget_bytes(), rank))
+    asyncio.run(execute_read_reqs(reqs, storage, budget, rank))
     for finalize in finalizers:
         finalize()
 
@@ -507,6 +640,8 @@ def _load_stateful(
     available: Manifest,
     storage: StoragePlugin,
     rank: int,
+    budget: int,
+    worlds: Tuple[int, int],
 ) -> None:
     # The template state dict supplies the devices, dtypes and shapes the
     # restored values land in (and, when they match, the tensors).
@@ -523,7 +658,12 @@ def _load_stateful(
                 continue
             raise RuntimeError(
                 f'Unable to find an entry for "{logical_path}" for rank '
-                f"{rank} in the snapshot."
+                f"{rank}. The snapshot was taken with world size "
+                f"{worlds[1]}; the restoring world size is {worlds[0]}. "
+                f"Snapshots are only elastic (restorable with a different "
+                f"world size) if all values are either sharded DTensors or "
+                f"marked replicated at save time (per-rank values bind to "
+                f"their saving process)."
             )
 
         def _callback(value: Any, p: str = logical_path) -> None:
@@ -532,7 +672,7 @@ def _load_stateful(
         r, f = prepare_read(available[logical_path], template, _callback)
         reqs.extend(r)
         finalizers.extend(f)
-    _run_reads(reqs, finalizers, storage, rank)
+    _run_reads(reqs, finalizers, storage, rank, budget)
 
     # Prefer the snapshot's container entries so saved structure (dict key
     # sets) round-trips; fall back to the template's for the rest.
@@ -552,22 +692,31 @@ def _load_stateful(
     stateful.load_state_dict(inflate(inflate_manifest, flattened, prefix=key))
 
 
-def _capture(app_state: AppState, rank: int) -> Tuple[Manifest, List[WriteReq]]:
-    """The cut of ``app_state``: its manifest (without rank prefixes) and
-    the write requests of its payloads. The RNG stateful is saved first,
-    the others in sorted key order, and then the RNG streams captured are
-    loaded back, so side effects of the other ``state_dict()`` calls do
-    not reach the program."""
+def _capture(
+    app_state: AppState, coordinator: Coordinator, replicated_globs: List[str]
+) -> Tuple[Manifest, List[WriteReq]]:
+    """This rank's cut of ``app_state``: its manifest (without rank
+    prefixes) and the write requests of the payloads it owns. The RNG
+    stateful is saved first, the others in sorted key order (the union
+    of every rank's keys, each rank joining each key's collectives), and
+    then the RNG streams captured are loaded back, so side effects of the
+    other ``state_dict()`` calls do not reach the program."""
     app_state = dict(app_state)
     rng_key, rng_stateful = _pop_rng_state(app_state)
     manifest: Manifest = {}
     write_reqs: List[WriteReq] = []
     rng_captured = None
+    rng_keys = _gather_keys(coordinator, [rng_key] if rng_stateful is not None else [])
     if rng_stateful is not None:
         rng_captured = rng_stateful.state_dict()
-        _save_stateful(rng_key, rng_captured, rank, manifest, write_reqs)
-    for key in sorted(app_state):
-        _save_stateful(key, app_state[key].state_dict(), rank, manifest, write_reqs)
+    for key in rng_keys:
+        state_dict = rng_captured if key == rng_key else None
+        _save_stateful(key, state_dict, coordinator, replicated_globs, manifest, write_reqs)
+    for key in _gather_keys(coordinator, sorted(app_state)):
+        stateful = app_state.get(key)
+        state_dict = stateful.state_dict() if stateful is not None else None
+        _save_stateful(key, state_dict, coordinator, replicated_globs, manifest, write_reqs)
+        coordinator.barrier()
     if rng_stateful is not None:
         rng_stateful.load_state_dict(rng_captured)
     return manifest, write_reqs
@@ -631,14 +780,26 @@ def _prestage_write_reqs(
 
 _COMPLETION_TIMEOUT_S = 1800.0
 
-
 def _merge_manifests(all_manifests: List[Manifest]) -> Manifest:
-    """Per-rank manifests as the global, rank-prefixed view."""
-    return {
-        f"{rank}/{path}": entry
-        for rank, manifest in enumerate(all_manifests)
-        for path, entry in manifest.items()
-    }
+    """Per-rank manifests as the global, rank-prefixed view, as the JAX
+    package merges them: a replicated entry is mirrored into every
+    rank's namespace (the stripe owner's, which carries the checksum of
+    the stored bytes, preferred)."""
+    merged: Manifest = {}
+    replicated: Dict[str, Entry] = {}
+    for rank, manifest in enumerate(all_manifests):
+        for path, entry in manifest.items():
+            merged[f"{rank}/{path}"] = entry
+            if is_replicated(entry):
+                current = replicated.get(path)
+                if current is None or (
+                    entry_has_content(entry) and not entry_has_content(current)
+                ):
+                    replicated[path] = entry
+    for path, entry in replicated.items():
+        for rank in range(len(all_manifests)):
+            merged.setdefault(f"{rank}/{path}", entry)
+    return merged
 
 
 async def _read_marker(storage: StoragePlugin, path: str, nonce: str) -> Optional[Manifest]:

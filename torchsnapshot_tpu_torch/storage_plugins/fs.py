@@ -108,7 +108,12 @@ class FSStoragePlugin(StoragePlugin):
 
     def _read_sync(self, io_req: IOReq) -> None:
         with open(os.path.join(self.root, io_req.path), "rb") as f:
-            io_req.data = f.read()
+            if io_req.byte_range is None:
+                io_req.data = f.read()
+            else:
+                start, end = io_req.byte_range
+                f.seek(start)
+                io_req.data = f.read(end - start)
 
     async def write(self, io_req: IOReq) -> None:
         loop = asyncio.get_running_loop()

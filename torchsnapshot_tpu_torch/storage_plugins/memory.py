@@ -51,10 +51,14 @@ class MemoryStoragePlugin(StoragePlugin):
 
     async def read(self, io_req: IOReq) -> None:
         try:
-            io_req.data = self.store[self._key(io_req.path)]
+            data = self.store[self._key(io_req.path)]
         except KeyError:
             # The same not-found dialect as the fs plugin.
             raise FileNotFoundError(io_req.path) from None
+        if io_req.byte_range is not None:
+            start, end = io_req.byte_range
+            data = data[start:end]
+        io_req.data = data
 
     async def delete(self, path: str) -> None:
         key = self._key(path)
