@@ -12,14 +12,19 @@ Phases, each printing JSON lines to stdout:
    stated, its time, the plain version's, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    inputs (a yardstick only: the port never calls it) and the least time
-   the card could take for the same work.
+   the card could take for the same work. The shapes include the ring
+   path's chunk ([4,25,256,64] f32, causal and full) and the Ulysses
+   path's full-sequence attention ([4,10,1024,64] f32).
 4. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
    the plain backward at the train path's shape and the shapes around
    it (f32, bf16, f16; causal or not; GQA; ragged S; head_dim 128 and
    80), with the tolerance stated, a check that two launches give
    bitwise-equal results, each kernel's time and bound, the plain
    version's time and, as the pair's yardstick, the backward of
-   ``scaled_dot_product_attention`` on the same inputs.
+   ``scaled_dot_product_attention`` on the same inputs. The ring and
+   Ulysses shapes are among them, and one ring-chunk case goes through
+   ``flash_attention_backward`` with a non-zero lse cotangent, against the
+   plain backward with the same delta' = rowsum(dO·O) − dlse.
 5. transfer — pinned device→host and host→device copy rates over 1 GiB,
    and the rate at which fresh host memory is pinned.
 6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
@@ -55,7 +60,25 @@ Phases, each printing JSON lines to stdout:
    model on the card, byte-equal, and a forward on 4 × 1024 tokens
    through the flash kernel with logits bit-identical to those of a
    model built from the seed with the same change.
-9. kernels — one JSON line summarising every kernel of the paths.
+9. ring — the flagship at GPT-2 XL's widths and full depth, f32, 4 ×
+   1024 tokens, trained one step by two processes sharing the card over
+   gloo on a ``{"sp": 2}`` DeviceMesh: zigzag ring attention with flash
+   chunks, so K1–K3 run as chunk kernels (5 chunk attentions a layer a
+   rank: 240 launches of each kernel a step). The reference is one
+   process's flash step on the same weights and tokens, run first: the
+   ranks' losses are equal and within rtol 1e-4 of it, and the gradients
+   of ``embed``, ``layers/0/attn/wq``, ``layers/47/mlp/w2`` and
+   ``final_ln`` within 1e-3 of each one's largest reference entry. Each
+   rank reports its step time, the bytes it sent through the ring and
+   the other collectives, how many were staged through host memory (the
+   helpers stage CUDA tensors on a gloo group), its peak card memory,
+   and the step's transport alone: the gradient all-reduce, and the
+   hops (or all-to-alls) on tensors of the same sizes.
+10. ulysses — the same at gpt2-large's widths and full depth (n_embd
+    1280, 20 heads, 36 layers, n_inner 5120: GPT-2 XL's 25 heads do not
+    divide by sp 2), with Ulysses all-to-all attention through the flash
+    kernels (36 launches of each a step).
+11. kernels — one JSON line summarising every kernel of the paths.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -94,6 +117,7 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
 from torchsnapshot_tpu_torch.manifest import ArrayEntry  # noqa: E402
 from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
+from torchsnapshot_tpu_torch.parallel import collectives  # noqa: E402
 from torchsnapshot_tpu_torch.parallel.mesh import make_mesh, shard_pytree  # noqa: E402
 from torchsnapshot_tpu_torch.resharding import shard_box  # noqa: E402
 from torchsnapshot_tpu_torch.serialization import dtype_itemsize  # noqa: E402
@@ -152,6 +176,13 @@ FLASH_SHAPES = [
     ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True),
     ("odd_d_bf16", 1, 8, 8, 512, 80, torch.bfloat16, False),
     ("gqa_f16", 2, 32, 8, 2048, 128, torch.float16, True),
+    # The ring path's chunk at sp 2 under zigzag (4 x 1024 tokens, a
+    # sub-chunk of 256), causal on the diagonal and full on the past;
+    # the Ulysses path's full-sequence attention on 10 of gpt2-large's 20
+    # heads.
+    ("ring_chunk_causal", BATCH, 25, 25, 256, 64, torch.float32, True),
+    ("ring_chunk_full", BATCH, 25, 25, 256, 64, torch.float32, False),
+    ("ulysses_heads", BATCH, 10, 10, SEQ, 64, torch.float32, True),
 ]
 
 
@@ -165,7 +196,15 @@ BWD_SHAPES = [
     ("single_f16", 1, 25, 25, 1024, 64, torch.float16, True),
     ("d128_f32", 1, 16, 16, 2048, 128, torch.float32, True),
     ("odd_d_bf16", 1, 8, 8, 512, 80, torch.bfloat16, False),
+    ("ring_chunk_causal", BATCH, 25, 25, 256, 64, torch.float32, True),
+    ("ring_chunk_full", BATCH, 25, 25, 256, 64, torch.float32, False),
+    ("ring_chunk_dlse", BATCH, 25, 25, 256, 64, torch.float32, False),
+    ("ulysses_heads", BATCH, 10, 10, SEQ, 64, torch.float32, True),
 ]
+# Cases whose lse cotangent is not zero, as a ring chunk's is (the merge
+# differentiates through the lse): they go through flash_attention_backward
+# with a d_lse, whose delta' = rowsum(dO·O) − dlse the plain backward gets.
+DLSE_CASES = {"ring_chunk_dlse"}
 
 # |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. The plain
 # version computes in f32 from the same inputs (bf16/f16 inputs are exact
@@ -350,7 +389,12 @@ def phase_kernel_bwd():
         out, lse = attention.flash_attention_with_lse(q, k, v, causal)
         # The train path's lse cotangent is zero: delta = rowsum(dO·O).
         delta = (d_out.float() * out.float()).sum(dim=-1, keepdim=True)
-        got = attention._launch_flash_backward(q, k, v, d_out, lse, delta, causal)
+        if name in DLSE_CASES:
+            d_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+            delta = delta - d_lse
+            got = attention.flash_attention_backward(q, k, v, out, lse, d_out, d_lse, causal)
+        else:
+            got = attention._launch_flash_backward(q, k, v, d_out, lse, delta, causal)
         torch.cuda.synchronize()
         ref = attention.flash_attention_backward_reference(
             q, k, v, out, lse, d_out, delta, causal
@@ -361,6 +405,7 @@ def phase_kernel_bwd():
             "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d},
             "dtype": str(dtype).replace("torch.", ""),
             "causal": causal,
+            "d_lse": name in DLSE_CASES,
             "tolerance": list(BWD_TOL),
         }
         ok = True
@@ -1010,6 +1055,186 @@ def phase_multi_rank():
     return record
 
 
+# The sequence-parallel phases: two processes on the one card in a gloo
+# process group (NCCL refuses two ranks on one GPU), a {"sp": 2} mesh.
+SP_WORLD = 2
+SP_RANK_TIMEOUT_S = 600.0
+# openai-community/gpt2-large: n_embd 1280, n_head 20, n_layer 36,
+# n_inner 5120, vocab 50257, n_positions 1024. Its 20 heads divide by
+# sp 2, as Ulysses needs; GPT-2 XL's 25 do not.
+GPT2_LARGE = dataclasses.replace(GPT2_XL, d_model=1280, n_heads=20, n_layers=36, d_ff=5120)
+# (phase, config, ring_attention mode, chunk attentions a layer a rank)
+SP_PHASES = {
+    "ring": (GPT2_XL, "zigzag", 5),
+    "ulysses": (GPT2_LARGE, "ulysses", 1),
+}
+
+
+def _sp_checked_leaves(cfg):
+    """The leaves whose gradients are held against the reference's."""
+    return ("embed", "layers/0/attn/wq", f"layers/{cfg.n_layers - 1}/mlp/w2", "final_ln")
+
+
+def _leaf_index(params, path):
+    target = params
+    for key in path.split("/"):
+        target = target[int(key)] if key.isdigit() else target[key]
+    return [id(t) for t in tf.param_leaves(params)].index(id(target))
+
+
+def _sp_tokens(cfg):
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+
+
+def _sp_params(cfg):
+    params = tf.init_params(cfg, seed=0)
+    for p in tf.param_leaves(params):
+        p.requires_grad_()
+    return params
+
+
+def sp_rank(rank, world, phase, workdir):
+    """One rank of a sequence-parallel phase: the gradients of one pass
+    through ``loss_and_grads`` against the one-process reference, then
+    one ``sgd_train_step``, each with its launches and collective bytes."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, mode, _ = SP_PHASES[phase]
+    sp_cfg = dataclasses.replace(
+        cfg, flash_attention=False, ring_attention=mode, ring_chunk_impl="flash"
+    )
+    mesh = make_mesh({"sp": world}, "cuda")
+    params = _sp_params(cfg)
+    tokens = _sp_tokens(cfg)
+    reference = torch.load(os.path.join(workdir, "reference.pt"))
+    torch.cuda.reset_peak_memory_stats()
+    record = {"rank": rank, "grad_max_rel_err": {}}
+
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    collectives.reset_counts()
+    begin = time.perf_counter()
+    loss, grads = tf.loss_and_grads(params, tokens, sp_cfg, mesh)
+    record["loss"] = float(loss)  # synchronises
+    record["loss_and_grads_s"] = time.perf_counter() - begin
+    record["launches_loss_and_grads"] = list(_launch_counts())
+    for path in _sp_checked_leaves(cfg):
+        got = grads[_leaf_index(params, path)]
+        want = reference["grads"][path].to(got.device)
+        record["grad_max_rel_err"][path] = float((got - want).abs().max() / want.abs().max())
+    del grads, got, want
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    # This rank's launch and collective counts of the step start here.
+    _reset_launch_counts()
+    collectives.reset_counts()
+    begin = time.perf_counter()
+    _, step_loss = tf.sgd_train_step(params, tokens, sp_cfg, mesh)
+    record["step_loss"] = float(step_loss)  # synchronises
+    record["step_s"] = time.perf_counter() - begin
+    record["launches"] = list(_launch_counts())
+    record["sent_bytes"] = dict(collectives.sent_bytes)
+    record["staged_bytes"] = collectives.staged_bytes
+    # ... and end here.
+    record["peak_gb"] = _peak_gb()
+    group = mesh.get_group("sp")
+    record["group_backend"] = str(torch.distributed.get_backend(group))
+    # The step's transport alone, on tensors of the same sizes: the
+    # gradient sum over sp, and the attention's hops (the ring: K and V
+    # one hop a layer each way) or all-to-alls (Ulysses: q, k, v and the
+    # output, each way).
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        for p in tf.param_leaves(params):
+            collectives.all_reduce_(torch.zeros_like(p), group)
+        record["grad_all_reduce_s"] = time.perf_counter() - begin
+        heads = cfg.n_heads
+        piece = torch.zeros((BATCH, heads, SEQ // world, cfg.d_model // heads), device="cuda")
+        begin = time.perf_counter()
+        for _ in range(2 * cfg.n_layers):
+            if mode == "ulysses":
+                for _ in range(4):
+                    collectives.all_to_all(piece, group, split_dim=1, concat_dim=2)
+            else:
+                collectives.rotate(piece, piece, group=group)
+        torch.cuda.synchronize()
+        record["attention_traffic_s"] = time.perf_counter() - begin
+    with open(os.path.join(workdir, f"{phase}_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_seq_parallel(phase):
+    """The flagship at the phase's published widths and full depth,
+    f32, 4 × 1024 tokens: the reference is one process's flash step on
+    the same weights and tokens (run first and freed, so the ranks get
+    the card to themselves); then two ranks train one step over
+    ``{"sp": 2}`` with the phase's sequence-parallel attention, flash
+    chunks through K1–K3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(False)
+    cfg, mode, chunks_per_layer = SP_PHASES[phase]
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}-")
+    record = {
+        "phase": phase,
+        "model": f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_layers} layers, "
+                 f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, f32",
+        "ring_attention": mode,
+        "ring_chunk_impl": "flash",
+        "mesh": {"sp": SP_WORLD},
+        "tokens": [BATCH, SEQ],
+    }
+    try:
+        params = _sp_params(cfg)
+        tokens = _sp_tokens(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        loss, grads = tf.loss_and_grads(params, tokens, cfg)
+        record["reference_loss"] = float(loss)
+        record["reference_s"] = time.perf_counter() - begin
+        record["reference_peak_gb"] = _peak_gb()
+        torch.save(
+            {"grads": {p: grads[_leaf_index(params, p)].cpu() for p in _sp_checked_leaves(cfg)}},
+            os.path.join(workdir, "reference.pt"),
+        )
+        del params, grads, loss
+        torch.cuda.empty_cache()
+
+        begin = time.perf_counter()
+        run_multiprocess(sp_rank, SP_WORLD, (phase, workdir), timeout_s=SP_RANK_TIMEOUT_S)
+        record["spawned_world_s"] = time.perf_counter() - begin
+        ranks = _mr_records(workdir, phase, SP_WORLD)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record["ranks"] = ranks
+    expected = [chunks_per_layer * cfg.n_layers] * 3
+    record["expected_launches"] = expected
+    record["grad_rel_bound"] = 1e-3
+    record["loss_rtol"] = 1e-4
+    emit(record)
+    losses = {r["loss"] for r in ranks} | {r["step_loss"] for r in ranks}
+    if len(losses) != 1:
+        raise AssertionError(f"{phase}: the ranks' losses differ: {sorted(losses)}")
+    loss = losses.pop()
+    if not abs(loss - record["reference_loss"]) <= 1e-4 * abs(record["reference_loss"]):
+        raise AssertionError(f"{phase}: loss {loss} against the reference {record['reference_loss']}")
+    for r in ranks:
+        worst = max(r["grad_max_rel_err"].values())
+        if not worst <= 1e-3:
+            raise AssertionError(f"{phase} rank {r['rank']}: gradients off by {r['grad_max_rel_err']}")
+        if r["launches"] != expected or r["launches_loss_and_grads"] != expected:
+            raise AssertionError(
+                f"{phase} rank {r['rank']}: K1/K2/K3 launched {r['launches_loss_and_grads']} "
+                f"and {r['launches']} times; expected {expected} each pass")
+    return record
+
+
 def _gpt2_xl_shapes(cfg):
     d, f = cfg.d_model, cfg.d_ff
     layer = [(d, d)] * 4 + [(d, f), (f, d), (d,), (d,)]
@@ -1028,8 +1253,21 @@ def main():
     main_path = phase_main_path()
     train = phase_train()
     multi_rank = phase_multi_rank()
+    sp_paths = {phase: phase_seq_parallel(phase) for phase in SP_PHASES}
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
+
+    def chunk_row(record, ms_key, bound_key):
+        """A kernel's numbers at the ring's causal chunk shape."""
+        return {"ms": record[ms_key], "plain_ms": record["plain_ms"],
+                "bound_ms": record[bound_key], "library_ms": record["library_ms"],
+                "max_abs_err": record["max_abs_err"]}
+
+    def sp_launches(i):
+        """Rank 0's launches of kernel i in one step of each sp path."""
+        return {f"launches_{phase}_path": rec["ranks"][0]["launches"][i]
+                for phase, rec in sp_paths.items()}
+
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1038,6 +1276,8 @@ def main():
         "launches": train["launches"]["flash_fwd"],
         "launches_forward_path": main_path["flash_launches"],
         "launches_multi_rank_path": multi_rank["flash_launches"],
+        **sp_launches(0),
+        "ring_chunk": chunk_row(flash["ring_chunk_causal"], "kernel_ms", "bound_ms"),
         "max_abs_err": fwd["max_abs_err"],
         "ms": fwd["kernel_ms"],
         "kernel_ms": fwd["kernel_ms"],
@@ -1046,13 +1286,18 @@ def main():
         "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
     }]
-    for name, key, line in (("flash_bwd_dq", "dq", 199), ("flash_bwd_dkv", "dkv", 230)):
+    for i, (name, key, line) in enumerate(
+        (("flash_bwd_dq", "dq", 199), ("flash_bwd_dkv", "dkv", 230)), start=1
+    ):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "torchsnapshot_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"torchsnapshot_tpu/ops/attention.py:{line}",
             "launches": train["launches"][name],
+            **sp_launches(i),
+            "ring_chunk": chunk_row(flash_bwd["ring_chunk_causal"], f"{key}_kernel_ms", f"{key}_bound_ms"),
+            "ring_chunk_dlse_max_abs_err": flash_bwd["ring_chunk_dlse"]["max_abs_err"],
             "max_abs_err": bwd["max_abs_err"],
             "ms": bwd[f"{key}_kernel_ms"],
             "kernel_ms": bwd[f"{key}_kernel_ms"],

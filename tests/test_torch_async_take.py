@@ -14,7 +14,13 @@ import pytest
 import torch
 
 import torchsnapshot_tpu as jsnap
-from torchsnapshot_tpu_torch import PendingSnapshot, RNGState, Snapshot, StateDict
+from torchsnapshot_tpu_torch import (
+    CheckpointManager,
+    PendingSnapshot,
+    RNGState,
+    Snapshot,
+    StateDict,
+)
 from torchsnapshot_tpu_torch import snapshot as snapshot_mod
 from torchsnapshot_tpu_torch.io_types import RetryingStoragePlugin
 from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
@@ -125,6 +131,22 @@ def test_bounded_wait_names_the_stuck_phase(tmp_path, blocking_storage):
 def test_stage_is_validated(tmp_path):
     with pytest.raises(ValueError, match="stage must be"):
         Snapshot.async_take(str(tmp_path / "snap"), {"m": StateDict()}, stage="disk")
+
+
+def test_positional_arguments_follow_jax(tmp_path):
+    """async_take(path, app_state, coord, replicated) and
+    async_save(step, app_state, replicated) as in the JAX package; the
+    options after them are keyword-only."""
+    path = str(tmp_path / "snap")
+    Snapshot.async_take(path, {"m": StateDict(x=torch.ones(4))}, None, ["**"]).wait()
+    assert Snapshot(path).get_manifest()["0/m/x"].replicated
+    mgr = CheckpointManager(str(tmp_path / "run"))
+    mgr.async_save(1, {"m": StateDict(x=torch.ones(4))}, ["**"]).wait()
+    assert Snapshot(str(tmp_path / "run" / "step-1")).get_manifest()["0/m/x"].replicated
+    with pytest.raises(TypeError):
+        Snapshot.async_take(path, {"m": StateDict()}, None, None, "host")
+    with pytest.raises(TypeError):
+        mgr.async_save(2, {"m": StateDict()}, None, "host")
 
 
 @pytest.mark.parametrize("direction", ["port->jax", "jax->port"])

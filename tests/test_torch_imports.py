@@ -65,7 +65,7 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         import torch
         from torchsnapshot_tpu_torch import CheckpointManager, RNGState, Snapshot, StateDict
         from torchsnapshot_tpu_torch.models import transformer
-        from torchsnapshot_tpu_torch.parallel import mesh
+        from torchsnapshot_tpu_torch.parallel import collectives, mesh, ring_attention, ulysses
         from torchsnapshot_tpu_torch.utils import test_utils
 
         w = torch.randn(5, 3).to(torch.bfloat16)

@@ -217,6 +217,31 @@ def test_delete_honours_a_jax_incremental_back_link(tmp_path, no_age_guard):
     assert _files(base_path) == [] and _files(child_path) == []
 
 
+def test_delete_refuses_while_a_referencer_is_unreadable(tmp_path, no_age_guard, monkeypatch):
+    """A committed JAX incremental child whose metadata is cut in half,
+    with a back-link older than TPUSNAPSHOT_REFS_MIN_AGE_S: only a child
+    that is not found counts as uncommitted, so the base stays referenced
+    and delete refuses."""
+    base_path, child_path = str(tmp_path / "base"), str(tmp_path / "child")
+    w = jnp.arange(32.0)
+    jsnap.Snapshot.take(base_path, {"s": jsnap.StateDict(w=w)}, fingerprint=True)
+    jsnap.Snapshot.take(child_path, {"s": jsnap.StateDict(w=w)}, base=base_path)
+    metadata = os.path.join(child_path, ".snapshot_metadata")
+    with open(metadata, "rb") as f:
+        doc = f.read()
+    with open(metadata, "wb") as f:
+        f.write(doc[: len(doc) // 2])
+    monkeypatch.setenv("TPUSNAPSHOT_REFS_MIN_AGE_S", "60")
+    old = time.time() - 7200
+    for d, _, fs in os.walk(base_path):
+        for name in fs:
+            os.utime(os.path.join(d, name), (old, old))
+    assert Snapshot(base_path).is_referenced()
+    with pytest.raises(RuntimeError, match="still referenced"):
+        Snapshot(base_path).delete()
+    assert _files(base_path)
+
+
 def test_fn_stateful_round_trips(tmp_path):
     box = {"v": torch.arange(6.0)}
     app = {"f": FnStateful(lambda: {"v": box["v"]}, lambda sd: box.update(v=sd["v"]))}

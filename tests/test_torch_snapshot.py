@@ -112,6 +112,64 @@ def test_arrays_cross_packages_bit_exact(tmp_path, dtype, direction):
             assert target[k].dtype == getattr(torch, dtype)
 
 
+# ml_dtypes names the JAX package writes beyond DTYPES: three have a
+# torch dtype of the same bytes; the others restore in the port as their
+# raw bytes, uint8.
+MORE_FLOAT8 = ["float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e8m0fnu"]
+RAW_BYTE_NAMES = ["int4", "uint4", "float4_e2m1fn", "float8_e4m3b11fnuz"]
+
+
+def _ml_array(name, shape, seed):
+    rng = np.random.default_rng(seed)
+    dtype = getattr(ml_dtypes, name)
+    if name in ("int4", "uint4"):
+        info = ml_dtypes.iinfo(dtype)
+        return rng.integers(int(info.min), int(info.max) + 1, shape).astype(dtype)
+    if name == "float8_e8m0fnu":  # powers of two only
+        return (2.0 ** rng.integers(-8, 8, shape)).astype(dtype)
+    return rng.standard_normal(shape).astype(dtype)
+
+
+@pytest.mark.parametrize("direction", ["port->jax", "jax->port"])
+@pytest.mark.parametrize("name", MORE_FLOAT8)
+def test_more_float8_names_cross_packages(tmp_path, name, direction):
+    arr = _ml_array(name, (2, 3), seed=1)
+    path = str(tmp_path / "snap")
+    if direction == "port->jax":
+        tensor = torch.from_numpy(arr.view(np.uint8).copy()).view(getattr(torch, name))
+        Snapshot.take(path, {"m": StateDict(w=tensor)})
+        target = jsnap.StateDict(w=np.zeros_like(arr))
+        jsnap.Snapshot(path).restore({"m": target})
+        assert np.asarray(target["w"]).dtype == arr.dtype
+    else:
+        jsnap.Snapshot.take(path, {"m": jsnap.StateDict(w=jnp.asarray(arr))})
+        target = StateDict(w=torch.zeros(2, 3, dtype=getattr(torch, name)))
+        Snapshot(path).restore({"m": target})
+        assert target["w"].dtype == getattr(torch, name)
+        assert _bytes(Snapshot(path).read_object("m/w")) == arr.tobytes()
+    assert _bytes(target["w"]) == arr.tobytes()
+
+
+@pytest.mark.parametrize("name", RAW_BYTE_NAMES)
+def test_raw_byte_names_restore_as_uint8_and_cross_back(tmp_path, name):
+    """A JAX snapshot of an array with no torch dtype restores in the port
+    as its raw bytes (uint8, one element a byte, as ml_dtypes stores it);
+    a port take of those bytes restores through JAX to the same values."""
+    arr = _ml_array(name, (2, 3), seed=2)
+    path, back = str(tmp_path / "snap"), str(tmp_path / "back")
+    jsnap.Snapshot.take(path, {"m": jsnap.StateDict(w=jnp.asarray(arr))})
+    target = StateDict(w=torch.zeros(2, 3, dtype=torch.uint8))
+    Snapshot(path).restore({"m": target})
+    raw = arr.view(np.uint8)
+    assert target["w"].dtype == torch.uint8 and torch.equal(target["w"], torch.from_numpy(raw))
+    read = Snapshot(path).read_object("m/w")
+    assert read.dtype == torch.uint8 and torch.equal(read, torch.from_numpy(raw))
+    Snapshot.take(back, {"m": StateDict(w=target["w"])})
+    holder = jsnap.StateDict(w=np.zeros((2, 3), np.uint8))
+    jsnap.Snapshot(back).restore({"m": holder})
+    assert np.asarray(holder["w"]).view(arr.dtype).tobytes() == arr.tobytes()
+
+
 def test_primitives_objects_and_layouts_round_trip(tmp_path):
     base = torch.arange(24, dtype=torch.float32).reshape(4, 6)
     sd = StateDict(

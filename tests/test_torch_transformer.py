@@ -147,9 +147,18 @@ def test_init_params_without_device_needs_cuda():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttf.TransformerConfig(**TINY, ring_attention="zigzag")
+    """The sequence-parallel modes are ported; what the JAX forward refuses,
+    the port refuses with the same errors: a ring mode without an "sp"
+    mesh, an unknown mode, and flash attention beside a ring mode."""
     params = ttf.init_params(ttf.TransformerConfig(**TINY), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttf.forward(params, torch.zeros(1, 8, dtype=torch.long),
-                    ttf.TransformerConfig(**TINY), mesh=object())
+    tokens = torch.zeros(1, 8, dtype=torch.long)
+    jparams = jtf.init_params(jtf.TransformerConfig(**TINY), jax.random.key(0))
+    for kw, match in (
+        (dict(ring_attention="zigzag"), '"sp" axis'),
+        (dict(ring_attention="spiral"), "unknown ring_attention mode"),
+        (dict(ring_attention=True, flash_attention=True), "mutually exclusive"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            ttf.forward(params, tokens, ttf.TransformerConfig(**TINY, **kw))
+        with pytest.raises(ValueError, match=match):
+            jtf.forward(jparams, jnp.zeros((1, 8), jnp.int32), jtf.TransformerConfig(**TINY, **kw))

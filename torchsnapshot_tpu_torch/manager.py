@@ -286,12 +286,14 @@ class CheckpointManager:
         step: int,
         app_state: AppState,
         replicated: Optional[List[str]] = None,
+        *,
         stage: str = "auto",
     ) -> "PendingManagedSnapshot":
         """Async take for ``step``; the handle's ``wait()`` writes the
         marker and prunes after the drain commits. Dropping the handle
         without waiting leaves the step invisible (no marker) and
-        unpruned, until :meth:`reconcile` adopts it."""
+        unpruned, until :meth:`reconcile` adopts it. ``stage`` is
+        :meth:`Snapshot.async_take`'s, keyword-only as there."""
         coordinator = get_coordinator(self._coord)
         pending = Snapshot.async_take(
             _step_dir(self.base_path, step),

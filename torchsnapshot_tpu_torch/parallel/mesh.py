@@ -22,25 +22,37 @@ from ..resharding import shard_box
 Spec = Optional[Sequence[Optional[str]]]
 
 
-def make_mesh(axis_sizes: Dict[str, int], device_type: str = "cuda") -> Any:
-    """A DeviceMesh with named dims over every rank of the initialised
-    ``torch.distributed`` world, e.g. ``make_mesh({"dp": 2, "tp": 4})``.
-    A one-dim mesh uses the default process group as it is (a gloo world
-    stays gloo, whatever ``device_type``); the axis sizes must multiply
-    to the world size."""
+def make_mesh(
+    axis_sizes: Dict[str, int],
+    device_type: str = "cuda",
+    ranks: Optional[Sequence[int]] = None,
+) -> Any:
+    """A DeviceMesh with named dims, e.g. ``make_mesh({"dp": 2, "tp": 4})``.
+
+    Over every rank of the initialised ``torch.distributed`` world by
+    default; the axis sizes must then multiply to the world size. With
+    ``ranks`` (JAX's ``devices=``) it spans those ranks only, in that
+    order, and the axis sizes must multiply to their count. Building the
+    mesh creates process groups, a collective of the whole world: every
+    rank calls it, and a rank outside ``ranks`` gets None. The mesh dims'
+    groups take the default group's backend (a gloo world stays gloo,
+    whatever ``device_type``)."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     shape = tuple(axis_sizes.values())
     n = 1
     for size in shape:
         n *= size
-    if n != dist.get_world_size():
-        raise ValueError(
-            f"Mesh {dict(axis_sizes)} needs {n} ranks; the world has "
-            f"{dist.get_world_size()}."
-        )
-    return init_device_mesh(device_type, shape, mesh_dim_names=tuple(axis_sizes))
+    have = dist.get_world_size() if ranks is None else len(ranks)
+    if n != have:
+        raise ValueError(f"Mesh {dict(axis_sizes)} needs {n} ranks; {have} were given.")
+    if ranks is None:
+        return init_device_mesh(device_type, shape, mesh_dim_names=tuple(axis_sizes))
+    mesh = DeviceMesh(
+        device_type, torch.tensor(list(ranks)).reshape(shape), mesh_dim_names=tuple(axis_sizes)
+    )
+    return mesh if dist.get_rank() in ranks else None
 
 
 def auto_axes(n_devices: int, prefer_tp: int = 2, with_sp: bool = False) -> Dict[str, int]:

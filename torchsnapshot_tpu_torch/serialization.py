@@ -37,6 +37,9 @@ _NAME_TO_TORCH = {
         ("bfloat16", "bfloat16"),
         ("float8_e4m3fn", "float8_e4m3fn"),
         ("float8_e5m2", "float8_e5m2"),
+        ("float8_e4m3fnuz", "float8_e4m3fnuz"),
+        ("float8_e5m2fnuz", "float8_e5m2fnuz"),
+        ("float8_e8m0fnu", "float8_e8m0fnu"),
         ("int64", "int64"),
         ("int32", "int32"),
         ("int16", "int16"),
@@ -53,6 +56,12 @@ _NAME_TO_TORCH = {
 }
 _TORCH_TO_NAME = {dt: name for name, dt in _NAME_TO_TORCH.items()}
 
+# ml_dtypes types with no torch dtype of the same bytes, each one byte an
+# element: they restore as their raw bytes, as uint8 (int4 and uint4
+# keep the value in the low nibble; torch's int4/uint4 are placeholders
+# without conversions, and float4_e2m1fn_x2 packs two to a byte).
+_RAW_BYTE_NAMES = ("int4", "uint4", "float4_e2m1fn", "float8_e4m3b11fnuz")
+
 
 def dtype_to_str(dtype: Any) -> str:
     """Canonical dtype name of a torch or numpy dtype."""
@@ -65,6 +74,10 @@ def dtype_to_str(dtype: Any) -> str:
 
 
 def str_to_torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a stored array of dtype ``name`` restores as:
+    ``uint8`` (its raw bytes) for the names of ``_RAW_BYTE_NAMES``."""
+    if name in _RAW_BYTE_NAMES:
+        return torch.uint8
     try:
         return _NAME_TO_TORCH[name]
     except KeyError:

@@ -176,8 +176,9 @@ class Snapshot:
         path: str,
         app_state: AppState,
         coord: Optional[Coordinator] = None,
-        stage: str = "auto",
         replicated: Optional[List[str]] = None,
+        *,
+        stage: str = "auto",
     ) -> "PendingSnapshot":
         """Capture a consistent cut of ``app_state`` and return; the
         payload writes and the metadata commit drain on a background
@@ -196,7 +197,9 @@ class Snapshot:
 
         The caller may mutate its tensors in place as soon as this
         returns: work it queues on the current stream runs after the
-        clones. ``replicated`` is as for :meth:`take`.
+        clones. ``replicated`` is as for :meth:`take`. The positional
+        order is the JAX package's; ``stage`` is keyword-only, so that
+        ``compression`` can take JAX's place after ``replicated``.
         """
         if stage not in ("auto", "host", "device"):
             raise ValueError(f'stage must be "auto", "host", or "device"; got {stage!r}')
@@ -1033,7 +1036,9 @@ async def _live_referencers(
     """Incremental snapshots that still borrow ``own_path``'s objects: a
     back-link whose snapshot has committed metadata with entries whose
     base resolves here, or, uncommitted, a back-link younger than
-    ``min_age_s`` (a take in flight; unknown age counts as young)."""
+    ``min_age_s`` (a take in flight; unknown age counts as young).
+    Metadata that exists but cannot be read or parsed counts as live:
+    only "not found" means uncommitted."""
     live: Set[str] = set()
     own = own_path.rstrip("/")
     for marker_path, ref_url in await _referencing_snapshots(storage, own_path):
@@ -1044,7 +1049,13 @@ async def _live_referencers(
             io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
             await ref_storage.read(io_req)
             md = SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
-        except Exception:  # absent: in flight or stale, told apart by age
+        except Exception as e:
+            if not is_not_found_error(e):
+                # Unreadable, not absent: the referencer may be committed.
+                logger.warning(f"unreadable metadata of referencer {ref_url}: {e!r}")
+                live.add(ref_url.rstrip("/"))
+                continue
+            # Absent: in flight or stale, told apart by age.
             if min_age_s > 0:
                 try:
                     age = await storage.object_age_s(marker_path)
