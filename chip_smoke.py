@@ -30,20 +30,36 @@ Phases, each printing JSON lines to stdout:
 6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
    float32 parameters, 6.23 GB): a forward pass on 4 requests of 1024
    tokens through the flash kernel; ``Snapshot.take`` of the model, a
-   progress counter and the RNG streams to the local filesystem (twice:
-   the second take reuses cached pinned buffers), beside that
-   filesystem's write+fsync and read rates; a
-   restore into a second model of other values; every leaf byte-equal
-   on the card; a second forward with bit-identical logits; one weight
-   read back with ``read_object``. Then the flash forward is held against
-   the einsum forward on a short input.
+   progress counter and the RNG streams to the local filesystem (twice,
+   each with the pinned blocks the host allocator created for it),
+   beside that filesystem's write+fsync and read rates; a restore into a
+   second model of other values, with its GB/s against the read rate,
+   its consume profile (``read_wait``, ``verify``, ``reassemble``,
+   ``pool_wait``, ``staging_release``, ``other``, and the H2D pipeline's
+   ``h2d_overlap`` seconds, bytes and GB/s against the pinned H2D rate),
+   the bytes streamed and placed, the device budget and its high water,
+   and the peak card memory over the restore's start; every leaf
+   byte-equal on the card; a second forward with bit-identical logits;
+   one weight read back with ``read_object``; a second restore (the
+   staging pool's hits, misses and waits; no pinned block created); a
+   third at an 8 MiB read threshold, where every attention and MLP weight
+   streams (leaves byte-equal, logits bit-identical). Then the flash
+   forward is held against the einsum forward on a short input.
+6b. torn leaf — a copy of a small chunked snapshot with one corrupt
+   chunk, then an injected failure of an H2D pipeline transfer, then a
+   20 MiB single-object leaf (two staging-slot transfers) whose second
+   transfer fails, each restored into a CUDA template of other values:
+   all raise and leave the template bit-equal to its old values; the
+   retries are bit-exact.
 7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
    tokens, every step through the three flash kernels (48 launches each
    per step), checkpointed as a training job does through
    ``CheckpointManager(max_to_keep=1)``: a sync save, a step, an
    ``async_save(stage="device")`` whose drain overlaps the next in-place
    step, retention, and the restore of the latest step into a second
-   model, byte-equal to the state the async save captured. Then one
+   model, byte-equal to the state the async save captured (its GB/s,
+   consume profile and pool), and a second device-staged drain of the
+   state; the pinned blocks each save and drain created. Then one
    step's gradients through the flash kernels are held against plain
    autograd of the einsum attention on a short input.
 8. multi rank — the same model at full widths and depth across ranks
@@ -56,7 +72,7 @@ Phases, each printing JSON lines to stdout:
    that prunes step 1; at world 4, an FSDP-style layout (dim 0 of every
    leaf over ``{"tp": 4}``) restores step 2, every local shard
    byte-equal to its box of the changed state, reading only its boxes'
-   bytes; at world 1 (this process), the restore of step 2 into a plain
+   bytes (each rank's consume profile and pool); at world 1 (this process), the restore of step 2 into a plain
    model on the card, byte-equal, and a forward on 4 × 1024 tokens
    through the flash kernel with logits bit-identical to those of a
    model built from the seed with the same change.
@@ -114,6 +130,8 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
     Snapshot,
     StateDict,
 )
+from torchsnapshot_tpu_torch import io_preparer, staging_pool  # noqa: E402
+from torchsnapshot_tpu_torch import snapshot as snapshot_mod  # noqa: E402
 from torchsnapshot_tpu_torch.manifest import ArrayEntry  # noqa: E402
 from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
@@ -518,7 +536,7 @@ def storage_ceilings(workdir, nbytes=1 << 30, files=16):
     }
 
 
-def phase_main_path():
+def phase_main_path(h2d_pinned_gbps):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
@@ -575,21 +593,24 @@ def phase_main_path():
             "progress": StateDict(step=1000),
             "rng": RNGState(),
         }
+        pinned = _pinned_blocks()
         begin = time.perf_counter()
         Snapshot.take(path, app_a)
         take_s = time.perf_counter() - begin
+        record["pinned_blocks_created_take1"] = _pinned_delta(pinned)
         stored = sum(
             math.prod(e.shape) * dtype_itemsize(e.dtype)
             for e in Snapshot(path).get_manifest().values()
             if isinstance(e, ArrayEntry)
         )
         record.update(take_s=take_s, take_gbps=stored / 1e9 / take_s, stored_bytes=stored)
-        # A second take of the same state: its pinned staging buffers come
-        # from the host allocator's cache, so the difference is the cost
-        # of page-locking fresh memory.
+        # A second take of the same state: the pinned blocks the host
+        # allocator created for it (none if the first take's were cached).
+        pinned = _pinned_blocks()
         begin = time.perf_counter()
         Snapshot.take(os.path.join(workdir, "snap2"), app_a)
         take2_s = time.perf_counter() - begin
+        record["pinned_blocks_created_take2"] = _pinned_delta(pinned)
         shutil.rmtree(os.path.join(workdir, "snap2"))
         record.update(second_take_s=take2_s, second_take_gbps=stored / 1e9 / take2_s)
         record.update(storage_ceilings(workdir))
@@ -603,12 +624,28 @@ def phase_main_path():
             raise AssertionError("the second model does not start from other values")
         progress = StateDict(step=0)
         app_b = {"model": tf.TransformerState(model_b), "progress": progress, "rng": RNGState()}
+        largest = max(t.numel() * t.element_size() for t in leaves_a)
         torch.cuda.synchronize()
+        record["peak_gb_before_restore"] = _peak_gb()
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pinned = _pinned_blocks()
         begin = time.perf_counter()
         Snapshot(path).restore(app_b)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - begin
-        record.update(restore_s=restore_s, restore_gbps=stored / 1e9 / restore_s)
+        record["pinned_blocks_created_restore"] = _pinned_delta(pinned)
+        record["restore_pool_stats"] = _pool_stats()
+        record.update(restore_s=restore_s, restore_gbps=stored / 1e9 / restore_s,
+                      restore_over_fs_read=stored / 1e9 / restore_s / record["fs_read_gbps"],
+                      restore_peak_extra_gb=(torch.cuda.max_memory_allocated() - allocated) / 1e9)
+        _restore_profile(record, "restore_profile", state_bytes, largest, h2d_pinned_gbps)
+        # At the default threshold only the tied embedding (above 64 MiB)
+        # is read as streamed sub-ranges.
+        streamed = record["restore_profile"]["streamed_bytes"]
+        if streamed != sum(t.numel() * t.element_size() for t in leaves_a
+                           if t.numel() * t.element_size() > 64 << 20):
+            raise AssertionError(f"{streamed} bytes streamed at the default threshold")
 
         leaves_b = list(tf.param_leaves(model_b.params()))
         equal = sum(
@@ -634,9 +671,73 @@ def phase_main_path():
         record["read_object_equal"] = bool(got.is_cuda and torch.equal(got, w2))
         if not record["read_object_equal"]:
             raise AssertionError("read_object returned other bytes")
+
+        def zero_b():
+            with torch.no_grad():
+                for t in tf.param_leaves(model_b.params()):
+                    t.zero_()
+            torch.cuda.synchronize()
+
+        def leaves_equal():
+            return sum(
+                b.is_cuda and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                for a, b in zip(leaves_a, tf.param_leaves(model_b.params()))
+            )
+
+        # A second restore in this process: the pool's pinned buffers are
+        # reused, and the host allocator creates no pinned block. (A pool
+        # miss, when more pieces of one size are in flight than in the
+        # first restore, is served from the host allocator's cache.)
+        zero_b()
+        pool_before, pinned = _pool_stats(), _pinned_blocks()
+        begin = time.perf_counter()
+        Snapshot(path).restore(app_b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        pool_after = _pool_stats()
+        record["second_restore"] = {
+            "seconds": seconds,
+            "gbps": stored / 1e9 / seconds,
+            "pool": {k: pool_after[k] - pool_before.get(k, 0)
+                     for k in ("hits", "misses", "waits", "pinned_allocs")},
+            "pool_stats": pool_after,
+            "pinned_blocks_created": _pinned_delta(pinned),
+            "leaves_byte_equal": leaves_equal(),
+        }
+        _restore_profile(record["second_restore"], "profile", state_bytes, largest, h2d_pinned_gbps)
+        second = record["second_restore"]
+        if (second["pool"]["hits"] <= 0 or second["pinned_blocks_created"] not in (0, None)
+                or second["leaves_byte_equal"] != len(leaves_a)):
+            raise AssertionError(f"second restore: {second}")
+
+        # Once more with an 8 MiB read threshold: every attention and MLP
+        # weight (10.24 and 40.96 MB) streams too.
+        zero_b()
+        os.environ["TPUSNAPSHOT_PARALLEL_READ_THRESHOLD"] = str(8 << 20)
+        try:
+            begin = time.perf_counter()
+            Snapshot(path).restore(app_b)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - begin
+        finally:
+            del os.environ["TPUSNAPSHOT_PARALLEL_READ_THRESHOLD"]
+        small = {"seconds": seconds, "gbps": stored / 1e9 / seconds,
+                 "leaves_byte_equal": leaves_equal()}
+        _restore_profile(small, "profile", state_bytes, largest, h2d_pinned_gbps)
+        want = sum(t.numel() * t.element_size() for t in leaves_a
+                   if t.numel() * t.element_size() > 8 << 20)
+        with torch.no_grad():
+            logits_c = model_b(tokens)
+        torch.cuda.synchronize()
+        small["logits_bit_identical"] = bool(torch.equal(logits_a, logits_c))
+        record["restore_8mib_threshold"] = small
+        if (small["profile"]["streamed_bytes"] != want or small["leaves_byte_equal"] != len(leaves_a)
+                or not small["logits_bit_identical"]):
+            raise AssertionError(f"8 MiB-threshold restore: {small}, {want} bytes should stream")
+        del logits_c
         record["flash_launches"] = attention.flash_forward_launches
         # The main path's launch counts end here.
-        record["peak_gb"] = _peak_gb()
+        record["peak_gb"] = max(record["peak_gb_before_restore"], _peak_gb())
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del logits_b, got
@@ -661,6 +762,124 @@ def phase_main_path():
     return record
 
 
+def phase_torn_leaf():
+    """A restore that fails leaves a CUDA template as it was: a copy of a
+    small chunked snapshot (four 256 KiB chunk objects, each read as four
+    streamed 64 KiB sub-ranges) with one corrupt chunk, then an injected
+    failure of the third H2D pipeline transfer, then a single-object leaf
+    of 20 MiB (two staging slots: two transfers) whose second transfer is
+    made to fail; each must raise with the template bit-equal to its old
+    values, and the clean retries restore bit-exactly."""
+    from concurrent.futures import Future
+
+    record = {"phase": "torn_leaf"}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_torn-")
+    chunk_max = io_preparer.MAX_CHUNK_SIZE_BYTES
+    io_preparer.MAX_CHUNK_SIZE_BYTES = 256 << 10
+    os.environ["TPUSNAPSHOT_PARALLEL_READ_THRESHOLD"] = str(64 << 10)
+    submit = transfer.H2DPipeline.submit
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        w = torch.randn(1 << 18, generator=gen, device="cuda")
+        old = torch.randn(1 << 18, generator=gen, device="cuda")
+        path = os.path.join(workdir, "snap")
+        Snapshot.take(path, {"m": StateDict(w=w)})
+        target = StateDict(w=old.clone())
+        victim = os.path.join(path, "chunked", "0", "m", "w__chunk_3")
+        with open(victim, "rb") as f:
+            good = f.read()
+        record["chunk_objects"] = len(os.listdir(os.path.dirname(victim)))
+        with open(victim, "wb") as f:
+            f.write(good[:1000] + bytes([good[1000] ^ 0x55]) + good[1001:])
+        try:
+            Snapshot(path).restore({"m": target})
+            record["corrupt_chunk_error"] = None
+        except RuntimeError as e:
+            record["corrupt_chunk_error"] = str(e)
+        record["corrupt_chunk_template_untouched"] = bool(torch.equal(target["w"], old))
+        with open(victim, "wb") as f:
+            f.write(good)
+
+        calls = [0]
+
+        def failing(self, *args, **kwargs):
+            calls[0] += 1
+            if calls[0] == 3:
+                fut = Future()
+                fut.set_exception(RuntimeError("injected transfer failure"))
+                return fut
+            return submit(self, *args, **kwargs)
+
+        transfer.H2DPipeline.submit = failing
+        try:
+            Snapshot(path).restore({"m": target})
+            record["transfer_failure_error"] = None
+        except RuntimeError as e:
+            record["transfer_failure_error"] = str(e)
+        transfer.H2DPipeline.submit = submit
+        record["transfer_failure_template_untouched"] = bool(torch.equal(target["w"], old))
+        Snapshot(path).restore({"m": target})
+        torch.cuda.synchronize()
+        record["retry_bit_exact"] = bool(torch.equal(target["w"].view(torch.int32), w.view(torch.int32)))
+
+        # A whole-object read whose bytes go to the card as several
+        # transfers: the first lands before the second fails.
+        io_preparer.MAX_CHUNK_SIZE_BYTES = chunk_max
+        del os.environ["TPUSNAPSHOT_PARALLEL_READ_THRESHOLD"]
+        big = torch.randn(5 << 20, generator=gen, device="cuda")
+        big_old = torch.randn(5 << 20, generator=gen, device="cuda")
+        big_path = os.path.join(workdir, "big")
+        Snapshot.take(big_path, {"m": StateDict(w=big)})
+        big_target = StateDict(w=big_old.clone())
+        calls[0] = 0
+
+        def failing_second(self, *args, **kwargs):
+            calls[0] += 1
+            if calls[0] == 2:
+                fut = Future()
+                fut.set_exception(RuntimeError("injected transfer failure"))
+                return fut
+            return submit(self, *args, **kwargs)
+
+        transfer.H2DPipeline.submit = failing_second
+        try:
+            Snapshot(big_path).restore({"m": big_target})
+            record["multi_slot_failure_error"] = None
+        except RuntimeError as e:
+            record["multi_slot_failure_error"] = str(e)
+        transfer.H2DPipeline.submit = submit
+        torch.cuda.synchronize()
+        record["multi_slot_transfers_before_failure"] = calls[0]
+        record["multi_slot_template_untouched"] = bool(
+            torch.equal(big_target["w"].view(torch.int32), big_old.view(torch.int32))
+        )
+        Snapshot(big_path).restore({"m": big_target})
+        torch.cuda.synchronize()
+        record["multi_slot_retry_bit_exact"] = bool(
+            torch.equal(big_target["w"].view(torch.int32), big.view(torch.int32))
+        )
+    finally:
+        transfer.H2DPipeline.submit = submit
+        io_preparer.MAX_CHUNK_SIZE_BYTES = chunk_max
+        os.environ.pop("TPUSNAPSHOT_PARALLEL_READ_THRESHOLD", None)
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit(record)
+    if not (
+        record["chunk_objects"] == 4
+        and "Checksum mismatch" in (record["corrupt_chunk_error"] or "")
+        and record["corrupt_chunk_template_untouched"]
+        and "injected transfer failure" in (record["transfer_failure_error"] or "")
+        and record["transfer_failure_template_untouched"]
+        and record["retry_bit_exact"]
+        and "injected transfer failure" in (record["multi_slot_failure_error"] or "")
+        and record["multi_slot_transfers_before_failure"] == 2
+        and record["multi_slot_template_untouched"]
+        and record["multi_slot_retry_bit_exact"]
+    ):
+        raise AssertionError(f"torn-leaf check failed: {record}")
+    return record
+
+
 def _launch_counts():
     return (attention.flash_forward_launches, attention.flash_bwd_dq_launches,
             attention.flash_bwd_dkv_launches)
@@ -674,6 +893,60 @@ def _reset_launch_counts():
 
 def _peak_gb():
     return torch.cuda.max_memory_allocated() / 1e9
+
+
+# The pinned (host) allocator's count of blocks it created through CUDA:
+# "num_host_alloc" in torch.cuda.host_memory_stats().
+def _pinned_blocks():
+    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    for key in ("num_host_alloc", "allocations.allocated"):
+        if key in stats:
+            return int(stats[key])
+    return None
+
+
+def _pinned_delta(before):
+    after = _pinned_blocks()
+    return None if before is None or after is None else after - before
+
+
+def _pool_stats():
+    pool = staging_pool.get_staging_pool()
+    return pool.stats() if pool is not None else {}
+
+
+def _restore_profile(record, prefix, placed_bytes, largest_leaf, h2d_probe_gbps=None):
+    """The last restore's consume profile and read-pipeline numbers, into
+    ``record`` under ``prefix``; fails unless every placed byte rode the
+    H2D pipeline and the device cost stayed within the budget plus one
+    force-admitted region (the largest leaf)."""
+    block = snapshot_mod._last_restore_report
+    subs = block["substeps"]
+    sched = block["scheduler"]
+    out = {
+        name: {"seconds": subs.get(name, {}).get("seconds", 0.0),
+               "bytes": subs.get(name, {}).get("bytes", 0)}
+        for name in ("read_wait", "verify", "reassemble", "pool_wait",
+                     "staging_release", "other", "h2d_overlap", "overlap_other")
+    }
+    out["consume_s"] = block.get("consume_s")
+    out["h2d_overlap_gbps"] = block.get("h2d_overlap_gbps")
+    if h2d_probe_gbps and out["h2d_overlap_gbps"]:
+        out["h2d_overlap_over_pinned_h2d"] = out["h2d_overlap_gbps"] / h2d_probe_gbps
+    for key in ("region_bytes", "streamed_bytes", "private_bytes", "device_budget_bytes",
+                "device_high_water_bytes", "stall_s", "seconds"):
+        out[key] = sched.get(key)
+    out["read_s"] = sched.get("ops", {}).get("read", {}).get("seconds")
+    record[prefix] = out
+    if out["h2d_overlap"]["bytes"] != sched["region_bytes"] or sched["region_bytes"] < placed_bytes:
+        raise AssertionError(
+            f"{prefix}: {out['h2d_overlap']['bytes']} bytes rode the H2D pipeline, "
+            f"{sched['region_bytes']} were placed, {placed_bytes} expected at least")
+    budget = sched.get("device_budget_bytes")
+    if budget is not None and sched["device_high_water_bytes"] > budget + largest_leaf:
+        raise AssertionError(f"{prefix}: device cost {sched['device_high_water_bytes']} "
+                             f"past the budget {budget} plus one leaf")
+    return out
 
 
 def phase_train():
@@ -730,13 +1003,16 @@ def phase_train():
             step()
         record["peak_gb_train"] = _peak_gb()
         mgr = CheckpointManager(os.path.join(workdir, "run"), max_to_keep=1)
+        pinned = _pinned_blocks()
         begin = time.perf_counter()
         mgr.save(1, app)
         record["sync_save_s"] = time.perf_counter() - begin
+        record["pinned_blocks_created_sync_save"] = _pinned_delta(pinned)
         step()
         # The state the async save must capture, copied before it starts.
         step2_host = [t.detach().to("cpu", copy=True) for t in leaves]
         torch.cuda.reset_peak_memory_stats()
+        pinned = _pinned_blocks()
         begin = time.perf_counter()
         pending = mgr.async_save(2, app, stage="device")
         returned = time.perf_counter()
@@ -748,6 +1024,7 @@ def phase_train():
         begin_wait = time.perf_counter()
         pending.wait()
         done = time.perf_counter()
+        record["pinned_blocks_created_drain1"] = _pinned_delta(pinned)
         record["async_drain_s"] = done - returned
         record["async_wait_blocked_s"] = done - begin_wait
         record["peak_gb_async"] = _peak_gb()
@@ -772,6 +1049,10 @@ def phase_train():
         restored = mgr.restore({"model": tf.TransformerState(model_b), "progress": progress_b})
         torch.cuda.synchronize()
         record["restore_s"] = time.perf_counter() - begin
+        record["restore_gbps"] = record["state_bytes"] / 1e9 / record["restore_s"]
+        _restore_profile(record, "restore_profile", record["state_bytes"],
+                         max(t.numel() * t.element_size() for t in leaves))
+        record["restore_pool_stats"] = _pool_stats()
         record["restored_step"] = restored
         equal = sum(
             b.is_cuda and torch.equal(b.detach().view(torch.uint8),
@@ -787,6 +1068,14 @@ def phase_train():
                 f"{equal}/{len(leaves)} leaves restored byte-equal to the async "
                 f"save's cut; {mutated} changed by the step during the drain")
         del model_b, step2_host
+        # A second device-staged drain of the same state in this process:
+        # the pinned blocks the host allocator creates for it.
+        torch.cuda.empty_cache()
+        pinned = _pinned_blocks()
+        begin = time.perf_counter()
+        Snapshot.async_take(os.path.join(workdir, "drain2"), app, stage="device").wait()
+        record["second_drain_s"] = time.perf_counter() - begin
+        record["pinned_blocks_created_drain2"] = _pinned_delta(pinned)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -927,17 +1216,21 @@ def mr_restore(rank, world, base, out_dir):
         equal += bool(
             local.is_cuda and torch.equal(local.view(torch.uint8), want[box].contiguous().view(torch.uint8))
         )
+    local = [t.to_local() for t in leaves]
     record = {
         "rank": rank,
         "step": step,
         "progress": progress["step"],
         "restore_s": restore_s,
         "read_bytes": counts["read"],
-        "local_bytes": sum(t.to_local().numel() * t.element_size() for t in leaves),
+        "local_bytes": sum(t.numel() * t.element_size() for t in local),
         "leaves": len(leaves),
         "leaves_byte_equal": equal,
         "embed_local_shape": list(state.tree["embed"].to_local().shape),
+        "pool": _pool_stats(),
     }
+    _restore_profile(record, "restore_profile", record["local_bytes"],
+                     max(t.numel() * t.element_size() for t in local))
     with open(os.path.join(out_dir, f"restore_{rank}.json"), "w") as f:
         json.dump(record, f)
 
@@ -1026,7 +1319,10 @@ def phase_multi_rank():
             world1_restore_gbps=state_bytes / 1e9 / restore_s,
             world1_leaves_byte_equal=equal,
             world1_leaves=n_leaves,
+            world1_pool=_pool_stats(),
         )
+        _restore_profile(record, "world1_restore_profile", state_bytes,
+                         max(t.numel() * t.element_size() for t in tf.param_leaves(model.params())))
         if step != 2 or progress["step"] != 2 or equal != n_leaves:
             raise AssertionError(f"world-1 restore: step {step}, {equal}/{n_leaves} leaves equal")
         gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1249,8 +1545,9 @@ def main():
     phase_build()
     flash = phase_kernel()
     flash_bwd = phase_kernel_bwd()
-    phase_transfer()
-    main_path = phase_main_path()
+    transfer_record = phase_transfer()
+    main_path = phase_main_path(transfer_record["h2d_pinned_gbps"])
+    phase_torn_leaf()
     train = phase_train()
     multi_rank = phase_multi_rank()
     sp_paths = {phase: phase_seq_parallel(phase) for phase in SP_PHASES}

@@ -256,3 +256,231 @@ def test_two_ranks_on_one_card_take_then_restore_at_world_1(cuda, tmp_path):
     for got, want in zip(tf.param_leaves(target.model.params()), tf.param_leaves(params)):
         assert got.is_cuda and torch.equal(got.detach().cpu().view(torch.uint8),
                                            want.view(torch.uint8))
+
+
+# ------------------------------------------------ the restore fast lane
+
+
+@pytest.fixture
+def fresh_pool():
+    from torchsnapshot_tpu_torch import staging_pool
+
+    staging_pool.reset_staging_pool()
+    yield staging_pool
+    staging_pool.reset_staging_pool()
+
+
+def test_pooled_buffers_are_pinned(cuda, tmp_path, monkeypatch, fresh_pool):
+    """A CUDA target stages through pinned pooled slots, and a second
+    restore of the same state reuses them: a hit, no new pinned
+    allocation. (One leaf in one slot: one buffer in flight in both.)"""
+    lease = fresh_pool.acquire(4096, pinned=True)
+    assert lease.buffer.is_pinned()
+    lease.release()
+    base = fresh_pool.get_staging_pool().stats()["pinned_allocs"]
+    w = torch.randn(70000, device=cuda)
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(w=w)})
+    target = StateDict(w=torch.zeros_like(w))
+    Snapshot(path).restore({"m": target})
+    pool = fresh_pool.get_staging_pool()
+    first = pool.stats()
+    assert first["pinned_allocs"] - base == 1 and first["in_use_bytes"] == 0
+    assert all(b.is_pinned() for bucket in pool._free.values() for b in bucket)
+    Snapshot(path).restore({"m": target})
+    second = pool.stats()
+    assert second["hits"] - first["hits"] == 1
+    assert second["pinned_allocs"] == first["pinned_allocs"]
+    assert torch.equal(target["w"], w)
+
+
+def test_streamed_restore_into_cuda_template_is_bit_exact(cuda, tmp_path, monkeypatch, fresh_pool):
+    """Chunked, streamed and split leaves land on the card in place;
+    every byte placed rode the H2D pipeline, and the device budget held."""
+    from torchsnapshot_tpu_torch import snapshot as psnap
+
+    monkeypatch.setattr(io_preparer, "MAX_CHUNK_SIZE_BYTES", 1 << 20)
+    monkeypatch.setenv("TPUSNAPSHOT_PARALLEL_READ_THRESHOLD", str(64 << 10))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    state = {
+        "runs": torch.randn(1 << 20, generator=gen, device=cuda),  # 4 chunks, streamed
+        "cols": torch.randn((256, 2048), generator=gen, device=cuda),  # chunks cut dim 1
+        "bf16": torch.randn((333, 517), generator=gen, device=cuda).to(torch.bfloat16),
+        "small": torch.randn(7, generator=gen, device=cuda),
+    }
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(**state)})
+    target = StateDict(**{k: torch.zeros_like(v) for k, v in state.items()})
+    ptrs = {k: v.data_ptr() for k, v in target.items()}
+    Snapshot(path).restore({"m": target})
+    total = 0
+    for k, v in state.items():
+        assert target[k].data_ptr() == ptrs[k], k
+        assert torch.equal(target[k].view(torch.uint8), v.view(torch.uint8)), k
+        total += v.numel() * v.element_size()
+    report = psnap._last_restore_report
+    assert report["substeps"]["h2d_overlap"]["bytes"] == total
+    sched = report["scheduler"]
+    # "runs" (four chunks) and "bf16" (one object above the threshold)
+    # stream; the chunks of "cols" are cut along dim 1 and do not.
+    assert sched["streamed_bytes"] == state["runs"].numel() * 4 + state["bf16"].numel() * 2
+    assert sched["device_high_water_bytes"] <= sched["device_budget_bytes"]
+
+
+@pytest.mark.parametrize("budget_mib", [4, 2])
+def test_device_budget_bounds_private_buffers(cuda, tmp_path, monkeypatch, budget_mib):
+    """Two 3 MiB streamed leaves under a 4 MiB device budget run one after
+    the other; under 2 MiB each is force-admitted alone: the overrun is
+    one region at most."""
+    from torchsnapshot_tpu_torch import snapshot as psnap
+
+    monkeypatch.setenv("TPUSNAPSHOT_PARALLEL_READ_THRESHOLD", str(256 << 10))
+    monkeypatch.setenv("TPUSNAPSHOT_DEVICE_BUDGET_BYTES", str(budget_mib << 20))
+    region = 3 << 20
+    state = {k: torch.randn(region // 4, device=cuda) for k in ("a", "b")}
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(**state)})
+    target = StateDict(**{k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(path).restore({"m": target})
+    for k, v in state.items():
+        assert torch.equal(target[k], v)
+    sched = psnap._last_restore_report["scheduler"]
+    assert sched["device_high_water_bytes"] == region
+    assert sched["device_high_water_bytes"] <= max(budget_mib << 20, region)
+
+
+def test_failed_restore_leaves_cuda_template_untouched(cuda, tmp_path, monkeypatch, fresh_pool):
+    """A corrupt chunk and an injected pipeline failure each fail the
+    restore with the CUDA template bit-equal to its old values; the retry
+    is bit-exact."""
+    from concurrent.futures import Future
+
+    from torchsnapshot_tpu_torch.ops.transfer import H2DPipeline
+
+    monkeypatch.setattr(io_preparer, "MAX_CHUNK_SIZE_BYTES", 256 << 10)
+    monkeypatch.setenv("TPUSNAPSHOT_PARALLEL_READ_THRESHOLD", str(64 << 10))
+    w = torch.randn(1 << 18, device=cuda)
+    path = tmp_path / "snap"
+    Snapshot.take(str(path), {"m": StateDict(w=w)})
+    old = torch.randn(1 << 18, device=cuda)
+    target = StateDict(w=old.clone())
+    victim = path / "chunked" / "0" / "m" / "w__chunk_3"
+    good = victim.read_bytes()
+    raw = bytearray(good)
+    raw[1000] ^= 0x55
+    victim.write_bytes(bytes(raw))
+    with pytest.raises(RuntimeError, match="Checksum mismatch"):
+        Snapshot(str(path)).restore({"m": target})
+    assert torch.equal(target["w"], old)
+    victim.write_bytes(good)
+
+    submit = H2DPipeline.submit
+    calls = [0]
+
+    def failing(self, *args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 3:
+            fut = Future()
+            fut.set_exception(RuntimeError("injected transfer failure"))
+            return fut
+        return submit(self, *args, **kwargs)
+
+    monkeypatch.setattr(H2DPipeline, "submit", failing)
+    with pytest.raises(RuntimeError, match="injected transfer failure"):
+        Snapshot(str(path)).restore({"m": target})
+    assert torch.equal(target["w"], old)
+    monkeypatch.setattr(H2DPipeline, "submit", submit)
+    Snapshot(str(path)).restore({"m": target})
+    assert torch.equal(target["w"], w)
+
+
+def test_failed_transfer_of_a_multi_slot_leaf_leaves_cuda_template_untouched(
+    cuda, tmp_path, monkeypatch, fresh_pool
+):
+    """A single-object leaf of more bytes than one staging slot reaches
+    the card as several transfers, so it lands in a private buffer: with
+    its second transfer made to fail, the restore raises and the
+    template keeps its old values, though the first transfer had landed.
+    The retry is bit-exact."""
+    from concurrent.futures import Future
+
+    from torchsnapshot_tpu_torch import snapshot as psnap
+    from torchsnapshot_tpu_torch.ops import transfer
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn(5 << 20, generator=gen, device=cuda)  # 20 MiB, one object
+    nbytes = w.numel() * w.element_size()
+    assert transfer.H2D_CHUNK_BYTES < nbytes <= 2 * transfer.H2D_CHUNK_BYTES
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(w=w)})
+    old = torch.randn(5 << 20, generator=gen, device=cuda)
+    target = StateDict(w=old.clone())
+
+    submit = transfer.H2DPipeline.submit
+    calls = [0]
+
+    def failing(self, *args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 2:
+            fut = Future()
+            fut.set_exception(RuntimeError("injected transfer failure"))
+            return fut
+        return submit(self, *args, **kwargs)
+
+    monkeypatch.setattr(transfer.H2DPipeline, "submit", failing)
+    with pytest.raises(RuntimeError, match="injected transfer failure"):
+        Snapshot(path).restore({"m": target})
+    assert calls[0] == 2
+    torch.cuda.synchronize()
+    assert torch.equal(target["w"].view(torch.int32), old.view(torch.int32))
+    monkeypatch.setattr(transfer.H2DPipeline, "submit", submit)
+    Snapshot(path).restore({"m": target})
+    assert torch.equal(target["w"].view(torch.int32), w.view(torch.int32))
+    assert psnap._last_restore_report["scheduler"]["private_bytes"] == nbytes
+
+
+def test_lease_is_not_reused_while_its_dma_is_in_flight(cuda, tmp_path, monkeypatch, fresh_pool):
+    """The pipeline holds a pinned lease until its DMA's event completes:
+    with a pool of one buffer, a DMA queued behind a long kernel keeps the
+    next acquisition waiting until the copy has landed, and only then
+    hands the buffer on. Then a depth-2 engine with a pool of two
+    sub-reads' bytes restores a leaf of 128 sub-ranges bit-exactly, three
+    times over."""
+    from torchsnapshot_tpu_torch.ops import transfer
+
+    pool = fresh_pool.StagingPool(capacity_bytes=1 << 20, max_wait_s=60)
+    lease = pool.acquire(1 << 20, pinned=True)
+    lease.buffer.fill_(5)
+    dst = torch.zeros(1 << 20, dtype=torch.uint8, device=cuda)
+    busy = torch.cuda.Stream()
+    with torch.cuda.stream(busy):
+        torch.cuda._sleep(200_000_000)  # keeps the DMA queued behind it
+        ready = torch.cuda.Event()
+        ready.record(busy)
+    fut = transfer.H2DPipeline(depth=2).submit(lease.buffer, dst, ready=ready, lease=lease)
+    lease.release()
+    again = pool.acquire(1 << 20, pinned=True)
+    assert fut.done() and pool.stats()["waits"] == 1
+    assert again.buffer.data_ptr() == lease.buffer.data_ptr()
+    again.buffer.fill_(9)  # after the DMA: dst keeps the 5s
+    fut.result(timeout=60)
+    assert torch.equal(dst.cpu(), torch.full((1 << 20,), 5, dtype=torch.uint8))
+    again.release()
+
+    monkeypatch.setenv("TPUSNAPSHOT_H2D_DEPTH", "2")
+    monkeypatch.setenv("TPUSNAPSHOT_PARALLEL_READ_THRESHOLD", str(64 << 10))
+    monkeypatch.setattr(transfer, "H2D_CHUNK_BYTES", 64 << 10)
+    monkeypatch.setenv("TPUSNAPSHOT_RESTORE_STAGING_POOL_BYTES", str(128 << 10))
+    monkeypatch.setenv("TPUSNAPSHOT_RESTORE_POOL_WAIT_S", "0.05")
+    fresh_pool.reset_staging_pool()
+    transfer._reset_h2d_pipeline_for_tests()
+    try:
+        w = torch.randn(1 << 21, device=cuda)  # 8 MiB: 128 sub-ranges
+        path = str(tmp_path / "snap")
+        Snapshot.take(path, {"m": StateDict(w=w)})
+        for _ in range(3):
+            target = StateDict(w=torch.zeros_like(w))
+            Snapshot(path).restore({"m": target})
+            assert torch.equal(target["w"], w)
+    finally:
+        transfer._reset_h2d_pipeline_for_tests()

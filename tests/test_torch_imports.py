@@ -67,6 +67,8 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         from torchsnapshot_tpu_torch.models import transformer
         from torchsnapshot_tpu_torch.parallel import collectives, mesh, ring_attention, ulysses
         from torchsnapshot_tpu_torch.utils import test_utils
+        from torchsnapshot_tpu_torch import staging_pool
+        from torchsnapshot_tpu_torch.telemetry import consume_profile
 
         w = torch.randn(5, 3).to(torch.bfloat16)
         Snapshot.take({str(tmp_path / "snap")!r}, {{"m": StateDict(w=w), "rng": RNGState()}})
@@ -78,6 +80,16 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         mgr.save(1, {{"m": StateDict(w=w)}})
         mgr.async_save(2, {{"m": StateDict(w=w)}}).wait()
         assert mgr.all_steps() == [2]
+        # A streamed restore through the pool, the pipeline and the profile.
+        import os
+        os.environ["TPUSNAPSHOT_PARALLEL_READ_THRESHOLD"] = str(64 << 10)
+        big = torch.randn(1 << 16)
+        Snapshot.take({str(tmp_path / "big")!r}, {{"m": StateDict(w=big)}})
+        target = StateDict(w=torch.zeros(1 << 16))
+        Snapshot({str(tmp_path / "big")!r}).restore({{"m": target}})
+        assert torch.equal(target["w"], big)
+        assert staging_pool.get_staging_pool() is not None
+        assert isinstance(consume_profile.ConsumeProfile().summary(), dict)
         assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
         print("ok")
         """

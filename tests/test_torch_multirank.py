@@ -370,7 +370,7 @@ def test_ranged_reads_read_only_the_range(tmp_path, backend):
 def test_restore_refuses_corrupt_and_short_payloads(tmp_path):
     """A whole-object read is checked against the stored checksum; a
     ranged read (which no checksum covers) against its length."""
-    from torchsnapshot_tpu_torch.io_preparer import ArrayRestorePlan, _RegionConsumer
+    from torchsnapshot_tpu_torch.io_preparer import ArrayRestorePlan, _ChunkCopyConsumer
     from torchsnapshot_tpu_torch.resharding import compute_overlap
 
     path = str(tmp_path / "snap")
@@ -387,6 +387,9 @@ def test_restore_refuses_corrupt_and_short_payloads(tmp_path):
     plan = ArrayRestorePlan(entry, torch.zeros(4, 4), lambda v: None)
     shard = plan._shards[0]
     rows = compute_overlap([0, 0], [4, 4], [1, 0], [2, 4])
-    consumer = _RegionConsumer(plan, shard, rows, (16, 48))
+    whole = tuple(slice(0, n) for n in rows.sizes)
+    consumer = _ChunkCopyConsumer(
+        plan, list(rows.sizes), whole, rows.target_slices, None, shard.array.location
+    )
     with pytest.raises(RuntimeError, match="read 8 bytes where the manifest describes 32"):
         consumer._consume(bytes(8))

@@ -124,3 +124,30 @@ def read_then_regroup_take(rank, world, first, path, arr):
     dist.destroy_process_group()
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     take_columns(rank, world, path, arr)
+
+
+def take_chunked(rank, world, path, arr, spec, max_chunk):
+    """A world-N take of one array laid out by ``spec`` (per dim, "tp" or
+    None), each box stored in chunks of at most ``max_chunk`` bytes."""
+    from torchsnapshot_tpu_torch import io_preparer
+
+    io_preparer.MAX_CHUNK_SIZE_BYTES = max_chunk
+    mesh = make_mesh({"tp": world}, "cpu")
+    tree = shard_pytree({"w": torch.from_numpy(arr)}, mesh, lambda keys, leaf: spec)
+    Snapshot.take(path, {"m": PytreeStateful(tree)})
+
+
+def restore_columns_unstreamed(rank, world, path, arr):
+    """Restore into column halves, which cut every stored row block: the
+    boxes are byte-equal and no byte arrived as a streamed sub-range."""
+    from torchsnapshot_tpu_torch import snapshot
+
+    mesh = make_mesh({"tp": world}, "cpu")
+    columns = lambda keys, leaf: (None, "tp")  # noqa: E731
+    state = PytreeStateful(shard_pytree({"w": torch.zeros(arr.shape)}, mesh, columns))
+    Snapshot(path).restore({"m": state})
+    want = shard_pytree({"w": torch.from_numpy(arr)}, mesh, columns)["w"].to_local()
+    assert torch.equal(state.tree["w"].to_local(), want)
+    report = snapshot._last_restore_report["scheduler"]
+    assert report["streamed_bytes"] == 0, report
+    assert report["private_bytes"] == want.numel() * want.element_size(), report

@@ -18,24 +18,42 @@ Four value classes, as in the JAX package:
 
 Staging copies a tensor's bytes (a DTensor's local shard) into a private
 host buffer (pinned, for a CUDA tensor) — tensors are mutable, so the
-payload must be a cut of the value at take time. Restore routes every
-array entry through an :class:`ArrayRestorePlan` that fills one target
-box: the whole array for a tensor template, the local box for a DTensor
-template. It reads only the stored objects that overlap the box, and of
-each only the byte range the box needs where that range is one run of
-the object. The target is the template tensor itself (its local tensor)
-when its device, dtype, shape and layout match (the restore then holds
-one copy of the state on the card), a new tensor on the template's
-device otherwise.
+payload must be a cut of the value at take time.
+
+Restore routes every array entry through an :class:`ArrayRestorePlan`
+that fills one target box: the whole array for a tensor template, the
+local box for a DTensor template. It reads only the stored objects that
+overlap the box, and of each only the byte range the box needs where
+that range is one run of the object. Objects above the parallel-read
+threshold (``TPUSNAPSHOT_PARALLEL_READ_THRESHOLD``, default 64 MiB) are
+read as concurrent sub-ranges: streamed to the device as they land when
+the object is one run of the box, else assembled in a pooled buffer.
+Every byte reaches the box through the H2D pipeline
+(``ops/transfer.py``), staged in pinned pooled buffers for a CUDA
+target. Publishing is leaf-atomic: a leaf of one verified whole-object
+read that reaches the target in one transfer (on a card: at most one
+staging slot, ``transfer.H2D_CHUNK_BYTES``) lands in the template tensor
+itself; any other leaf lands in a private buffer on the target's
+device, charged to the device budget, and is copied into the template
+(one on-device ``copy_``) only after every byte has verified and
+landed. A failed restore leaves the template's old values. When the
+template's dtype, shape or layout differ from the stored box, the
+private buffer is the result.
+``TPUSNAPSHOT_STRICT_INTEGRITY=1`` reads whole objects where a ranged
+read (which no stored checksum covers) would do.
 """
 
 import asyncio
-from concurrent.futures import Executor
+import os
+import threading
+from concurrent.futures import Executor, Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import staging_pool
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .manifest import (
     ArrayEntry,
@@ -45,8 +63,15 @@ from .manifest import (
     Shard,
     ShardedArrayEntry,
 )
-from .ops.transfer import device_clone, device_to_host, host_to_device
-from .resharding import Overlap, compute_overlap, contiguous_byte_range, shard_box, subdivide
+from .ops import transfer
+from .ops.transfer import (
+    device_clone,
+    device_to_host,
+    h2d_pipeline,
+    host_copy,
+    on_h2d_thread,
+)
+from .resharding import compute_overlap, contiguous_byte_range, shard_box, subdivide
 from .serialization import (
     ARRAY_SERIALIZER,
     OBJECT_SERIALIZER,
@@ -56,12 +81,49 @@ from .serialization import (
     dtype_to_str,
     object_to_bytes,
     str_to_torch_dtype,
+    StreamingCrc32,
     tensor_bytes,
     verify_checksum,
 )
+from .telemetry import consume_profile as _cprof
+from .utils.env import env_int
 
 # Dense arrays above this size are stored as several chunk objects.
 MAX_CHUNK_SIZE_BYTES: int = 512 * 1024 * 1024
+
+# Reads of more than this many bytes are split into concurrent ranged
+# sub-reads of this size (a single stream caps a large object's read).
+_PARALLEL_READ_THRESHOLD_ENV_VAR = "TPUSNAPSHOT_PARALLEL_READ_THRESHOLD"
+_DEFAULT_PARALLEL_READ_THRESHOLD = 64 * 1024 * 1024
+_STRICT_INTEGRITY_ENV_VAR = "TPUSNAPSHOT_STRICT_INTEGRITY"
+_DEVICE_BUDGET_ENV_VAR = "TPUSNAPSHOT_DEVICE_BUDGET_BYTES"
+_MIN_DEVICE_BUDGET_BYTES = 256 * 1024 * 1024
+
+
+def _parallel_read_threshold() -> int:
+    return max(1, env_int(_PARALLEL_READ_THRESHOLD_ENV_VAR, _DEFAULT_PARALLEL_READ_THRESHOLD))
+
+
+def get_device_restore_budget_bytes(device: Optional[torch.device]) -> Optional[int]:
+    """Device bytes a restore onto ``device`` may hold in flight (private
+    landing buffers awaiting publication): 0.9 × the card's free memory,
+    at least 256 MiB. An explicit ``TPUSNAPSHOT_DEVICE_BUDGET_BYTES``
+    wins, 0 meaning unbounded; a malformed value falls through to the
+    probe (mapping it to unbounded would drop the protection the operator
+    asked for). A CPU target has no device budget (None)."""
+    if device is None or device.type != "cuda":
+        return None
+    if os.environ.get(_DEVICE_BUDGET_ENV_VAR) is not None:
+        value = env_int(_DEVICE_BUDGET_ENV_VAR, -1)
+        if value > 0:
+            return value
+        if value == 0:
+            return None
+    free, _total = torch.cuda.mem_get_info(device)
+    # Blocks the caching allocator holds but no tensor uses are free to
+    # this process too; the CUDA driver counts them as used.
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return max(int(0.9 * (free + cached)), _MIN_DEVICE_BUDGET_BYTES)
 
 _PRIMITIVE_TYPES = (int, float, bool, str, complex, type(None))
 
@@ -230,12 +292,17 @@ class ObjectBufferConsumer(BufferConsumer):
     ) -> None:
         self._callback = callback
         self._checksum = checksum
+        self._profile = _cprof.current()
 
     async def consume_buffer(
         self, buf: BufferType, executor: Optional[Executor] = None
     ) -> None:
-        verify_checksum(buf, self._checksum)
-        self._callback(bytes_to_object(buf))
+        with _cprof.consume_section():
+            with _cprof.substep(self._profile, "verify", len(buf)):
+                verify_checksum(buf, self._checksum)
+            with _cprof.substep(self._profile, "deserialize", len(buf)):
+                obj = bytes_to_object(buf)
+        self._callback(obj)
 
     def get_consuming_cost_bytes(self) -> int:
         return 1 << 20
@@ -261,50 +328,560 @@ def _check_readable(entry: Any, what: str) -> None:
         )
 
 
-class _RegionConsumer(BufferConsumer):
-    """Copies one stored object's overlap with the target box into the
-    target. A whole-object read carries the object (its checksum is
-    verified); a ranged read carries exactly the overlap's bytes, one
-    run of the object, which no stored checksum covers."""
+class _TargetRegion:
+    """The box a plan fills, on the target's device.
+
+    A leaf that arrives in ONE verified whole-object read and reaches
+    the target in ONE transfer lands straight in the template's own
+    tensor (``direct``): its bytes are checked before any of them is
+    written, and a transfer that fails writes none of them. Any other
+    leaf (several reads: chunked, split, streamed or ranged; or, on a
+    card, more bytes than one staging slot, which go as several
+    transfers) lands in a private buffer on the target's device,
+    allocated on first use and, on a card, charged to the scheduler's
+    device budget; finalize publishes it into the template with one
+    ``copy_`` once every byte has verified and landed, so a failed
+    restore never leaves a torn leaf. Without an adoptable template the
+    private buffer is the result.
+    """
+
+    def __init__(
+        self,
+        sizes: List[int],
+        dtype: torch.dtype,
+        device: torch.device,
+        template: Optional[torch.Tensor],
+    ) -> None:
+        self.sizes = sizes
+        self.dtype = dtype
+        self.device = device
+        self.nbytes = _nbytes(sizes, dtype.itemsize)
+        self.template = template
+        self.direct = False
+        self.buffer: Optional[torch.Tensor] = None
+        # Writes into the box (and the publish) are ordered after the work
+        # queued so far on the restoring thread's current stream, the
+        # template's stream: its private buffers are allocated there, and
+        # every transfer waits for ``ready``, recorded on it now.
+        self.stream = None
+        self.ready = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            self.ready = torch.cuda.Event()
+            self.ready.record(self.stream)
+        self.device_charged = False
+        self._device_release: Optional[Callable[[int], None]] = None
+        self._lock = threading.Lock()
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.device.type == "cuda"
+
+    def ensure_buffer(self) -> torch.Tensor:
+        with self._lock:
+            if self.buffer is None:
+                if self.direct:
+                    self.buffer = self.template
+                elif self.is_cuda:
+                    with torch.cuda.stream(self.stream):
+                        self.buffer = torch.empty(self.sizes, dtype=self.dtype, device=self.device)
+                else:
+                    self.buffer = torch.empty(self.sizes, dtype=self.dtype)
+            return self.buffer
+
+    def device_cost_bytes(self, landing: int = 0) -> int:
+        """Device bytes a consume of this region deposits: the private
+        buffer, charged once by the first admitted consume, plus a
+        consume's own landing buffer for an on-card scatter."""
+        if not self.is_cuda:
+            return 0
+        own = 0 if self.direct or self.device_charged else self.nbytes
+        return own + landing
+
+    def take_device_charge(self, release: Callable[[int], None]) -> None:
+        if self.is_cuda and not self.direct and not self.device_charged:
+            self.device_charged = True
+            self._device_release = release
+
+    def release_device_charge(self) -> None:
+        release, self._device_release = self._device_release, None
+        if release is not None:
+            release(self.nbytes)
+
+
+def _byte_view(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of contiguous ``t`` as uint8 of shape ``t.shape + [itemsize]``."""
+    return t.reshape(-1).view(torch.uint8).reshape(list(t.shape) + [t.element_size()])
+
+
+def _whole(slices: Tuple[slice, ...], shape: List[int]) -> bool:
+    return all(sl.start == 0 and sl.stop == n for sl, n in zip(slices, shape))
+
+
+class _ChunkCopyConsumer(BufferConsumer):
+    """Places one read's payload (a whole stored object, whose checksum
+    is verified first, or exactly its overlap with the box, from a ranged
+    read) into the plan's region through the H2D pipeline, and tells the
+    plan once the bytes have landed."""
 
     def __init__(
         self,
         plan: "ArrayRestorePlan",
-        shard: Shard,
-        overlap: Overlap,
-        byte_range: Optional[Tuple[int, int]],
+        view_shape: List[int],
+        view_slices: Tuple[slice, ...],
+        target_slices: Tuple[slice, ...],
+        checksum: Optional[str],
+        location: str,
     ) -> None:
         self._plan = plan
-        self._shard = shard
-        self._overlap = overlap
-        self._byte_range = byte_range
-        if byte_range is None:
-            self._nbytes = _nbytes(shard.sizes, plan.itemsize)
-        else:
-            self._nbytes = byte_range[1] - byte_range[0]
+        self._view_shape = view_shape
+        self._view_slices = view_slices
+        self._target_slices = target_slices
+        self._checksum = checksum
+        self._location = location
+        self._nbytes = _nbytes(view_shape, plan.itemsize)
+        self._cost_release: Optional[Callable[[int], None]] = None
+        self._device_release: Optional[Callable[[int], None]] = None
+        self._profile = _cprof.current()
 
-    async def consume_buffer(
-        self, buf: BufferType, executor: Optional[Executor] = None
-    ) -> None:
-        await _in_executor(executor, lambda: self._consume(buf))
-
-    def _consume(self, buf: BufferType) -> None:
-        if self._byte_range is None:
-            verify_checksum(buf, self._shard.array.checksum)
-        if len(buf) != self._nbytes:
-            raise RuntimeError(
-                f"{self._shard.array.location}: read {len(buf)} bytes where "
-                f"the manifest describes {self._nbytes}"
-            )
-        ov = self._overlap
-        if self._byte_range is None:
-            self._plan.write_region(buf, list(self._shard.sizes), ov.chunk_slices, ov.target_slices)
-        else:
-            whole = tuple(slice(0, n) for n in ov.sizes)
-            self._plan.write_region(buf, list(ov.sizes), whole, ov.target_slices)
+    def _landing_bytes(self) -> int:
+        """A box that is not one run of a CUDA region lands whole on the
+        card and is cut there."""
+        region = self._plan.region
+        if region.is_cuda and self._plan.target_run(self._view_shape, self._view_slices,
+                                                    self._target_slices) is None:
+            return self._nbytes
+        return 0
 
     def get_consuming_cost_bytes(self) -> int:
         return self._nbytes
+
+    def get_deferred_cost_bytes(self) -> int:
+        # The payload (or its pinned copy) is read by the pipeline after
+        # the consume returns: held until the transfer lands.
+        return self._nbytes
+
+    def set_cost_releaser(self, release: Callable[[int], None]) -> None:
+        self._cost_release = release
+
+    def get_device_cost_bytes(self) -> int:
+        return self._plan.region.device_cost_bytes(self._landing_bytes())
+
+    def set_device_cost_releaser(self, release: Callable[[int], None]) -> None:
+        self._plan.region.take_device_charge(release)
+        self._device_release = release
+
+    async def consume_buffer(self, buf: BufferType, executor: Optional[Executor] = None) -> None:
+        await _in_executor(executor, lambda: self._consume(buf))
+
+    async def consume_lease(
+        self, lease: staging_pool.StagingLease, executor: Optional[Executor] = None
+    ) -> None:
+        """Consume a payload assembled in a staging lease; the pipeline
+        reads the lease directly when it is pinned (or the target is the
+        CPU), and holds it until the bytes have landed."""
+        await _in_executor(executor, lambda: self._consume(None, lease))
+
+    def _consume(self, buf: Optional[BufferType], lease: Optional[staging_pool.StagingLease] = None) -> None:
+        with _cprof.consume_section():
+            data = buf if lease is None else memoryview(lease.buffer.numpy())
+            if len(data) != self._nbytes:
+                raise RuntimeError(
+                    f"{self._location}: read {len(data)} bytes where the "
+                    f"manifest describes {self._nbytes}"
+                )
+            with _cprof.substep(self._profile, "verify", len(data)):
+                verify_checksum(data, self._checksum)
+            fut = self._plan.place(
+                data, lease, self._view_shape, self._view_slices, self._target_slices
+            )
+            fut.add_done_callback(self._landed)
+
+    def _landed(self, fut: Future) -> None:
+        landing = self._landing_bytes()
+        release, self._device_release = self._device_release, None
+        if release is not None and landing:
+            release(landing)
+        release, self._cost_release = self._cost_release, None
+        if release is not None:
+            release(self._nbytes)
+        if not fut.cancelled() and fut.exception() is None:
+            self._plan.on_req_done()
+
+
+class _PooledAssemblyState:
+    """Budget plumbing for a read state that assembles ONE stored object
+    in a buffer from the staging pool: the scheduler's deferred-cost
+    releaser (charged with the first sub-read) fires exactly once, when
+    the buffer returns to the pool, whichever of the buffer's acquisition
+    and the scheduler's dispatch hook comes first."""
+
+    def __init__(self, nbytes: int, pinned: bool = False) -> None:
+        self.nbytes = nbytes
+        self._pinned = pinned
+        self._lease: Optional[staging_pool.StagingLease] = None
+        self._lock = threading.Lock()
+        self._profile = _cprof.current()
+        self._cost_release: Optional[Callable[[int], None]] = None
+
+    def set_cost_releaser(self, release: Callable[[int], None]) -> None:
+        with self._lock:
+            lease = self._lease
+            if lease is None:
+                self._cost_release = release
+        if lease is not None:
+            lease.set_budget_release(release, self.nbytes)
+
+    def _ensure_buf(self) -> staging_pool.StagingLease:
+        with self._lock:
+            if self._lease is not None:
+                return self._lease
+            lease = staging_pool.acquire(self.nbytes, self._profile, self._pinned)
+            # Reachable from self before anything else can raise: the
+            # release path then returns it (and fires the re-credit).
+            self._lease = lease
+            release, self._cost_release = self._cost_release, None
+        if release is not None:
+            lease.set_budget_release(release, self.nbytes)
+        return lease
+
+    def _release_assembly_buffer(self) -> None:
+        """Give the assembly buffer back (the pool fires the re-credit
+        once it has returned); idempotent."""
+        with self._lock:
+            lease, self._lease = self._lease, None
+            release, self._cost_release = self._cost_release, None
+        if lease is not None:
+            if release is not None:
+                lease.set_budget_release(release, self.nbytes)
+            lease.release()
+        elif release is not None:
+            release(self.nbytes)
+
+
+class _SplitObjectReadState(_PooledAssemblyState):
+    """Assembles concurrent ranged sub-reads of ONE stored object in a
+    pooled buffer, then hands the whole payload to the inner consumer
+    (``consume_lease``), so the checksum still covers the whole object.
+    The lease goes back to the pool once the inner consumer's transfer
+    (which holds it) has landed."""
+
+    def __init__(self, nbytes: int, inner: Any, pinned: bool = False) -> None:
+        super().__init__(nbytes, pinned)
+        self._inner = inner
+        self._remaining = 0
+        self._device_charged = False
+
+    def extra_first_cost_bytes(self) -> int:
+        """Charged on top of the first sub-read: the assembly buffer."""
+        return self.nbytes
+
+    def deferred_cost_bytes(self, first: bool, part_nbytes: int) -> int:
+        """The assembly buffer, carried by the first sub-read, outlives
+        every sub-read's consume."""
+        return self.nbytes if first else 0
+
+    def device_cost_bytes(self) -> int:
+        # The inner consumer's device bytes, charged once, by the first
+        # of the sub-reads admitted.
+        return 0 if self._device_charged else self._inner.get_device_cost_bytes()
+
+    def set_device_cost_releaser(self, release: Callable[[int], None]) -> None:
+        self._device_charged = True
+        self._inner.set_device_cost_releaser(release)
+
+    def add_sub_reads(self, path: str, part_size: int, base: int = 0) -> List[ReadReq]:
+        """One ranged read per ``part_size`` bytes; ``base`` shifts the
+        ranges (a split of a sub-range of the object)."""
+        starts = list(range(0, self.nbytes, part_size))
+        self._remaining = len(starts)
+        return [
+            ReadReq(
+                path=path,
+                buffer_consumer=_SubRangeConsumer(
+                    self, start, min(start + part_size, self.nbytes), first=(i == 0)
+                ),
+                byte_range=(base + start, base + min(start + part_size, self.nbytes)),
+            )
+            for i, start in enumerate(starts)
+        ]
+
+    async def absorb(
+        self, start: int, end: int, buf: BufferType, executor: Optional[Executor] = None
+    ) -> None:
+        def _copy() -> None:
+            with _cprof.consume_section():
+                lease = self._ensure_buf()
+                with _cprof.substep(self._profile, "reassemble", end - start):
+                    _check_part(buf, start, end)
+                    # Disjoint ranges: concurrent threads never overlap.
+                    host_copy(lease.buffer[start:end], buf)
+
+        await _in_executor(executor, _copy)
+        with self._lock:
+            self._remaining -= 1
+            last = self._remaining == 0
+        if last:
+            try:
+                await self._inner.consume_lease(self._lease, executor)
+            finally:
+                with _cprof.consume_section(), _cprof.substep(
+                    self._profile, "staging_release", self.nbytes
+                ):
+                    self._release_assembly_buffer()
+
+
+def _all_of(futures: List[Future]) -> Future:
+    """A future that resolves once all ``futures`` have, with the first
+    one's exception if any failed."""
+    if len(futures) == 1:
+        return futures[0]
+    out: Future = Future()
+    if not futures:
+        out.set_result(None)
+        return out
+    lock = threading.Lock()
+    remaining = [len(futures)]
+
+    def _one_done(_: Future) -> None:
+        with lock:
+            remaining[0] -= 1
+            if remaining[0]:
+                return
+        for fut in futures:
+            exc = RuntimeError("a transfer was cancelled") if fut.cancelled() else fut.exception()
+            if exc is not None:
+                out.set_exception(exc)
+                return
+        out.set_result(None)
+
+    for fut in futures:
+        fut.add_done_callback(_one_done)
+    return out
+
+
+def _check_part(buf: BufferType, start: int, end: int) -> None:
+    if len(buf) != end - start:
+        raise RuntimeError(
+            f"Ranged sub-read returned {len(buf)} bytes for [{start}, {end}): "
+            f"the object is shorter than the manifest says (truncated or torn)."
+        )
+
+
+class _StreamingSplitState(_SplitObjectReadState):
+    """Split read of one large object that is one run of the region:
+    each sub-range goes to the region's private buffer at its flat offset
+    (on a card: staged in a pinned pooled buffer and DMA'd there by the
+    H2D pipeline) as soon as it lands, so storage reads overlap the
+    transfers. No host assembly buffer, no per-piece device arrays.
+
+    The crc32 folds incrementally over the in-order byte stream
+    (out-of-order parts wait in a stash until their prefix lands) and is
+    checked before the plan can publish; a mismatch raises with nothing
+    published. A part's host reservation is re-credited once both its
+    holds drop: the crc stash and the transfer."""
+
+    def __init__(
+        self,
+        plan: "ArrayRestorePlan",
+        nbytes: int,
+        flat_base: int,
+        checksum: Optional[str],
+    ) -> None:
+        super().__init__(nbytes, inner=None)
+        self._plan = plan
+        self._flat_base = flat_base
+        self._checksum = checksum
+        self._crc: Optional[StreamingCrc32] = (
+            StreamingCrc32() if checksum and checksum.startswith("crc32:") else None
+        )
+        self._next_off = 0
+        self._stash: Dict[int, BufferType] = {}
+        self._released = 0  # deferred bytes already re-credited
+        self._part_refs: Dict[int, int] = {}
+        self._transfers_remaining = 0
+        self._crc_ok = self._crc is None
+        self._completed = False
+        self._failed = False
+
+    def extra_first_cost_bytes(self) -> int:
+        return 0
+
+    def deferred_cost_bytes(self, first: bool, part_nbytes: int) -> int:
+        return part_nbytes
+
+    def device_cost_bytes(self) -> int:
+        return self._plan.region.device_cost_bytes()
+
+    def set_device_cost_releaser(self, release: Callable[[int], None]) -> None:
+        self._plan.region.take_device_charge(release)
+
+    def add_sub_reads(self, path: str, part_size: int, base: int = 0) -> List[ReadReq]:
+        reqs = super().add_sub_reads(path, part_size, base)
+        self._transfers_remaining = len(reqs)
+        return reqs
+
+    def _release_assembly_cost(self) -> None:
+        # Error-path safety net: re-credit what the per-part holds have
+        # not (on success they covered the whole object: a no-op).
+        release, self._cost_release = self._cost_release, None
+        if release is not None:
+            with self._lock:
+                remaining = self.nbytes - self._released
+                self._released = self.nbytes
+            if remaining > 0:
+                release(remaining)
+
+    def _part_release(self, start: int, nbytes: int) -> None:
+        release = None
+        with self._lock:
+            refs = self._part_refs.get(start)
+            if refs is None:
+                return
+            refs -= 1
+            if refs:
+                self._part_refs[start] = refs
+                return
+            del self._part_refs[start]
+            release = self._cost_release
+            if release is not None:
+                self._released += nbytes
+        if release is not None:
+            release(nbytes)
+
+    def _transfer_done(self, start: int, nbytes: int, fut: Future) -> None:
+        if fut.cancelled() or fut.exception() is not None:
+            # The restore is failing: the plan surfaces the registered
+            # future's error before it publishes anything. Never complete
+            # over a partial deposit; free the remaining holds now.
+            with self._lock:
+                self._failed = True
+            self._release_assembly_cost()
+            return
+        with self._lock:
+            self._transfers_remaining -= 1
+        self._part_release(start, nbytes)
+        self._maybe_complete()
+
+    def _maybe_complete(self) -> None:
+        with self._lock:
+            if (
+                self._completed
+                or self._failed
+                or not self._crc_ok
+                or self._remaining != 0
+                or self._transfers_remaining != 0
+            ):
+                return
+            self._completed = True
+        try:
+            self._plan.on_req_done()
+        finally:
+            self._release_assembly_cost()
+
+    async def absorb(
+        self, start: int, end: int, buf: BufferType, executor: Optional[Executor] = None
+    ) -> None:
+        def _consume_part() -> None:
+            with _cprof.consume_section():
+                _check_part(buf, start, end)
+                with self._lock:
+                    self._part_refs[start] = 2 if self._crc is not None else 1
+                # The transfer first: it rides the link while the crc
+                # fold below runs and later sub-reads arrive.
+                lo = self._flat_base + start
+                fut = self._plan.place_run(buf, lo, lo + (end - start))
+                fut.add_done_callback(
+                    lambda f, s=start, n=end - start: self._transfer_done(s, n, f)
+                )
+                if self._crc is None:
+                    return
+                with _cprof.substep(self._profile, "verify", len(buf)):
+                    drained: List[Tuple[int, int]] = []
+                    with self._lock:
+                        self._stash[start] = buf
+                        while self._next_off in self._stash:
+                            off = self._next_off
+                            b = self._stash.pop(off)
+                            self._crc.update(b)
+                            self._next_off += len(b)
+                            drained.append((off, len(b)))
+                        stream_done = self._next_off >= self.nbytes
+                    for off, n in drained:
+                        self._part_release(off, n)
+                    if stream_done:
+                        actual = self._crc.tag()
+                        if actual != self._checksum:
+                            with self._lock:
+                                self._failed = True
+                            raise RuntimeError(
+                                f"Checksum mismatch: stored object is corrupt "
+                                f"(expected {self._checksum}, got {actual})."
+                            )
+                        with self._lock:
+                            self._crc_ok = True
+
+        await _in_executor(executor, _consume_part)
+        with self._lock:
+            self._remaining -= 1
+        self._maybe_complete()
+
+
+class _SubRangeConsumer(BufferConsumer):
+    """One ranged sub-read of a split whole-object read."""
+
+    def __init__(self, state: _SplitObjectReadState, start: int, end: int, first: bool) -> None:
+        self._state = state
+        self._start = start
+        self._end = end
+        self._first = first
+
+    async def consume_buffer(self, buf: BufferType, executor: Optional[Executor] = None) -> None:
+        await self._state.absorb(self._start, self._end, buf, executor)
+
+    def get_consuming_cost_bytes(self) -> int:
+        # Its own payload; the first also carries the state's shared
+        # assembly buffer (none for a streaming state). The scheduler
+        # dispatches one object's sub-reads in order, first first.
+        extra = self._state.extra_first_cost_bytes() if self._first else 0
+        return (self._end - self._start) + extra
+
+    def get_deferred_cost_bytes(self) -> int:
+        return self._state.deferred_cost_bytes(self._first, self._end - self._start)
+
+    def set_cost_releaser(self, release: Callable[[int], None]) -> None:
+        self._state.set_cost_releaser(release)
+
+    @property
+    def sort_key_bytes(self) -> int:
+        return self._state.nbytes
+
+    def get_device_cost_bytes(self) -> int:
+        # The region's private buffer is charged once, by the first of
+        # its consumes admitted; completing a started region is free.
+        return self._state.device_cost_bytes()
+
+    def set_device_cost_releaser(self, release: Callable[[int], None]) -> None:
+        self._state.set_device_cost_releaser(release)
+
+
+# Finalize executor: a finalize triggered from an H2D pipeline callback
+# must not run on the pipeline's worker, which would block in
+# await_pipeline on transfers queued behind itself (a deadlock at depth
+# 1). Such finalizes hop here; this pool waits on the pipeline, never the
+# reverse.
+_finalize_pool: Optional[ThreadPoolExecutor] = None
+_finalize_pool_lock = threading.Lock()
+
+
+def _get_finalize_pool() -> ThreadPoolExecutor:
+    global _finalize_pool
+    with _finalize_pool_lock:
+        if _finalize_pool is None:
+            _finalize_pool = ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="tpusnapshot-finalize"
+            )
+        return _finalize_pool
 
 
 class ArrayRestorePlan:
@@ -316,6 +893,11 @@ class ArrayRestorePlan:
     takes its local box (:func:`dtensor_box`) and the result is a DTensor
     with the template's mesh and placements. JAX PRNG-key leaves restore
     as their raw uint32 key data: the port has no key type.
+
+    Every byte goes to the box through the H2D pipeline as its read
+    verifies (:class:`_TargetRegion` says where). The last landing
+    triggers :meth:`finalize`, which publishes the leaf; a failed read,
+    consume or transfer leaves the template as it was.
     """
 
     def __init__(self, entry: Entry, template: Any, callback: Callable[[Any], None]):
@@ -361,80 +943,294 @@ class ArrayRestorePlan:
         else:
             box = ([0] * len(shape), shape)
             local = template
-        self._box_offsets, self._box_sizes = box
-        if (
-            isinstance(local, torch.Tensor)
-            and local.dtype == dtype
-            and list(local.shape) == self._box_sizes
-            and local.is_contiguous()
-        ):
-            self._dst = local.detach()
-        elif isinstance(local, torch.Tensor):
-            self._dst = torch.empty(self._box_sizes, dtype=dtype, device=local.device)
-        else:
-            self._dst = torch.empty(self._box_sizes, dtype=dtype)
+        self._box_offsets, box_sizes = box
+        adopt = None
+        device = torch.device("cpu")
+        if isinstance(local, torch.Tensor):
+            device = local.device
+            if (
+                local.dtype == dtype
+                and list(local.shape) == box_sizes
+                and local.is_contiguous()
+            ):
+                adopt = local.detach()
+        self.region = _TargetRegion(list(box_sizes), dtype, device, adopt)
+        # Bytes read as streamed sub-ranges (the rest arrive whole).
+        self.streamed_bytes = 0
+        self._profile = _cprof.current()
+        self._lock = threading.Lock()
+        # Completion: one count per logical read (a whole or ranged read,
+        # or a split object), down when its bytes have verified and landed.
+        self._outstanding = 0
+        self._complete = threading.Event()
+        self._transfers: List[Future] = []
+        self._finalized = False
+        self._abandoned = False
+        self._finalize_done = threading.Event()
+        self._finalize_error: Optional[BaseException] = None
 
-    def build_read_reqs(self) -> List[ReadReq]:
-        """One read per stored object that overlaps the box: a ranged
-        read where the overlap is one run of the object and not all of
-        it, else the whole object."""
-        reqs = []
-        for shard in self._shards:
-            ov = compute_overlap(
-                shard.offsets, shard.sizes, self._box_offsets, self._box_sizes
-            )
-            if ov is None:
-                continue
-            rng = contiguous_byte_range(shard.sizes, ov.chunk_slices, self.itemsize)
-            if rng is not None and rng == (0, _nbytes(shard.sizes, self.itemsize)):
-                rng = None
-            reqs.append(
-                ReadReq(
-                    path=shard.array.location,
-                    buffer_consumer=_RegionConsumer(self, shard, ov, rng),
-                    byte_range=rng,
-                )
-            )
-        return reqs
+    # ---------------------------------------------------------- placing
+    def target_run(
+        self, shape: List[int], src_slices: Tuple[slice, ...], target_slices: Tuple[slice, ...]
+    ) -> Optional[Tuple[int, int]]:
+        """The byte run of the region that a whole source box fills, or
+        None when the source is cut or the box is not one run."""
+        if not _whole(src_slices, shape):
+            return None
+        return contiguous_byte_range(self.region.sizes, target_slices, self.itemsize)
 
-    def write_region(
+    def _submit(self, src: Any, dst: torch.Tensor, then: Any = None,
+                lease: Optional[staging_pool.StagingLease] = None) -> Future:
+        fut = h2d_pipeline().submit(
+            src, dst, profile=self._profile, ready=self.region.ready, then=then, lease=lease
+        )
+        with self._lock:
+            self._transfers.append(fut)
+        return fut
+
+    def _pinned_source(
+        self, data: BufferType, lease: Optional[staging_pool.StagingLease]
+    ) -> Tuple[staging_pool.StagingLease, bool]:
+        """A pinned lease holding ``data`` for a DMA, and whether the
+        caller owns it (and must release it once submitted)."""
+        if lease is not None and lease.pinned:
+            return lease, False
+        staged = staging_pool.acquire(len(data), self._profile, pinned=True)
+        with _cprof.substep(self._profile, "reassemble", len(data)):
+            host_copy(staged.buffer, data)
+        return staged, True
+
+    def place_run(self, data: BufferType, lo: int, hi: int) -> Future:
+        """Send the payload ``data`` to bytes [lo, hi) of the region.
+
+        On a card it goes piece by piece through pinned staging slots of
+        ``transfer.H2D_CHUNK_BYTES``, every slot one size whatever the
+        object's: a consume holds a bounded part of the pool, each piece's
+        DMA overlaps the copy of the next, and the pool's buffers, all of
+        one key, serve every later restore without new pinned memory.
+        Pieces land independently, so a run of several pieces goes to a
+        private buffer, never straight to the template."""
+        dst = self.region.ensure_buffer().reshape(-1).view(torch.uint8)[lo:hi]
+        if not self.region.is_cuda:
+            return self._submit(np.frombuffer(data, dtype=np.uint8), dst)
+        view = memoryview(data).cast("B")
+        slot = transfer.H2D_CHUNK_BYTES
+        futures = []
+        for start in range(0, hi - lo, slot):
+            end = min(start + slot, hi - lo)
+            staged = staging_pool.acquire(slot, self._profile, pinned=True)
+            try:
+                src = staged.buffer[: end - start]
+                with _cprof.substep(self._profile, "reassemble", end - start):
+                    host_copy(src, view[start:end])
+                futures.append(self._submit(src, dst[start:end], lease=staged))
+            finally:
+                staged.release()
+        return _all_of(futures)
+
+    def place(
         self,
-        buf: BufferType,
-        src_shape: List[int],
+        data: BufferType,
+        lease: Optional[staging_pool.StagingLease],
+        shape: List[int],
         src_slices: Tuple[slice, ...],
         target_slices: Tuple[slice, ...],
-    ) -> None:
-        """Copy box ``src_slices`` of the C-order array ``buf`` (of shape
-        ``src_shape``) into box ``target_slices`` of the target."""
-        dst = self._dst
-        src_whole = all(
-            sl.start == 0 and sl.stop == n for sl, n in zip(src_slices, src_shape)
+    ) -> Future:
+        """Send box ``src_slices`` of the C-order array ``data`` (of
+        ``shape``; held by ``lease`` when given) to box ``target_slices``
+        of the region."""
+        region = self.region
+        run = self.target_run(shape, src_slices, target_slices)
+        if run is not None and lease is None:
+            return self.place_run(data, *run)
+        dst = region.ensure_buffer()
+        nbytes = _nbytes(shape, self.itemsize)
+        if not region.is_cuda:
+            src = np.frombuffer(data, dtype=np.uint8, count=nbytes)
+            if run is not None:
+                return self._submit(src, dst.reshape(-1).view(torch.uint8)[run[0]:run[1]], lease=lease)
+            src_box = src.reshape(list(shape) + [self.itemsize])[src_slices]
+            return self._submit(src_box, _byte_view(dst)[target_slices], lease=lease)
+        staged, own = self._pinned_source(data, lease)
+        try:
+            src = staged.buffer[:nbytes]
+            if run is not None:
+                return self._submit(src, dst.reshape(-1).view(torch.uint8)[run[0]:run[1]], lease=staged)
+            # Not one run of the target: land the source whole on the
+            # card and cut the box there (no gather on the host).
+            with torch.cuda.stream(region.stream):
+                landing = torch.empty(nbytes, dtype=torch.uint8, device=region.device)
+
+            def scatter() -> None:
+                typed = landing.view(region.dtype).reshape(shape)
+                dst[target_slices].copy_(typed[src_slices])
+
+            return self._submit(src, landing, then=scatter, lease=staged)
+        finally:
+            if own:
+                staged.release()
+
+    # ------------------------------------------------------- completion
+    def on_req_done(self) -> None:
+        with self._lock:
+            self._outstanding -= 1
+            if self._outstanding != 0:
+                return
+        self._complete.set()
+        self.finalize()
+
+    def build_read_reqs(self) -> List[ReadReq]:
+        """Reads for every stored object that overlaps the box:
+
+        - an object that is one run of the box and larger than the
+          parallel-read threshold streams: concurrent sub-reads, each
+          sent to the device as it lands;
+        - an overlap that is one run of its object, and not all of it, is
+          a ranged read of exactly those bytes (unverifiable, so under
+          ``TPUSNAPSHOT_STRICT_INTEGRITY=1`` the whole object is read);
+        - everything else reads the whole object (verified), split into
+          concurrent sub-reads assembled in a pooled buffer when large.
+        """
+        region = self.region
+        itemsize = self.itemsize
+        threshold = _parallel_read_threshold()
+        part = max(itemsize, threshold - threshold % itemsize)
+        strict = os.environ.get(_STRICT_INTEGRITY_ENV_VAR) == "1"
+        # (shard, overlap, byte range of a ranged read or None, split)
+        planned = []
+        for shard in self._shards:
+            ov = compute_overlap(shard.offsets, shard.sizes, self._box_offsets, region.sizes)
+            if ov is None:
+                continue
+            obj_nbytes = _nbytes(shard.sizes, itemsize)
+            rng = contiguous_byte_range(shard.sizes, ov.chunk_slices, itemsize)
+            if rng == (0, obj_nbytes) or strict:
+                rng = None
+            read_nbytes = obj_nbytes if rng is None else rng[1] - rng[0]
+            planned.append((shard, ov, rng, read_nbytes > threshold))
+        # One verified whole-object read carries the whole leaf, and one
+        # transfer takes it to the template: its bytes may land there
+        # straight. Several transfers (a run of more than one staging
+        # slot) could fail after the first has written.
+        region.direct = (
+            region.template is not None
+            and len(planned) == 1
+            and planned[0][2] is None
+            and not planned[0][3]
+            and (not region.is_cuda or region.nbytes <= transfer.H2D_CHUNK_BYTES)
         )
-        byte_range = contiguous_byte_range(self._box_sizes, target_slices, self.itemsize)
-        if src_whole and byte_range is not None:
-            lo, hi = byte_range
-            dst_bytes = dst.reshape(-1).view(torch.uint8)[lo:hi]
-            if dst.is_cuda:
-                host_to_device(buf, dst_bytes)
+        reqs: List[ReadReq] = []
+        for shard, ov, rng, split in planned:
+            location = shard.array.location
+            if rng is None:
+                view = (list(shard.sizes), ov.chunk_slices, shard.array.checksum)
             else:
-                dst_bytes.numpy()[:] = np.frombuffer(buf, dtype=np.uint8)
-            return
-        # A box that is not one run of the target's layout: land the
-        # source whole on the target's device, then copy its box into
-        # the target there (on the card: no gather on the host).
-        staged = torch.empty(src_shape, dtype=dst.dtype, device=dst.device)
-        if dst.is_cuda:
-            host_to_device(buf, staged)
-            dst[target_slices].copy_(staged[src_slices])
-            torch.cuda.current_stream(dst.device).synchronize()
-        else:
-            staged.reshape(-1).view(torch.uint8).numpy()[:] = np.frombuffer(
-                buf, dtype=np.uint8
-            )
-            dst[target_slices].copy_(staged[src_slices])
+                view = (list(ov.sizes), tuple(slice(0, n) for n in ov.sizes), None)
+            run = self.target_run(view[0], view[1], ov.target_slices)
+            base = 0 if rng is None else rng[0]
+            if split and run is not None:
+                stream = _StreamingSplitState(
+                    self, _nbytes(view[0], itemsize), run[0], view[2]
+                )
+                reqs.extend(stream.add_sub_reads(location, part, base))
+                self.streamed_bytes += stream.nbytes
+                continue
+            consumer = _ChunkCopyConsumer(self, *view[:2], ov.target_slices, view[2], location)
+            if split:
+                state = _SplitObjectReadState(
+                    _nbytes(view[0], itemsize), consumer, pinned=region.is_cuda
+                )
+                reqs.extend(state.add_sub_reads(location, part, base))
+            else:
+                reqs.append(ReadReq(path=location, buffer_consumer=consumer, byte_range=rng))
+        with self._lock:
+            self._outstanding = len(planned)
+        if not planned:
+            region.direct = region.template is not None
+            self._complete.set()
+        return reqs
 
     def finalize(self) -> None:
-        out = self._dst
+        """Publish the leaf once every byte has verified and landed.
+
+        Normally triggered by the last landing; the restore also calls
+        it for every plan after the pipeline, and that call waits for an
+        eager finalize in progress and re-raises its error."""
+        with self._lock:
+            if self._abandoned:
+                return
+            run = not self._finalized
+            self._finalized = True
+        if not run:
+            self._finalize_done.wait()
+            if self._finalize_error is not None:
+                raise self._finalize_error
+            return
+        if on_h2d_thread():
+            _get_finalize_pool().submit(self._finalize_now)
+            return
+        self._finalize_now()
+
+    def _finalize_now(self) -> None:
+        try:
+            self.await_pipeline()
+            self._publish()
+        except BaseException as e:
+            # On the finalize pool the raise lands in an unread future;
+            # the restore's own finalize call re-raises it.
+            self._finalize_error = e
+            raise
+        finally:
+            self._finalize_done.set()
+
+    def await_pipeline(self) -> None:
+        """Wait out, and surface the errors of, every transfer this plan
+        submitted, BEFORE anything is published: a failed transfer or an
+        incomplete pipeline raises, and the template stays untouched."""
+        with self._lock:
+            transfers = list(self._transfers)
+        for fut in transfers:
+            fut.result()
+        with self._lock:
+            outstanding = self._outstanding
+        if outstanding == 0:
+            return
+        # Every future has resolved; the only legitimate gap is a
+        # done-callback still running on another thread.
+        if not self._complete.wait(timeout=60.0):
+            raise RuntimeError(
+                f"restore pipeline incomplete: {outstanding} read(s) never "
+                f"finished verify/transfer; refusing to publish a torn leaf"
+            )
+
+    def settle(self) -> None:
+        """After a failed restore: wait until no transfer of this plan is
+        in flight and no finalize is running, raising nothing. A plan
+        that has not started to publish never will."""
+        with self._lock:
+            transfers = list(self._transfers)
+        futures_wait(transfers)
+        with self._lock:
+            started = self._finalized
+            self._abandoned = not started
+        if started:
+            self._finalize_done.wait()
+
+    def _publish(self) -> None:
+        region = self.region
+        out = region.ensure_buffer()
+        if not region.direct and region.template is not None:
+            with _cprof.substep(self._profile, "reassemble", region.nbytes):
+                if region.is_cuda:
+                    with torch.cuda.device(region.device), torch.cuda.stream(region.stream):
+                        region.template.copy_(out)
+                        done = torch.cuda.Event()
+                        done.record(region.stream)
+                    done.synchronize()
+                else:
+                    region.template.copy_(out)
+            region.buffer = out = region.template
+            region.release_device_charge()
         if self._wrap is not None:
             from torch.distributed.tensor import DTensor
 
@@ -573,9 +1369,11 @@ def prepare_write(
 
 def prepare_read(
     entry: Entry, template: Any, callback: Callable[[Any], None]
-) -> Tuple[List[ReadReq], List[Callable[[], None]]]:
+) -> Tuple[List[ReadReq], List[ArrayRestorePlan]]:
     """Plan the restore of one leaf value into ``template``'s placement:
-    read requests plus finalizers to run after all reads complete."""
+    read requests, plus the array plans whose ``await_pipeline`` and
+    ``finalize`` the caller runs after the reads (``settle`` after a
+    failed run)."""
     if isinstance(entry, PrimitiveEntry):
         callback(entry.get_value())
         return [], []
@@ -585,5 +1383,5 @@ def prepare_read(
         return [ReadReq(path=entry.location, buffer_consumer=consumer)], []
     if isinstance(entry, (ArrayEntry, ShardedArrayEntry)):
         plan = ArrayRestorePlan(entry, template, callback)
-        return plan.build_read_reqs(), [plan.finalize]
+        return plan.build_read_reqs(), [plan]
     raise TypeError(f"Cannot prepare read for entry type {type(entry)}")

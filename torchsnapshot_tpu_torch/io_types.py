@@ -20,7 +20,7 @@ import random
 import time
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 from .utils.env import env_float, env_int
 
@@ -104,6 +104,12 @@ class BufferStager(abc.ABC):
 
 
 class BufferConsumer(abc.ABC):
+    # Dispatch order key for the read scheduler (largest first): the
+    # size of the logical object this read belongs to. None means "use
+    # the consuming cost". All sub-reads of one split object share the
+    # object's size, so the stable sort keeps them together and in order.
+    sort_key_bytes: Optional[int] = None
+
     @abc.abstractmethod
     async def consume_buffer(
         self, buf: BufferType, executor: Optional[Executor] = None
@@ -113,6 +119,32 @@ class BufferConsumer(abc.ABC):
     @abc.abstractmethod
     def get_consuming_cost_bytes(self) -> int:
         """Peak host memory charged against the budget while consuming."""
+
+    def get_deferred_cost_bytes(self) -> int:
+        """The part of :meth:`get_consuming_cost_bytes` whose allocation
+        outlives ``consume_buffer`` (a split read's shared assembly
+        buffer; a payload the H2D pipeline still reads). The scheduler
+        re-credits it through the releaser of :meth:`set_cost_releaser`
+        instead of when the consume returns. 0 for ordinary consumers."""
+        return 0
+
+    def set_cost_releaser(self, release: Callable[[int], None]) -> None:
+        """Receive the scheduler's host-budget release callback. Called
+        only when :meth:`get_deferred_cost_bytes` is non-zero; the
+        consumer calls ``release(n)`` once, when the deferred allocation
+        is actually freed."""
+
+    def get_device_cost_bytes(self) -> int:
+        """Device bytes this consume allocates that outlive the consume
+        call (a leaf's private landing buffer, a region landed whole for
+        an on-card scatter). The scheduler gates consume dispatch on a
+        device budget with it. 0 for consumers that stay on the host."""
+        return 0
+
+    def set_device_cost_releaser(self, release: Callable[[int], None]) -> None:
+        """Receive the device-budget release callback. Called only when
+        :meth:`get_device_cost_bytes` is non-zero; the consumer calls
+        ``release(n)`` once the device bytes are freed."""
 
 
 @dataclass

@@ -5,25 +5,33 @@
   produced the tensor, issued in ``transfer_chunk_bytes`` pieces. The
   caller gets the buffer only after the copy's event has completed, so a
   checksum or a storage write never reads stale bytes.
-- :func:`host_to_device` — H2D of payload bytes into a CUDA tensor through
-  two pinned bounce buffers: the host copy of one chunk into pinned
-  memory overlaps the non-blocking DMA of the previous chunk, each buffer
-  reused only after its event completed.
+- :class:`H2DPipeline` — the restore's host→device engine: a pool of
+  ``h2d_depth()`` workers (``TPUSNAPSHOT_H2D_DEPTH``, default 2), each
+  copying on its own side stream from a pinned staging buffer into the
+  destination and resolving its future once the copy has completed.
+  Consumers submit a piece the moment it has verified and go back to
+  consuming, so transfers overlap the reads still in flight.
 - :func:`device_clone` — HBM→HBM copies of CUDA tensors on their
   device's current stream: the consistent cut of an async take.
 - :func:`probe_d2h_gbps` / :func:`probe_h2d_gbps` — the pinned-memory
   ceilings a take and a restore are measured against.
 
-``TPUSNAPSHOT_TRANSFER_CHUNK_BYTES`` (default 64 MiB) sets the chunk.
+``TPUSNAPSHOT_TRANSFER_CHUNK_BYTES`` (default 64 MiB) sets the chunk of
+:func:`device_to_host`; :data:`H2D_CHUNK_BYTES` (16 MiB) is the staging
+slot of the restore's pipeline.
 """
 
+import ctypes
 import threading
 import time
-from typing import Any, List, Optional, Sequence
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import staging_pool
+from ..telemetry import consume_profile as _cprof
 from ..utils.env import env_int
 
 _DEFAULT_TRANSFER_CHUNK_BYTES = 64 * 1024 * 1024
@@ -73,41 +81,144 @@ def device_to_host(
     return out
 
 
-def host_to_device(src: Any, dst: torch.Tensor) -> None:
-    """Copy payload bytes ``src`` (any buffer) into the contiguous CUDA
-    tensor ``dst`` and return once they have landed."""
-    if not dst.is_contiguous():
-        raise ValueError("host_to_device needs a contiguous destination")
-    data = np.frombuffer(src, dtype=np.uint8)
-    dst_bytes = dst.reshape(-1).view(torch.uint8)
-    if data.size != dst_bytes.numel():
+def host_copy(dst: torch.Tensor, src: Any) -> None:
+    """Copy the bytes of buffer (or C-contiguous numpy array) ``src`` into
+    the contiguous host tensor ``dst`` of the same byte length.
+
+    ctypes releases the GIL around the memmove. A numpy slice assignment
+    holds it for the whole copy, and a restore's sixteen consume threads
+    copying payloads that way starve the H2D pipeline's workers, whose
+    every CUDA call then waits for the GIL."""
+    view = src if isinstance(src, np.ndarray) else np.frombuffer(src, dtype=np.uint8)
+    nbytes = dst.numel() * dst.element_size()
+    if view.nbytes != nbytes or not dst.is_contiguous() or not view.flags.c_contiguous:
         raise ValueError(
-            f"payload of {data.size} bytes does not fit a tensor of "
-            f"{dst_bytes.numel()} bytes"
+            f"host_copy needs contiguous buffers of one size, got {view.nbytes} "
+            f"bytes into {nbytes}"
         )
-    if data.size == 0:
-        return
-    step = min(transfer_chunk_bytes(), data.size)
-    stream = _side_stream(dst.device)
-    # The destination may still be in use by work queued on the device's
-    # current stream (a forward pass reading the weights being replaced).
-    stream.wait_stream(torch.cuda.current_stream(dst.device))
-    bounce = [torch.empty(step, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
-    events = [None, None]
-    with torch.cuda.stream(stream):
-        for i, lo in enumerate(range(0, data.size, step)):
-            hi = min(lo + step, data.size)
-            slot = i % 2
-            if events[slot] is not None:
-                events[slot].synchronize()
-            buf = bounce[slot][: hi - lo]
-            buf.numpy()[:] = data[lo:hi]
-            dst_bytes[lo:hi].copy_(buf, non_blocking=True)
-            events[slot] = torch.cuda.Event()
-            events[slot].record(stream)
-    for ev in events:
-        if ev is not None:
-            ev.synchronize()
+    if nbytes:
+        ctypes.memmove(dst.data_ptr(), view.ctypes.data, nbytes)
+
+
+# The staging slot a restore sends a contiguous run through to a card,
+# piece by piece (the JAX package's default chunk for its host→device
+# pieces).
+H2D_CHUNK_BYTES = 16 * 1024 * 1024
+
+
+_H2D_DEPTH_ENV_VAR = "TPUSNAPSHOT_H2D_DEPTH"
+_DEFAULT_H2D_DEPTH = 2
+_H2D_THREAD_PREFIX = "tpusnapshot-h2d"
+
+
+def h2d_depth() -> int:
+    return max(1, env_int(_H2D_DEPTH_ENV_VAR, _DEFAULT_H2D_DEPTH))
+
+
+def on_h2d_thread() -> bool:
+    """Whether the caller runs on an H2D pipeline worker."""
+    return threading.current_thread().name.startswith(_H2D_THREAD_PREFIX)
+
+
+class H2DPipeline:
+    """Depth-limited asynchronous host→device transfer engine.
+
+    Depth 2 is double buffering: one piece's bytes ride the link while
+    the next piece's read and verification proceed."""
+
+    def __init__(self, depth: Optional[int] = None) -> None:
+        self._pool = ThreadPoolExecutor(
+            max_workers=depth if depth is not None else h2d_depth(),
+            thread_name_prefix=_H2D_THREAD_PREFIX,
+        )
+
+    def submit(
+        self,
+        src: Any,
+        dst: torch.Tensor,
+        profile: Optional[_cprof.ConsumeProfile] = None,
+        ready: Optional[torch.cuda.Event] = None,
+        then: Optional[Callable[[], None]] = None,
+        lease: Optional[staging_pool.StagingLease] = None,
+    ) -> "Future[None]":
+        """Schedule ``dst.copy_(src)``: ``src`` a host tensor (pinned for
+        a CUDA ``dst``; for a CPU ``dst`` also a numpy array of its
+        bytes), ``dst`` a tensor of the same shape on the target device.
+        Returns a future that resolves AFTER the bytes have landed, and
+        carries any exception: callers surface it before they publish
+        anything.
+
+        For a CUDA ``dst`` the worker copies on its own side stream, after
+        ``ready`` (an event recorded after the work that produced or last
+        used ``dst``; recorded now on the device's current stream if
+        None), then runs ``then`` (more work on that stream: an on-card
+        scatter of the landed bytes). The copy is issued blocking: one
+        call that queues the DMA and synchronizes the side stream, where
+        a non-blocking copy, an event record and its synchronize would be
+        three, each giving up and retaking the GIL, which under a
+        restore's load costs milliseconds a time. The ``lease`` that
+        holds ``src`` is held from now until the copy has completed, so
+        the pool never hands the buffer on mid-DMA."""
+        nbytes = src.nbytes if isinstance(src, np.ndarray) else src.numel() * src.element_size()
+        if dst.is_cuda and ready is None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dst.device))
+        if lease is not None:
+            lease.hold()
+
+        def _transfer() -> None:
+            try:
+                with _cprof.overlap_span(profile, nbytes):
+                    if not dst.is_cuda:
+                        if not isinstance(src, np.ndarray):
+                            dst.copy_(src)
+                        elif src.flags.c_contiguous and dst.is_contiguous():
+                            host_copy(dst, src)
+                        else:
+                            dst.numpy()[...] = src
+                        if then is not None:
+                            then()
+                        return
+                    if torch.cuda.current_device() != dst.device.index:
+                        torch.cuda.set_device(dst.device)
+                    stream = _side_stream(dst.device)
+                    with torch.cuda.stream(stream):
+                        # query() keeps the GIL; wait_event gives it up.
+                        if not ready.query():
+                            stream.wait_event(ready)
+                        dst.copy_(src)
+                        if then is not None:
+                            then()
+                            stream.synchronize()
+            finally:
+                if lease is not None:
+                    lease.drop()
+
+        try:
+            return self._pool.submit(_transfer)
+        except BaseException:
+            if lease is not None:
+                lease.drop()
+            raise
+
+
+_h2d_pipeline: Optional[H2DPipeline] = None
+_h2d_pipeline_lock = threading.Lock()
+
+
+def h2d_pipeline() -> H2DPipeline:
+    """The process-wide H2D pipeline (its depth read once)."""
+    global _h2d_pipeline
+    with _h2d_pipeline_lock:
+        if _h2d_pipeline is None:
+            _h2d_pipeline = H2DPipeline()
+        return _h2d_pipeline
+
+
+def _reset_h2d_pipeline_for_tests() -> None:
+    global _h2d_pipeline
+    with _h2d_pipeline_lock:
+        _h2d_pipeline = None
 
 
 def is_oom_error(exc: BaseException) -> bool:

@@ -5,26 +5,39 @@ per-process host-memory budget:
 
 - write: ``stage_buffer`` (device→host copy + checksum, thread executor)
   → ``storage.write``;
-- read: ``storage.read`` → ``consume_buffer`` (checksum + host→device
-  copy, thread executor).
+- read: ``storage.read`` → ``consume_buffer`` (checksum, staging and the
+  submit of host→device copies to the H2D pipeline, thread executor).
 
 Budget accounting: a write charges its staging cost at dispatch,
 re-credits ``cost − len(buf)`` when staging ends and ``len(buf)`` when the
-write lands; a read charges its consuming cost at dispatch and re-credits
-it after the consume. At least one request is always in flight regardless
-of budget, so a single over-budget buffer cannot deadlock the pipeline.
+write lands. A read charges its consuming cost at dispatch and re-credits
+it after the consume, except the consumer's *deferred* part (a split
+read's shared assembly buffer; a payload the H2D pipeline still reads),
+which the consumer re-credits through a releaser when the allocation is
+actually freed. Pooled staging buffers bind that releaser to their lease,
+which fires it exactly once. Releases may arrive from pipeline threads,
+so the read budget is a locked :class:`_BudgetCell`.
+
+A second budget bounds the DEVICE bytes that in-flight consumes hold
+(a leaf's private landing buffer until it is published, a region landed
+whole for an on-card scatter): consume dispatch waits while it is spent.
+
+At least one request is always in flight regardless of budget, so a
+single over-budget buffer cannot deadlock the pipeline.
 """
 
 import asyncio
 import logging
 import os
 import socket
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 from .io_types import IOReq, ReadReq, StoragePlugin, WriteReq, io_payload
+from .telemetry import consume_profile as _cprof
 
 logger = logging.getLogger(__name__)
 
@@ -130,63 +143,223 @@ async def execute_write_reqs(
     return bytes_written
 
 
+class _BudgetCell:
+    """A budget shared with consumers that hold deferred reservations:
+    ``release`` re-credits when the backing allocation is freed, from any
+    thread. Counts its charges and releases for the force-admit grace."""
+
+    __slots__ = ("value", "low", "_lock", "_charges", "_releases")
+
+    def __init__(self, value: int) -> None:
+        self.value = value
+        self.low = value
+        self._lock = threading.Lock()
+        self._charges = 0
+        self._releases = 0
+
+    def charge(self, nbytes: int) -> None:
+        with self._lock:
+            self.value -= nbytes
+            self.low = min(self.low, self.value)
+            self._charges += 1
+
+    def release(self, nbytes: int) -> None:
+        with self._lock:
+            self.value += nbytes
+            self._releases += 1
+
+    def charge_count(self) -> int:
+        with self._lock:
+            return self._charges
+
+    def release_count(self) -> int:
+        with self._lock:
+            return self._releases
+
+
+# Force-admission grace: when nothing is in flight on the event loop but
+# the head still does not fit the budget, a completed consume's deferred
+# release may still be riding a pipeline thread the OS has not scheduled
+# yet. Wait this long for such a straggler before force-admitting.
+_FORCE_ADMIT_GRACE_S = 0.5
+_FORCE_ADMIT_POLL_S = 0.005
+
+
+async def _straggler_release_landed(cell: _BudgetCell) -> bool:
+    """Wait up to the grace window for ANY release on ``cell``; True means
+    one landed and the caller should rescan under the refreshed budget."""
+    if cell.charge_count() == 0:
+        # Nothing was ever charged, so no release can be in flight.
+        return False
+    baseline = cell.release_count()
+    deadline = time.monotonic() + _FORCE_ADMIT_GRACE_S
+    while time.monotonic() < deadline:
+        await asyncio.sleep(_FORCE_ADMIT_POLL_S)
+        if cell.release_count() != baseline:
+            return True
+    return cell.release_count() != baseline
+
+
+def _observe(ops: Dict[str, Dict[str, Any]], op: str, seconds: float, nbytes: int) -> None:
+    agg = ops.setdefault(op, {"count": 0, "seconds": 0.0, "bytes": 0})
+    agg["count"] += 1
+    agg["seconds"] += seconds
+    agg["bytes"] += nbytes
+
+
 async def execute_read_reqs(
     read_reqs: List[ReadReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
+    device_budget_bytes: Optional[int] = None,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> int:
-    """Run the read→consume pipeline; returns total bytes read. The
-    largest objects go first, so one big object does not gate the tail
-    alone."""
+    """Run the read→consume pipeline; returns total bytes read.
+
+    The largest LOGICAL objects go first (``sort_key_bytes``, else the
+    consuming cost), so one big object does not gate the tail alone; a
+    split object's sub-reads share one key and stay together in order.
+
+    ``device_budget_bytes`` bounds the device bytes held by in-flight
+    consumes (:meth:`BufferConsumer.get_device_cost_bytes`); None is
+    unbounded. A consume that does not fit waits, while consumes behind
+    it that fit go ahead; with nothing in flight the head is admitted
+    anyway, so the overrun is bounded by one consume's device bytes.
+
+    ``stats`` (optional) accumulates this run's numbers: bytes, per-op
+    count/seconds/bytes (``read``, ``consume``), the seconds dispatch
+    waited on a budget, and both budgets' high-water marks.
+    """
     begin = time.monotonic()
-    pending = deque(
-        sorted(
-            read_reqs, key=lambda r: -r.buffer_consumer.get_consuming_cost_bytes()
-        )
-    )
+
+    def _sort_bytes(r: ReadReq) -> int:
+        key = r.buffer_consumer.sort_key_bytes
+        return key if key is not None else r.buffer_consumer.get_consuming_cost_bytes()
+
+    pending = deque(sorted(read_reqs, key=lambda r: -_sort_bytes(r)))
     reading: Dict[asyncio.Task, Tuple[ReadReq, int]] = {}
+    # Completed reads waiting for their consume: (req, buf, refund, ready_t).
+    consumable: deque = deque()
     consuming: Dict[asyncio.Task, int] = {}
-    budget = memory_budget_bytes
+    profile = _cprof.current()
+    budget = _BudgetCell(memory_budget_bytes)
+    device_budget = _BudgetCell(
+        device_budget_bytes if device_budget_bytes is not None else 1 << 62
+    )
+    ops: Dict[str, Dict[str, Any]] = {}
+    stall_s = 0.0
     bytes_read = 0
     executor = ThreadPoolExecutor(max_workers=_MAX_STAGING_THREADS)
 
     async def _read(rr: ReadReq) -> IOReq:
         io_req = IOReq(path=rr.path, byte_range=rr.byte_range)
+        t0 = time.monotonic()
         await storage.read(io_req)
+        _observe(ops, "read", time.monotonic() - t0, len(io_payload(io_req)))
         return io_req
 
+    async def _consume(rr: ReadReq, buf: Any) -> None:
+        t0 = time.monotonic()
+        await rr.buffer_consumer.consume_buffer(buf, executor)
+        _observe(ops, "consume", time.monotonic() - t0, len(buf))
+
     try:
-        while pending or reading or consuming:
+        while pending or reading or consumable or consuming:
+            blocked = False
             while pending and len(reading) < storage.max_read_concurrency:
-                cost = pending[0].buffer_consumer.get_consuming_cost_bytes()
-                nothing_in_flight = not (reading or consuming)
-                if budget < cost and not nothing_in_flight:
+                consumer = pending[0].buffer_consumer
+                cost = consumer.get_consuming_cost_bytes()
+                nothing_in_flight = not (reading or consumable or consuming)
+                if budget.value < cost and nothing_in_flight:
+                    # A deferred release may still be on its way from a
+                    # pipeline thread: give it the grace before forcing.
+                    while budget.value < cost and await _straggler_release_landed(budget):
+                        pass
+                if budget.value < cost and not nothing_in_flight:
+                    blocked = True
                     break
                 rr = pending.popleft()
-                budget -= cost
-                reading[asyncio.ensure_future(_read(rr))] = (rr, cost)
-            done, _ = await asyncio.wait(
-                set(reading) | set(consuming),
-                return_when=asyncio.FIRST_COMPLETED,
-            )
+                # Re-credited when the consume completes, except the
+                # deferred part, which the consumer's releaser returns.
+                budget.charge(cost)
+                deferred = consumer.get_deferred_cost_bytes()
+                if deferred:
+                    consumer.set_cost_releaser(budget.release)
+                reading[asyncio.ensure_future(_read(rr))] = (rr, cost - deferred)
+
+            # Consume dispatch under the device budget. The scan skips
+            # past blocked entries: a consume waiting for device bytes
+            # must not hold back consumes that need none, whose progress
+            # is what frees budget.
+            while consumable:
+                pick = None
+                for i, (rr, _buf, _refund, _ready_t) in enumerate(consumable):
+                    dcost = rr.buffer_consumer.get_device_cost_bytes()
+                    if not dcost or device_budget.value >= dcost:
+                        pick = i
+                        break
+                if pick is None:
+                    if reading or consuming:
+                        blocked = True
+                        break
+                    if await _straggler_release_landed(device_budget):
+                        continue
+                    pick = 0
+                rr, buf, refund, ready_t = consumable[pick]
+                del consumable[pick]
+                if profile is not None:
+                    profile.note("read_wait", time.monotonic() - ready_t, len(buf))
+                dcost = rr.buffer_consumer.get_device_cost_bytes()
+                if dcost:
+                    device_budget.charge(dcost)
+                    rr.buffer_consumer.set_device_cost_releaser(device_budget.release)
+                consuming[asyncio.ensure_future(_consume(rr, buf))] = refund
+
+            in_flight = set(reading) | set(consuming)
+            if not in_flight:
+                continue
+            wait_t0 = time.monotonic()
+            done, _ = await asyncio.wait(in_flight, return_when=asyncio.FIRST_COMPLETED)
+            if blocked:
+                # Work was ready but a budget said no: the time until the
+                # next completion is budget stall.
+                stall_s += time.monotonic() - wait_t0
             for task in done:
                 if task in reading:
-                    rr, cost = reading.pop(task)
+                    rr, refund = reading.pop(task)
                     buf = io_payload(task.result())
                     bytes_read += len(buf)
-                    consume = rr.buffer_consumer.consume_buffer(buf, executor)
-                    consuming[asyncio.ensure_future(consume)] = cost
+                    consumable.append((rr, buf, refund, time.monotonic()))
                 else:
-                    cost = consuming.pop(task)
+                    refund = consuming.pop(task)
                     task.result()  # propagate consume errors
-                    budget += cost
+                    budget.release(refund)
     finally:
-        executor.shutdown(wait=False)
-    logger.info(
-        "Rank %d loaded %d bytes in %.3f s",
-        rank,
-        bytes_read,
-        time.monotonic() - begin,
-    )
+        for task in list(reading) + list(consuming):
+            task.cancel()
+        # After a failure, let the consumes already running finish (they
+        # may still submit transfers the caller must wait out) and drop
+        # the queued ones.
+        executor.shutdown(wait=True, cancel_futures=True)
+    elapsed = time.monotonic() - begin
+    if stats is not None:
+        stats["bytes"] = stats.get("bytes", 0) + bytes_read
+        stats["seconds"] = stats.get("seconds", 0.0) + elapsed
+        stats["stall_s"] = stats.get("stall_s", 0.0) + stall_s
+        stats["budget_high_water_bytes"] = max(
+            stats.get("budget_high_water_bytes", 0), memory_budget_bytes - budget.low
+        )
+        if device_budget_bytes is not None:
+            stats["device_budget_bytes"] = device_budget_bytes
+            stats["device_high_water_bytes"] = max(
+                stats.get("device_high_water_bytes", 0),
+                device_budget_bytes - device_budget.low,
+            )
+        out = stats.setdefault("ops", {})
+        for op, agg in ops.items():
+            acc = out.setdefault(op, {"count": 0, "seconds": 0.0, "bytes": 0})
+            for k in acc:
+                acc[k] += agg[k]
+    logger.info("Rank %d loaded %d bytes in %.3f s", rank, bytes_read, elapsed)
     return bytes_read

@@ -121,3 +121,18 @@ def verify_checksum(buf: Any, expected: Optional[str]) -> None:
             f"Checksum mismatch: stored object is corrupt "
             f"(expected {expected}, got {actual})."
         )
+
+
+class StreamingCrc32:
+    """Incremental crc32 producing the same ``crc32:<hex>`` tag as
+    :func:`compute_checksum`, for verifying a payload piece by piece in
+    stream order."""
+
+    def __init__(self) -> None:
+        self._crc = 0
+
+    def update(self, chunk: Any) -> None:
+        self._crc = zlib.crc32(chunk, self._crc)
+
+    def tag(self) -> str:
+        return f"crc32:{self._crc & 0xFFFFFFFF:08x}"

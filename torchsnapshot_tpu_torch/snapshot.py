@@ -26,10 +26,17 @@ on the rank that saved it.
 and the RNG stateful last. An array restores onto the device of its
 template tensor, a DTensor template takes its local box. When the
 template's device, dtype, shape and layout match the stored array (the
-box), the bytes are copied **into the template tensor in place**
-(host→device through pinned bounce buffers), so restoring a model onto
-the card holds one copy of its state there, not two; the restored state
-dict then holds the template tensors themselves.
+box), the bytes go **into the template tensor in place**, so the
+restored state dict holds the template tensors themselves. Each leaf is
+published whole: a leaf of one verified whole-object read that reaches
+the template in one transfer (on a card, at most one 16 MiB staging
+slot) lands in the template directly, any other leaf in a private buffer
+on the template's device that is copied into the template once all of
+its bytes have verified and landed (``io_preparer.py``). A failed restore raises and
+leaves every leaf it did not finish with its old values. The reads run
+through the scheduler's host and device budgets and the H2D pipeline
+(pinned pooled staging buffers); the consume profile of the last
+restore is kept in ``_last_restore_report``.
 
 ``async_take`` captures the same cut before it returns and drains it on
 a background thread. Tensors are mutable, so the cut must be complete in
@@ -69,7 +76,13 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from .coord import Coordinator, barrier_compat, get_coordinator, get_rank
 from .flatten import flatten, inflate
-from .io_preparer import device_clone_write_reqs, prepare_read, prepare_write
+from .io_preparer import (
+    ArrayRestorePlan,
+    device_clone_write_reqs,
+    get_device_restore_budget_bytes,
+    prepare_read,
+    prepare_write,
+)
 from .io_types import (
     BufferStager,
     IOReq,
@@ -101,6 +114,7 @@ from .scheduler import (
 )
 from .stateful import AppState, Stateful
 from .storage_plugin import resolve_base_ref, url_to_storage_plugin
+from .telemetry import consume_profile as _cprof
 from .utils.env import env_int
 
 logger = logging.getLogger(__name__)
@@ -110,6 +124,12 @@ logger = logging.getLogger(__name__)
 FORMAT_VERSION = "0.4.0"
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
+
+# The last restore's (or read_object's) consume profile and read-pipeline
+# numbers (:func:`_set_restore_report`). The JAX package hands this block to
+# its flight recorder; the port has no recorder yet, so it is kept here
+# for a caller to read (chip_smoke.py prints it).
+_last_restore_report: Optional[Dict[str, Any]] = None
 
 
 class Snapshot:
@@ -320,6 +340,8 @@ class Snapshot:
         coordinator = get_coordinator(coord if coord is not None else self._coord)
         rank = coordinator.get_rank()
         storage = url_to_storage_plugin(self.path)
+        token = _cprof.begin()
+        stats: Dict[str, Any] = {}
         try:
             metadata = self._read_metadata(storage)
             available = get_available_entries(metadata.manifest, rank)
@@ -333,15 +355,16 @@ class Snapshot:
             for key in global_keys:
                 if key in app_state:
                     _load_stateful(
-                        key, app_state[key], available, storage, rank, budget, worlds
+                        key, app_state[key], available, storage, rank, budget, worlds, stats
                     )
                 coordinator.barrier()
             if rng_stateful is not None:
                 _load_stateful(
-                    rng_key, rng_stateful, available, storage, rank, budget, worlds
+                    rng_key, rng_stateful, available, storage, rank, budget, worlds, stats
                 )
         finally:
             storage.close()
+            _set_restore_report(token, stats)
 
     def read_object(
         self, logical_path: str, template: Any = None, rank: Optional[int] = None
@@ -356,6 +379,8 @@ class Snapshot:
         if rank is None:
             rank = get_rank(self._coord)
         storage = url_to_storage_plugin(self.path)
+        token = _cprof.begin()
+        stats: Dict[str, Any] = {}
         try:
             available = get_available_entries(
                 self._read_metadata(storage).manifest, rank
@@ -372,10 +397,8 @@ class Snapshot:
             entry = available[logical_path]
             if not isinstance(entry, (ListEntry, DictEntry)):
                 result: Dict[str, Any] = {}
-                reqs, finalizers = prepare_read(
-                    entry, template, lambda v: result.update(v=v)
-                )
-                _run_reads(reqs, finalizers, storage, rank, get_memory_budget_bytes())
+                reqs, plans = prepare_read(entry, template, lambda v: result.update(v=v))
+                _run_reads(reqs, plans, storage, rank, get_memory_budget_bytes(), stats)
                 return result["v"]
             if template is not None:
                 raise ValueError(
@@ -387,7 +410,7 @@ class Snapshot:
             containers: Manifest = {}
             flattened: Dict[str, Any] = {}
             reqs: List[ReadReq] = []
-            finalizers: List[Callable[[], None]] = []
+            plans: List[ArrayRestorePlan] = []
             for p, e in available.items():
                 if p != logical_path and not p.startswith(prefix):
                     continue
@@ -400,11 +423,12 @@ class Snapshot:
 
                 r, f = prepare_read(e, None, _cb)
                 reqs.extend(r)
-                finalizers.extend(f)
-            _run_reads(reqs, finalizers, storage, rank, get_memory_budget_bytes())
+                plans.extend(f)
+            _run_reads(reqs, plans, storage, rank, get_memory_budget_bytes(), stats)
             return inflate(containers, flattened, prefix=logical_path)
         finally:
             storage.close()
+            _set_restore_report(token, stats)
 
     def get_manifest(self) -> Manifest:
         """The merged manifest of all ranks (inspection API)."""
@@ -627,14 +651,52 @@ def _save_stateful(
 
 def _run_reads(
     reqs: List[ReadReq],
-    finalizers: List[Callable[[], None]],
+    plans: List[ArrayRestorePlan],
     storage: StoragePlugin,
     rank: int,
     budget: int,
+    stats: Dict[str, Any],
 ) -> None:
-    asyncio.run(execute_read_reqs(reqs, storage, budget, rank))
-    for finalize in finalizers:
-        finalize()
+    """Run the reads, then publish the array plans. Every plan's transfer
+    failure surfaces before any remaining finalize publishes; after a
+    failure no transfer is left writing when the error propagates."""
+    cuda = [p.region.device for p in plans if p.region.is_cuda]
+    device_budget = get_device_restore_budget_bytes(cuda[0] if cuda else None)
+    try:
+        asyncio.run(
+            execute_read_reqs(
+                reqs, storage, budget, rank, device_budget_bytes=device_budget, stats=stats
+            )
+        )
+        for plan in plans:
+            plan.await_pipeline()
+    except BaseException:
+        for plan in plans:
+            plan.settle()
+        raise
+    for plan in plans:
+        plan.finalize()
+    stats["region_bytes"] = stats.get("region_bytes", 0) + sum(p.region.nbytes for p in plans)
+    stats["streamed_bytes"] = stats.get("streamed_bytes", 0) + sum(p.streamed_bytes for p in plans)
+    stats["private_bytes"] = stats.get("private_bytes", 0) + sum(
+        p.region.nbytes for p in plans if not p.region.direct
+    )
+
+
+def _set_restore_report(token: Any, stats: Dict[str, Any]) -> None:
+    """Close the consume-profile scope; keep its block, with the read
+    pipeline's numbers, in ``_last_restore_report``."""
+    global _last_restore_report
+    consume = stats.get("ops", {}).get("consume", {})
+    block = _cprof.collect(token, consume_s=consume.get("seconds", 0.0))
+    if block is None:
+        return
+    block["bytes"] = consume.get("bytes", 0)
+    block["scheduler"] = stats
+    overlap = block["substeps"].get("h2d_overlap")
+    if overlap and overlap["seconds"] > 0:
+        block["h2d_overlap_gbps"] = overlap["bytes"] / 1e9 / overlap["seconds"]
+    _last_restore_report = block
 
 
 def _load_stateful(
@@ -645,6 +707,7 @@ def _load_stateful(
     rank: int,
     budget: int,
     worlds: Tuple[int, int],
+    stats: Dict[str, Any],
 ) -> None:
     # The template state dict supplies the devices, dtypes and shapes the
     # restored values land in (and, when they match, the tensors).
@@ -653,7 +716,7 @@ def _load_stateful(
     # from a JAX-package snapshot; they then keep their current state.
     optional = isinstance(stateful, RNGState)
     reqs: List[ReadReq] = []
-    finalizers: List[Callable[[], None]] = []
+    plans: List[ArrayRestorePlan] = []
     for logical_path, template in list(flattened.items()):
         if logical_path not in available:
             if optional:
@@ -674,8 +737,8 @@ def _load_stateful(
 
         r, f = prepare_read(available[logical_path], template, _callback)
         reqs.extend(r)
-        finalizers.extend(f)
-    _run_reads(reqs, finalizers, storage, rank, budget)
+        plans.extend(f)
+    _run_reads(reqs, plans, storage, rank, budget, stats)
 
     # Prefer the snapshot's container entries so saved structure (dict key
     # sets) round-trips; fall back to the template's for the rest.
