@@ -27,6 +27,17 @@ Phases, each printing JSON lines to stdout:
    plain backward with the same delta' = rowsum(dO·O) − dlse.
 5. transfer — pinned device→host and host→device copy rates over 1 GiB,
    and the rate at which fresh host memory is pinned.
+5b. kernel_fingerprint — the xs128 kernels K4 (one tensor, or a box of
+   it read as runs in place) and K5 (per chunk) against their plain
+   versions, run on the card, and the host fingerprint, bit for bit, at
+   177 cases (nine dtypes from bool to f64, empty and odd lengths, 1-byte
+   views at odd offsets, boxes along either dim, chunk sizes that do not
+   divide), each launched twice; then their times at the 40.96 MB w1,
+   the 321.6 MB embed and the 387 leaves of the state, beside the byte
+   bound, the integer bound (the busier pipe's SASS instructions of the
+   main loop, from ``cuobjdump``), the plain version's time and
+   ``x.view(torch.int32).sum()`` over the same bytes as an HBM yardstick
+   (no PyTorch call computes xs128).
 6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
    float32 parameters, 6.23 GB): a forward pass on 4 requests of 1024
    tokens through the flash kernel; ``Snapshot.take`` of the model, a
@@ -45,6 +56,19 @@ Phases, each printing JSON lines to stdout:
    third at an 8 MiB read threshold, where every attention and MLP weight
    streams (leaves byte-equal, logits bit-identical). Then the flash
    forward is held against the einsum forward on a short input.
+6a. dedup — on the main path's model (GPT-2 XL widths, 387 leaves,
+   6.23 GB): a full take with fingerprints, an incremental take of the
+   unchanged state (0 array bytes written, 0 bytes device→host, one K4
+   launch a leaf), an in-place change to two whole layers and the first
+   1,000 rows of ``embed``, an incremental take writing exactly those 17
+   leaves, a ``verify_device=True`` restore into a fresh model with
+   bit-identical logits; three ``chunks=True`` takes (the state; the
+   unchanged state, 0 chunk objects; after the same change again, exactly
+   the touched chunks of the 4 MiB grid), a restore of the last with
+   bit-identical logits, and deletes of the middle (every chunk shared:
+   none freed) and the first (its exclusive chunks freed). Each take
+   prints its seconds, payload bytes and objects written, chunk objects
+   stored, bytes copied to the host and the K4/K5 milliseconds within it.
 6b. torn leaf — a copy of a small chunked snapshot with one corrupt
    chunk, then an injected failure of an H2D pipeline transfer, then a
    20 MiB single-object leaf (two staging-slot transfers) whose second
@@ -94,7 +118,8 @@ Phases, each printing JSON lines to stdout:
     1280, 20 heads, 36 layers, n_inner 5120: GPT-2 XL's 25 heads do not
     divide by sp 2), with Ulysses all-to-all attention through the flash
     kernels (36 launches of each a step).
-11. kernels — one JSON line summarising every kernel of the paths.
+11. kernels — one JSON line summarising every kernel of the paths (K4
+    and K5 with their launches on the dedup path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -108,6 +133,7 @@ claims no bit-identity and turns them off.
 
 import ctypes
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -131,6 +157,7 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
     StateDict,
 )
 from torchsnapshot_tpu_torch import io_preparer, staging_pool  # noqa: E402
+from torchsnapshot_tpu_torch.io_types import io_payload  # noqa: E402
 from torchsnapshot_tpu_torch import snapshot as snapshot_mod  # noqa: E402
 from torchsnapshot_tpu_torch.manifest import ArrayEntry  # noqa: E402
 from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
@@ -143,7 +170,7 @@ from torchsnapshot_tpu_torch.storage_plugins import fs as fs_plugin  # noqa: E40
 from torchsnapshot_tpu_torch.utils.test_utils import run_multiprocess  # noqa: E402
 from torchsnapshot_tpu_torch.utils.train_state import PytreeStateful  # noqa: E402
 
-KERNELS = ["flash_fwd", "flash_bwd"]
+KERNELS = ["flash_fwd", "flash_bwd", "fingerprint"]
 
 # NVIDIA H100 SXM data sheet, dense tensor-core rates: 989 TFLOP/s for
 # bf16 and f16; 495 TFLOP/s for TF32. An f32-accurate product is at least
@@ -466,6 +493,466 @@ def phase_kernel_bwd():
     return results
 
 
+# xs128 (K4, K5). The payload bytes are read once; each u32 word costs
+# about forty integer instructions for the four lanes (the SASS loop is
+# counted at run time). They issue on two pipes of 64 lanes an SM each
+# (132 SMs at the 1.98 GHz boost clock of the data sheet, whose 67
+# TFLOP/s f32 is 128 lanes × 2): IMAD, IMUL and VIADD on the FMA pipe,
+# the shifts, LOP3s, adds and the rest on the integer ALU pipe. The
+# integer bound is the busier pipe's instructions at 64 lanes × 132 SMs
+# × 1.98e9 a second.
+PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP_SOURCE_OPS_PER_WORD = 40
+FP_FMA_PIPE = ("IMAD", "IMUL", "VIADD")
+FP_CHUNK_BYTES = 4 << 20  # the chunk store's default grid
+FP_DTYPES = [torch.bool, torch.int8, torch.uint8, torch.float16, torch.bfloat16,
+             torch.float32, torch.int32, torch.int64, torch.float64]
+
+
+def _sass_ops_per_word():
+    """Instructions in the main loop of the 16-byte-load K4/K5 kernel,
+    from ``cuobjdump -sass`` of the built library, per u32 word (the loop
+    handles four words). None where cuobjdump is missing or no loop is
+    found."""
+    import re
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(build._library_path("fingerprint"))
+    try:
+        sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    best = None
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        if "xs128_kernel" not in name or "ILi0E" not in name:
+            continue
+        addr_of, labels, instrs = {}, {}, []
+        pending = []
+        for line in body.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            instrs.append((addr, m.group(2).strip()))
+        for addr, text in instrs:
+            if "BRA" not in text:
+                continue
+            t = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
+            if not t:
+                continue
+            target = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
+            if target is None or target >= addr:
+                continue
+            loop = [x for a, x in instrs if target <= a <= addr and not x.startswith("NOP")]
+            if any("LDG" in x and ".128" in x for x in loop):
+                ops = {}
+                for x in loop:
+                    op = x.split()[0] if not x.startswith("@") else x.split()[1]
+                    ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+                fma = sum(n for op, n in ops.items() if op in FP_FMA_PIPE)
+                alu = sum(n for op, n in ops.items() if op not in FP_FMA_PIPE and op != "BRA")
+                cand = {"kernel": name.strip(), "loop_instructions": len(loop),
+                        "ops_per_word": len(loop) / 4, "fma_pipe_per_word": fma / 4,
+                        "alu_pipe_per_word": alu / 4, "opcodes": ops}
+                if best is None or cand["loop_instructions"] > best["loop_instructions"]:
+                    best = cand
+    return best
+
+
+def _fp_bound(nbytes, ops_per_word):
+    """(bound ms, "bytes" or "operations", byte ms, integer ms)."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = math.ceil(nbytes / 4) * ops_per_word / PEAK_INT32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes", bytes_ms, ops_ms)
+
+
+def _lanes_err(a, b):
+    """Largest |a - b| over the u32 lanes of two int32 result tensors."""
+    ua = a.cpu().numpy().view("uint32").astype("int64")
+    ub = b.cpu().numpy().view("uint32").astype("int64")
+    return int(abs(ua - ub).max()) if ua.size else 0
+
+
+def phase_kernel_fingerprint():
+    """K4 and K5 against their plain versions (run on the card) and the
+    host twins, bit for bit, at every dtype of the tests and their edges
+    (empty, odd lengths, 1-byte views at odd offsets, one-dim boxes, a
+    chunk size that does not divide), each launched twice; then their
+    times at the dedup path's shapes beside both bounds, the plain
+    version's time and the int32-sum HBM reference, the wrappers' results
+    there held bit for bit against the plain versions too."""
+    from torchsnapshot_tpu_torch import fingerprint as fp
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    cases, worst = 0, 0
+    failures = []
+
+    def check(name, x, box=None, chunk_bytes=None):
+        nonlocal cases, worst
+        host = (x if box is None else x[tuple(slice(a, b) for a, b in box)]).contiguous().cpu()
+        if chunk_bytes is None:
+            outs = [fops.fingerprint_box(x, box) for _ in range(2)]
+            plain = fops.fingerprint_box_reference(x, box)
+            want = [fp.fingerprint_host(host)]
+            got = [fp.resolve_fingerprints([o])[0] for o in outs]
+        else:
+            outs = [fops.fingerprint_chunked(x, chunk_bytes) for _ in range(2)]
+            plain = fops.fingerprint_chunked_reference(x, chunk_bytes)
+            want = fp.fingerprint_host_chunked(host, chunk_bytes)
+            got = [fp.resolve_chunk_fingerprints([o])[0] for o in outs]
+        torch.cuda.synchronize()
+        err = max(_lanes_err(o, plain) for o in outs)
+        worst = max(worst, err)
+        cases += 1
+        if err or got[0] != got[-1] or (got[0] != want[0] if chunk_bytes is None else got[0] != want):
+            failures.append(name)
+
+    for dtype in FP_DTYPES:
+        for n in (0, 1, 3, 13, 4097, (1 << 20) + 3):
+            if dtype == torch.bool:
+                x = torch.rand(n, generator=gen, device="cuda") > 0.5
+            elif dtype.is_floating_point:
+                x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            else:
+                x = torch.randint(-100, 100, (n,), generator=gen, device="cuda").to(dtype)
+            check(f"k4_{dtype}_{n}", x)
+            for cb in (12, 4096):
+                check(f"k5_{dtype}_{n}_{cb}", x, chunk_bytes=cb)
+    base = torch.randint(-100, 100, (100003,), generator=gen, device="cuda").to(torch.int8)
+    for offset in (1, 2, 3):
+        check(f"k4_offset_{offset}", base[offset:])
+        check(f"k5_offset_{offset}", base[offset:], chunk_bytes=4096)
+    for dtype in (torch.float32, torch.float16, torch.int8):
+        m = torch.randn(64, 129, generator=gen, device="cuda").to(dtype)
+        for box in ([(3, 40), (0, 129)], [(0, 64), (5, 77)], [(0, 64), (1, 2)]):
+            check(f"k4_box_{dtype}_{box}", m, box=box)
+
+    sass = _sass_ops_per_word()
+    # The busier pipe's instructions a word; without SASS, the source's
+    # forty split evenly over the two pipes.
+    ops_per_word = (max(sass["fma_pipe_per_word"], sass["alu_pipe_per_word"]) if sass
+                    else FP_SOURCE_OPS_PER_WORD / 2)
+    shapes = {"w1": [(GPT2_XL.d_model, GPT2_XL.d_ff)], "embed": [(GPT2_XL.vocab_size, GPT2_XL.d_model)],
+              "state": _gpt2_xl_shapes(GPT2_XL)}
+    timings = {}
+    for name, leaf_shapes in shapes.items():
+        leaves = [torch.randn(s, generator=gen, device="cuda") for s in leaf_shapes]
+        nbytes = sum(t.numel() * 4 for t in leaves)
+        k4 = [fops.box_kernel_call(t)[0] for t in leaves]
+        k5 = [fops.chunked_kernel_call(t, FP_CHUNK_BYTES)[0] for t in leaves]
+        row = {"leaves": len(leaves), "bytes": nbytes,
+               "k4_ms": cuda_ms(lambda: [_checked(c()) for c in k4], 10),
+               "k5_ms": cuda_ms(lambda: [_checked(c()) for c in k5], 10),
+               "int32_sum_ms": cuda_ms(lambda: [t.view(torch.int32).sum() for t in leaves], 10)}
+        # The wrappers at the path's shapes, held bit for bit against the
+        # plain versions on the same leaves (whose time is taken on the way).
+        plain = {}
+        iters, warmup = (1, 0) if name == "state" else (3, 1)
+        row["k4_plain_ms"] = cuda_ms(
+            lambda: plain.update(k4=[fops.fingerprint_box_reference(t) for t in leaves]), iters, warmup)
+        row["k5_plain_ms"] = cuda_ms(
+            lambda: plain.update(k5=[fops.fingerprint_chunked_reference(t, FP_CHUNK_BYTES) for t in leaves]),
+            iters, warmup)
+        got4 = [fops.fingerprint_box(t) for t in leaves]
+        got5 = [fops.fingerprint_chunked(t, FP_CHUNK_BYTES) for t in leaves]
+        torch.cuda.synchronize()
+        row["k4_max_abs_err"] = max(_lanes_err(g, w) for g, w in zip(got4, plain["k4"]))
+        row["k5_max_abs_err"] = max(_lanes_err(g, w) for g, w in zip(got5, plain["k5"]))
+        cases += 2 * len(leaves)
+        worst = max(worst, row["k4_max_abs_err"], row["k5_max_abs_err"])
+        if row["k4_max_abs_err"] or row["k5_max_abs_err"]:
+            failures.append(f"path_shapes_{name}")
+        row["bound_ms"], row["bound_by"], row["bytes_bound_ms"], row["integer_bound_ms"] = _fp_bound(
+            nbytes, ops_per_word)
+        row["k4_gbps"] = nbytes / 1e6 / row["k4_ms"]
+        timings[name] = row
+        del leaves, k4, k5, plain, got4, got5
+        torch.cuda.empty_cache()
+    record = {"phase": "kernel_fingerprint", "cases": cases, "max_abs_err": worst,
+              "failures": failures, "sass": sass, "pipe_ops_per_word": ops_per_word,
+              "ops_per_word_source": "sass" if sass else "source count",
+              "peak_int32_ops_per_s": PEAK_INT32_OPS_PER_S, "timings": timings}
+    emit(record)
+    if failures or worst:
+        raise AssertionError(f"the fingerprint kernels disagree: {failures[:10]}, max err {worst}")
+    return record
+
+
+class _TakeMeter:
+    """What one take moved: payload bytes written and objects stored
+    (chunk objects apart), bytes copied device→host, and the device time
+    of the fingerprint kernels it launched (CUDA events around each)."""
+
+    def __init__(self):
+        from torchsnapshot_tpu_torch import chunkstore
+        from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+        self._patches = [
+            (fs_plugin.FSStoragePlugin, "write"),
+            (io_preparer, "device_to_host"),
+            (chunkstore, "device_to_host"),
+            (fops, "_run"),
+        ]
+        self._orig = [getattr(o, n) for o, n in self._patches]
+        self.reset()
+        meter = self
+        write, d2h_a, d2h_b, run = self._orig
+
+        async def counting_write(plugin, io_req):
+            n = len(io_payload(io_req))
+            if "objects/" in io_req.path:
+                meter.chunk_objects += 1
+                meter.chunk_bytes += n
+            elif not io_req.path.startswith((".snapshot_metadata", ".completed", "refs/", "intents/")):
+                meter.payload_bytes += n
+                meter.payload_objects += 1
+            return await write(plugin, io_req)
+
+        def counting_d2h(orig):
+            def d2h(src, ready=None):
+                meter.d2h_bytes += src.numel() * src.element_size()
+                return orig(src, ready)
+            return d2h
+
+        def timed_run(call, out, name):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(call, out, name)
+            end.record()
+            meter.events.append((name, start, end))
+
+        self._new = [counting_write, counting_d2h(d2h_a), counting_d2h(d2h_b), timed_run]
+
+    def reset(self):
+        self.payload_bytes = self.payload_objects = self.chunk_objects = 0
+        self.chunk_bytes = self.d2h_bytes = 0
+        self.events = []
+
+    def __enter__(self):
+        for (o, n), new in zip(self._patches, self._new):
+            setattr(o, n, new)
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n), old in zip(self._patches, self._orig):
+            setattr(o, n, old)
+
+    def take(self, record, key, fn):
+        self.reset()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        kernel_ms = {"xs128_box": 0.0, "xs128_chunked": 0.0}
+        for name, start, end in self.events:
+            kernel_ms[name] += start.elapsed_time(end)
+        record[key] = {
+            "seconds": seconds, "payload_bytes_written": self.payload_bytes,
+            "payload_objects_written": self.payload_objects, "chunk_objects_stored": self.chunk_objects,
+            "chunk_bytes_stored": self.chunk_bytes, "d2h_bytes": self.d2h_bytes,
+            "k4_ms": kernel_ms["xs128_box"], "k5_ms": kernel_ms["xs128_chunked"],
+            "k4_launches": sum(n == "xs128_box" for n, _, _ in self.events),
+            "k5_launches": sum(n == "xs128_chunked" for n, _, _ in self.events),
+        }
+        return result
+
+
+def _touched_chunks(leaf, rows):
+    """How many chunks of the chunk store's grid over ``leaf`` its first
+    ``rows`` rows (None: all of it) overlap; 0 for a leaf below the
+    store's size floor (written whole, unchunked)."""
+    from torchsnapshot_tpu_torch import chunkstore
+
+    itemsize = leaf.element_size()
+    if leaf.numel() * itemsize < chunkstore.chunk_min_bytes():
+        return 0
+    elems, n = chunkstore._chunk_grid(leaf.numel(), itemsize, chunkstore.chunk_bytes())
+    if rows is None:
+        return n
+    end = min(rows, leaf.shape[0]) * (leaf.numel() // leaf.shape[0])
+    return -(-end // elems)
+
+
+def _dedup_profile():
+    """The last restore's consume thread-seconds by sub-step, and the
+    bytes it streamed."""
+    block = snapshot_mod._last_restore_report
+    subs = block["substeps"]
+    out = {name: subs.get(name, {}).get("seconds", 0.0)
+           for name in ("read_wait", "decode", "verify", "reassemble", "pool_wait", "other", "h2d_overlap")}
+    out["streamed_bytes"] = block["scheduler"].get("streamed_bytes")
+    out["read_s"] = block["scheduler"].get("ops", {}).get("read", {}).get("seconds")
+    return out
+
+
+def phase_dedup(model, tokens):
+    """Deduplication at GPT-2 XL widths, full depth, f32 (387 leaves,
+    6.23 GB), on the main path's model: a full take with fingerprints; an
+    incremental take of the unchanged state (0 array bytes written, 0
+    bytes copied to the host, one K4 launch a leaf); an in-place change
+    to two whole layers and the first 1,000 rows of ``embed``; an
+    incremental take that writes exactly the changed leaves; a restore of
+    it into a fresh model with ``verify_device=True`` and bit-identical
+    logits. Then three ``chunks=True`` takes into one run (the state, the
+    unchanged state: 0 chunk objects, the state after the same change
+    again: exactly the touched chunks of the 4 MiB grid), a restore of the
+    last with bit-identical logits, and deletes of the middle (every
+    chunk shared: nothing freed) and the first (its exclusive chunks
+    freed, the last's kept)."""
+    from torchsnapshot_tpu_torch import chunkstore
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    cfg = GPT2_XL
+    params = model.params()
+    leaves = list(tf.param_leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dedup-")
+    free = shutil.disk_usage(workdir).free
+    if free < 2.5 * state_bytes:
+        shutil.rmtree(workdir)
+        raise RuntimeError(f"{workdir} has {free} bytes free; the dedup phase needs {2.5 * state_bytes:.0f}")
+    record = {"phase": "dedup", "model": "GPT-2 XL widths, f32", "leaves": len(leaves),
+              "state_bytes": state_bytes}
+    changed_layers = (10, 20)
+    embed_rows = 1000
+
+    def change():
+        with torch.no_grad():
+            for i in changed_layers:
+                for t in tf.param_leaves(params["layers"][i]):
+                    t.add_(1e-3)
+            params["embed"][:embed_rows].add_(1e-3)
+
+    changed = [t for i in changed_layers for t in tf.param_leaves(params["layers"][i])] + [params["embed"]]
+    predicted = sum(t.numel() * t.element_size() for t in changed)
+
+    def logits_of(m):
+        with torch.no_grad():
+            out = m(tokens)
+        torch.cuda.synchronize()
+        return out
+
+    def fresh_restore(path, **kwargs):
+        fresh = tf.Transformer.init(cfg, seed=1)
+        Snapshot(path).restore({"model": tf.TransformerState(fresh)}, **kwargs)
+        out = logits_of(fresh)
+        del fresh
+        return out
+
+    app = {"model": tf.TransformerState(model)}
+    inc = os.path.join(workdir, "inc")
+    ck = os.path.join(workdir, "ck")
+    try:
+        _reset_launch_counts()
+        with _TakeMeter() as meter:
+            full = meter.take(record, "full_take", lambda: Snapshot.take(
+                os.path.join(inc, "full"), app, fingerprint=True))
+            same = meter.take(record, "incremental_unchanged", lambda: Snapshot.take(
+                os.path.join(inc, "same"), app, base=full))
+            change()
+            logits_changed = logits_of(model)
+            meter.take(record, "incremental_changed", lambda: Snapshot.take(
+                os.path.join(inc, "changed"), app, base=same))
+            record["incremental_changed"]["predicted_bytes"] = predicted
+            record["incremental_changed"]["changed_leaves"] = len(changed)
+            begin = time.perf_counter()
+            k4_before = fops.fingerprint_box_launches
+            restored = fresh_restore(os.path.join(inc, "changed"), verify_device=True)
+            record["verify_device_restore_s"] = time.perf_counter() - begin
+            record["verify_device"] = {**snapshot_mod._last_verify_stats,
+                                       "k4_launches": fops.fingerprint_box_launches - k4_before}
+            record["verify_device_restore_profile"] = _dedup_profile()
+            record["verify_device_logits_bit_identical"] = bool(torch.equal(restored, logits_changed))
+            del restored
+
+            # Each chunk take launches K5 once a leaf above the store's size
+            # floor; the first also probes K5 once a dtype.
+            chunkstore._FP_AGREEMENT.clear()
+            eligible = [t for t in leaves if _touched_chunks(t, None)]
+            probes = len({t.dtype for t in eligible})
+            for step in (1, 2):
+                meter.take(record, f"chunk_take_{step}", lambda: Snapshot.take(
+                    os.path.join(ck, f"step-{step}"), app, chunks=True))
+            change()
+            logits_twice = logits_of(model)
+            touched = sum(_touched_chunks(t, None) for t in changed[:-1])
+            touched += _touched_chunks(params["embed"], embed_rows)
+            meter.take(record, "chunk_take_3", lambda: Snapshot.take(
+                os.path.join(ck, "step-3"), app, chunks=True))
+            record["chunk_take_3"]["predicted_chunks"] = touched
+            begin = time.perf_counter()
+            restored = fresh_restore(os.path.join(ck, "step-3"))
+            record["chunk_restore_s"] = time.perf_counter() - begin
+            record["chunk_restore_profile"] = _dedup_profile()
+            record["chunk_logits_bit_identical"] = bool(torch.equal(restored, logits_twice))
+            del restored
+        record["launches"] = {"xs128_box": fops.fingerprint_box_launches,
+                              "xs128_chunked": fops.fingerprint_chunked_launches}
+
+        def store_keys():
+            return {os.path.basename(p) for p in glob.glob(os.path.join(ck, ".chunkstore", "objects", "*", "*"))}
+
+        manifests = {s: Snapshot(os.path.join(ck, f"step-{s}")).get_manifest() for s in (1, 2, 3)}
+        keys = {s: chunkstore.chunk_keys_of(m) for s, m in manifests.items()}
+        record["chunked_leaves"] = {f"step-{s}": sum(bool(getattr(e, "chunks", None)) for e in m.values())
+                                    for s, m in manifests.items()}
+        record["eligible_leaves"], record["k5_probes"] = len(eligible), probes
+        before = store_keys()
+        Snapshot(os.path.join(ck, "step-2")).delete()
+        after_middle = store_keys()
+        Snapshot(os.path.join(ck, "step-1")).delete()
+        after_first = store_keys()
+        record["gc"] = {
+            "store_chunks": len(before), "after_deleting_middle": len(after_middle),
+            "after_deleting_first": len(after_first), "exclusive_to_first": len(keys[1] - keys[3]),
+            "last_snapshot_chunks": len(keys[3]),
+        }
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit(record)
+    n = len(leaves)
+    unchanged, changed_take = record["incremental_unchanged"], record["incremental_changed"]
+    gates = {
+        "full take fingerprints every leaf": record["full_take"]["k4_launches"] == n,
+        "unchanged take writes no array byte": unchanged["payload_bytes_written"] == 0,
+        "unchanged take copies no byte to the host": unchanged["d2h_bytes"] == 0,
+        "unchanged take launches K4 once a leaf": unchanged["k4_launches"] == n,
+        "changed take writes exactly the changed leaves": changed_take["payload_bytes_written"] == predicted
+        and changed_take["payload_objects_written"] == len(changed),
+        "verify_device restore is bit-identical": record["verify_device_logits_bit_identical"],
+        "verify_device verifies every leaf with K4": record["verify_device"]
+        == {"verified": n, "skipped": 0, "k4_launches": n},
+        "every chunk take chunks every eligible leaf": all(
+            c == len(eligible) for c in record["chunked_leaves"].values()),
+        "chunk takes launch K5 once an eligible leaf": [
+            record[f"chunk_take_{s}"]["k5_launches"] for s in (1, 2, 3)]
+        == [len(eligible) + probes, len(eligible), len(eligible)],
+        "first chunk take stores the state": record["chunk_take_1"]["chunk_bytes_stored"] > 0.99 * state_bytes,
+        "unchanged chunk take stores no chunk": record["chunk_take_2"]["chunk_objects_stored"] == 0,
+        "changed chunk take stores the touched chunks": record["chunk_take_3"]["chunk_objects_stored"] == touched,
+        "chunked restore is bit-identical": record["chunk_logits_bit_identical"],
+        "deleting the middle frees nothing shared": after_middle == before,
+        "deleting the first frees its exclusive chunks": after_first == keys[3]
+        and len(before) - len(after_first) == len(keys[1] - keys[3]),
+        "K4 and K5 ran on the path": all(record["launches"].values()),
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"dedup phase: {failed}")
+    return record
+
+
 def phase_transfer():
     nbytes = 1 << 30
     # Page-locking fresh host memory is part of a first take's cost: each
@@ -757,9 +1244,9 @@ def phase_main_path(h2d_pinned_gbps):
     if not err <= 1e-3 * max(1.0, scale):
         raise AssertionError(f"flash and einsum forwards differ by {err}")
     emit(record)
-    del model_a, model_b, logits_a
+    del model_b, logits_a
     torch.cuda.empty_cache()
-    return record
+    return record, model_a, tokens
 
 
 def phase_torn_leaf():
@@ -886,9 +1373,13 @@ def _launch_counts():
 
 
 def _reset_launch_counts():
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
     attention.flash_forward_launches = 0
     attention.flash_bwd_dq_launches = 0
     attention.flash_bwd_dkv_launches = 0
+    fops.fingerprint_box_launches = 0
+    fops.fingerprint_chunked_launches = 0
 
 
 def _peak_gb():
@@ -1546,7 +2037,11 @@ def main():
     flash = phase_kernel()
     flash_bwd = phase_kernel_bwd()
     transfer_record = phase_transfer()
-    main_path = phase_main_path(transfer_record["h2d_pinned_gbps"])
+    fingerprint = phase_kernel_fingerprint()
+    main_path, model, tokens = phase_main_path(transfer_record["h2d_pinned_gbps"])
+    dedup = phase_dedup(model, tokens)
+    del model, tokens
+    torch.cuda.empty_cache()
     phase_torn_leaf()
     train = phase_train()
     multi_rank = phase_multi_rank()
@@ -1603,6 +2098,33 @@ def main():
             "bound_ms": bwd[f"{key}_bound_ms"],
             "bound_by": bwd[f"{key}_bound_by"],
             "library_ms": bwd["library_ms"],
+        })
+    for name, key, line in (("xs128_box", "k4", 123), ("xs128_chunked", "k5", 219)):
+        w1, embed, state = (fingerprint["timings"][k] for k in ("w1", "embed", "state"))
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "torchsnapshot_tpu_torch/csrc/fingerprint.cu",
+            "replaces": f"torchsnapshot_tpu/fingerprint.py:{line}",
+            "launches": dedup["launches"][name],
+            "max_abs_err": fingerprint["max_abs_err"],
+            # At the 40.96 MB w1; the embed and the whole state beside it.
+            "ms": w1[f"{key}_ms"],
+            "plain_ms": w1[f"{key}_plain_ms"],
+            "bound_ms": w1["bound_ms"],
+            "bound_by": w1["bound_by"],
+            "bytes_bound_ms": w1["bytes_bound_ms"],
+            "integer_bound_ms": w1["integer_bound_ms"],
+            "library_ms": None,
+            "hbm_reference_int32_sum_ms": w1["int32_sum_ms"],
+            "embed": {"ms": embed[f"{key}_ms"], "plain_ms": embed[f"{key}_plain_ms"],
+                      "bound_ms": embed["bound_ms"], "int32_sum_ms": embed["int32_sum_ms"]},
+            "state": {"ms": state[f"{key}_ms"], "plain_ms": state[f"{key}_plain_ms"],
+                      "bound_ms": state["bound_ms"],
+                      "bytes_bound_ms": state["bytes_bound_ms"],
+                      "integer_bound_ms": state["integer_bound_ms"],
+                      "int32_sum_ms": state["int32_sum_ms"]},
+            "pipe_ops_per_word": fingerprint["pipe_ops_per_word"],
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -484,3 +484,160 @@ def test_lease_is_not_reused_while_its_dma_is_in_flight(cuda, tmp_path, monkeypa
             assert torch.equal(target["w"], w)
     finally:
         transfer._reset_h2d_pipeline_for_tests()
+
+
+# ---- Deduplication: K4, K5, the chunk store's device slices, verify_device.
+
+_FP_DTYPES = [torch.bool, torch.int8, torch.uint8, torch.float16, torch.bfloat16,
+              torch.float32, torch.int32, torch.int64, torch.float64]
+
+
+def _fp_input(cuda, dtype, n, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.rand(n, generator=gen, device=cuda) > 0.5
+    if not dtype.is_floating_point:
+        return torch.randint(-100, 100, (n,), generator=gen, device=cuda).to(dtype)
+    return torch.randn(n, generator=gen, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", _FP_DTYPES)
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 13, 4097, 1 << 20])
+def test_fingerprint_kernels_match_plain_and_host(cuda, dtype, n):
+    from torchsnapshot_tpu_torch import fingerprint as fp
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    x = _fp_input(cuda, dtype, n, seed=n)
+    host = x.cpu()
+    before = ops.fingerprint_box_launches
+    got = fp.resolve_fingerprints([fp.fingerprint_device_async(x)])[0]
+    assert ops.fingerprint_box_launches == before + (1 if n else 0)
+    assert got == fp.resolve_fingerprints([ops.fingerprint_box_reference(x)])[0] == fp.fingerprint_host(host)
+    for chunk_bytes in (12, 4096):
+        want = fp.fingerprint_host_chunked(host, chunk_bytes)
+        assert fp.resolve_chunk_fingerprints([fp.fingerprint_device_chunked_async(x, chunk_bytes)])[0] == want
+        assert fp.resolve_chunk_fingerprints([ops.fingerprint_chunked_reference(x, chunk_bytes)])[0] == want
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_fingerprint_kernels_at_odd_byte_offsets(cuda, offset):
+    from torchsnapshot_tpu_torch import fingerprint as fp
+
+    x = _fp_input(cuda, torch.int8, 100003)[offset:]
+    host = x.cpu()
+    assert fp.resolve_fingerprints([fp.fingerprint_device_async(x)])[0] == fp.fingerprint_host(host)
+    assert fp.resolve_chunk_fingerprints([fp.fingerprint_device_chunked_async(x, 4096)])[0] == (
+        fp.fingerprint_host_chunked(host, 4096)
+    )
+
+
+@pytest.mark.parametrize("slices", [
+    (slice(3, 40), slice(None)), (slice(None), slice(5, 77)), (slice(None), slice(1, 2)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.int8])
+def test_fingerprint_box_kernel_reads_runs_in_place(cuda, slices, dtype):
+    from torchsnapshot_tpu_torch import fingerprint as fp
+
+    x = _fp_input(cuda, dtype, 64 * 129).reshape(64, 129)
+    want = fp.fingerprint_host(x[slices].contiguous().cpu())
+    assert fp.resolve_fingerprints([fp.fingerprint_device_async(x, slices)])[0] == want
+
+
+def test_chunk_stager_slices_on_the_device(cuda, tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch import chunkstore
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    monkeypatch.setenv("TPUSNAPSHOT_CHUNK_BYTES", str(64 << 10))
+    copied = []
+    orig = chunkstore.device_to_host
+
+    def counting(src, ready=None):
+        copied.append(src.numel() * src.element_size())
+        return orig(src, ready)
+
+    monkeypatch.setattr(chunkstore, "device_to_host", counting)
+    w = torch.randn(1 << 20, device=cuda)  # 4 MiB: 64 chunks
+    Snapshot.take(str(tmp_path / "step-1"), {"m": StateDict(w=w)}, chunks=True)
+    assert len(copied) == 64 and set(copied) == {64 << 10}
+    copied.clear()
+    w[5] += 1.0
+    w[(1 << 20) - 1] += 1.0
+    before = ops.fingerprint_chunked_launches
+    Snapshot.take(str(tmp_path / "step-2"), {"m": StateDict(w=w)}, chunks=True)
+    assert ops.fingerprint_chunked_launches == before + 1
+    assert copied == [64 << 10, 64 << 10]  # only the two touched chunks crossed
+    target = StateDict(w=torch.zeros_like(w))
+    Snapshot(str(tmp_path / "step-2")).restore({"m": target})
+    assert torch.equal(target["w"], w)
+
+
+def test_verify_device_catches_a_byte_flipped_in_hbm(cuda, tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    w = torch.randn(4096, device=cuda)
+    Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(w=w)}, fingerprint=True)
+    target = StateDict(w=torch.zeros_like(w))
+    before = ops.fingerprint_box_launches
+    Snapshot(str(tmp_path / "snap")).restore({"m": target}, verify_device=True)
+    assert ops.fingerprint_box_launches == before + 1
+    real = snapshot_mod._load_stateful
+
+    def flip_after_landing(*args, **kwargs):
+        real(*args, **kwargs)
+        args[1].state_dict()["w"].view(torch.uint8)[100] ^= 1  # in HBM
+
+    monkeypatch.setattr(snapshot_mod, "_load_stateful", flip_after_landing)
+    with pytest.raises(RuntimeError, match="m/w"):
+        Snapshot(str(tmp_path / "snap")).restore({"m": StateDict(w=torch.zeros_like(w))}, verify_device=True)
+    assert snapshot_mod._last_verify_stats == {"verified": 1, "skipped": 0}
+
+
+def test_chunk_take_on_the_card_raises_when_k5_disagrees_with_the_host(cuda, tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch import chunkstore, fingerprint as fp
+
+    monkeypatch.setattr(chunkstore, "_FP_AGREEMENT", {})
+    real = fp.fingerprint_host_chunked
+    monkeypatch.setattr(fp, "fingerprint_host_chunked", lambda data, cb: ["xs128:" + "0" * 32] * len(real(data, cb)))
+    w = torch.randn(1 << 18, device=cuda)
+    with pytest.raises(RuntimeError, match="K5 disagrees"):
+        Snapshot.take(str(tmp_path / "step-1"), {"m": StateDict(w=w)}, chunks=True)
+
+
+@pytest.mark.parametrize("kind", ["incremental", "chunks", "verify_device"])
+def test_a_failed_fingerprint_launch_on_the_card_raises(cuda, tmp_path, monkeypatch, kind):
+    from torchsnapshot_tpu_torch import chunkstore
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    monkeypatch.setattr(chunkstore, "_FP_AGREEMENT", {})
+    w = torch.randn(1 << 18, device=cuda)
+    app = {"m": StateDict(w=w)}
+    base = Snapshot.take(str(tmp_path / "base"), app, fingerprint=True)
+
+    def failing(call, out, name):
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t 98")
+
+    monkeypatch.setattr(ops, "_run", failing)
+    with pytest.raises(RuntimeError, match="cudaError_t 98"):
+        if kind == "incremental":
+            Snapshot.take(str(tmp_path / "inc"), app, base=base)
+        elif kind == "chunks":
+            Snapshot.take(str(tmp_path / "step-1"), app, chunks=True)
+        else:
+            base.restore({"m": StateDict(w=torch.zeros_like(w))}, verify_device=True)
+
+
+def test_complex_leaf_on_the_card_is_chunked_by_k5_on_its_bytes(cuda, tmp_path):
+    from torchsnapshot_tpu_torch import fingerprint as fp
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    z = torch.randn(1 << 17, dtype=torch.complex64, device=cuda)
+    before = ops.fingerprint_chunked_launches
+    s = Snapshot.take(str(tmp_path / "step-1"), {"m": StateDict(z=z)}, chunks=True)
+    assert ops.fingerprint_chunked_launches > before
+    records = s.get_manifest()["0/m/z"].chunks
+    want = fp.fingerprint_host_chunked(z.cpu(), records[0]["n"])
+    assert [r["k"].split("-")[0] for r in records] == want
+    target = StateDict(z=torch.zeros_like(z))
+    Snapshot(str(tmp_path / "step-1")).restore({"m": target})
+    assert torch.equal(target["z"], z)

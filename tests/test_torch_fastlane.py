@@ -848,6 +848,51 @@ def test_torn_leaf_in_both_packages(tmp_path, monkeypatch, shape, threshold):
         assert np.array_equal(target["w"].numpy(), arr)
 
 
+@pytest.mark.parametrize("kind", ["content_chunks", "compressed"])
+def test_torn_dedup_leaf_in_both_packages(tmp_path, monkeypatch, kind):
+    """The torn-leaf reproduction on the deduplication paths: a 1 MiB f32
+    leaf stored as 4 KiB content chunks of the run's chunk store, or as
+    four zlib-compressed 256 KiB chunk objects, with one stored byte
+    flipped, restored into zeros by both packages. Both raise, and neither
+    changes an element of the template."""
+    monkeypatch.setenv("TPUSNAPSHOT_CHUNK_BYTES", "4096")
+    if kind == "compressed":
+        monkeypatch.setattr(iop, "MAX_CHUNK_SIZE_BYTES", CHUNK)
+        monkeypatch.setattr(jiop, "MAX_CHUNK_SIZE_BYTES", CHUNK)
+    arr = _arr((1 << 18,), seed=23)
+    kwargs = {"chunks": True} if kind == "content_chunks" else {"compression": "zlib"}
+    for package in ("jax", "port"):
+        path = tmp_path / package / "step-1"
+        if package == "jax":
+            _jax_take(str(path), {"w": arr}, **kwargs)
+        else:
+            Snapshot.take(str(path), {"m": StateDict(w=torch.from_numpy(arr.copy()))}, **kwargs)
+        if kind == "content_chunks":
+            victim = sorted((tmp_path / package / ".chunkstore" / "objects").glob("*/*"))[7]
+        else:
+            victim = path / "chunked" / "0" / "m" / "w__chunk_3"
+        good = victim.read_bytes()
+        raw = bytearray(good)
+        raw[len(raw) // 2] ^= 0x55
+        victim.write_bytes(bytes(raw))
+        for restorer in ("jax", "port"):
+            if restorer == "jax":
+                holder = _JaxHolder({"w": jnp.zeros(arr.shape, jnp.float32)})
+                with pytest.raises(Exception, match="corrupt|Checksum"):
+                    jsnap.Snapshot(str(path)).restore({"m": holder})
+                changed = int(np.count_nonzero(np.asarray(holder.sd["w"])))
+            else:
+                target = StateDict(w=torch.zeros(arr.shape))
+                with pytest.raises(RuntimeError, match="corrupt|Checksum"):
+                    Snapshot(str(path)).restore({"m": target})
+                changed = int(torch.count_nonzero(target["w"]))
+            assert changed == 0, (kind, package, restorer, changed)
+        victim.write_bytes(good)
+        target = StateDict(w=torch.zeros(arr.shape))
+        Snapshot(str(path)).restore({"m": target})
+        assert np.array_equal(target["w"].numpy(), arr)
+
+
 def test_injected_transfer_failure_in_both_packages(tmp_path, small_scale, monkeypatch):
     """The third H2D submit fails: each package surfaces the error from
     the plan before it publishes, the template is untouched, and the

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package,
-and it runs where PyYAML, psutil and ml_dtypes are not installed (the
-machine with the card has none of them)."""
+and it runs where PyYAML, psutil, ml_dtypes and zstandard are not
+installed (the machine with the card has none of them)."""
 
 import ast
 import subprocess
@@ -15,7 +15,7 @@ PORT_FILES = sorted((ROOT / "torchsnapshot_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
 FORBIDDEN_ANYWHERE = {"jax", "jaxlib", "torchsnapshot_tpu"}
-FORBIDDEN_AT_MODULE_LEVEL = {"yaml", "psutil", "ml_dtypes", "triton"}
+FORBIDDEN_AT_MODULE_LEVEL = {"yaml", "psutil", "ml_dtypes", "triton", "zstandard"}
 
 
 def _imports(nodes):
@@ -52,7 +52,7 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         f"""
         import importlib.abc, sys
 
-        BLOCKED = {{"yaml", "psutil", "ml_dtypes", "jax", "jaxlib", "torchsnapshot_tpu"}}
+        BLOCKED = {{"yaml", "psutil", "ml_dtypes", "jax", "jaxlib", "torchsnapshot_tpu", "zstandard"}}
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):
@@ -69,6 +69,8 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         from torchsnapshot_tpu_torch.utils import test_utils
         from torchsnapshot_tpu_torch import staging_pool
         from torchsnapshot_tpu_torch.telemetry import consume_profile
+        from torchsnapshot_tpu_torch import chunkstore, codecs, fingerprint, incremental
+        from torchsnapshot_tpu_torch.ops import fingerprint as fingerprint_ops
 
         w = torch.randn(5, 3).to(torch.bfloat16)
         Snapshot.take({str(tmp_path / "snap")!r}, {{"m": StateDict(w=w), "rng": RNGState()}})
@@ -90,6 +92,20 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         assert torch.equal(target["w"], big)
         assert staging_pool.get_staging_pool() is not None
         assert isinstance(consume_profile.ConsumeProfile().summary(), dict)
+        # Deduplication: fingerprints, an incremental take, the chunk
+        # store with its codecs (zstd absent), compression, delete's GC.
+        assert "zstd" not in codecs.available_codecs()
+        run = {str(tmp_path / "dedup")!r}
+        state = {{"m": StateDict(w=w, big=big)}}
+        base = Snapshot.take(run + "/s1", state, fingerprint=True, compression="zlib")
+        Snapshot.take(run + "/s2", state, base=base)
+        Snapshot.take(run + "/s3", state, chunks=True, codec={{"m/big": "int8", "*": "zlib"}})
+        target = StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16), big=torch.zeros(1 << 16))
+        Snapshot(run + "/s2").restore({{"m": target}}, verify_device=True)
+        assert torch.equal(target["big"], big)
+        Snapshot(run + "/s3").restore({{"m": target}})
+        assert (target["big"] - big).abs().max() <= codecs.quant_error_bound(big)
+        Snapshot(run + "/s3").delete()
         assert not BLOCKED & set(m.split(".")[0] for m in sys.modules)
         print("ok")
         """

@@ -164,13 +164,21 @@ def test_reconcile_sweep_mode_and_its_age_guard(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    for kwargs in ({"incremental": True}, {"chunks": True}, {"codec": "zstd"}):
-        with pytest.raises(NotImplementedError, match="deduplication slice"):
-            CheckpointManager(str(tmp_path / "run"), **kwargs)
-    (tmp_path / "run" / ".chunkstore").mkdir(parents=True)
-    (tmp_path / "run" / ".chunkstore" / "x").write_bytes(b"1")
-    with pytest.raises(NotImplementedError, match=r"\.chunkstore"):
-        CheckpointManager(str(tmp_path / "run")).reconcile()
+    """The deduplication options are ported; what still raises is a
+    misuse of them. Reconcile sweeps a run's chunk store."""
+    for kwargs in ({"incremental": True}, {"chunks": True}, {"codec": "zlib"}):
+        CheckpointManager(str(tmp_path / "run"), **kwargs)
+    with pytest.raises(ValueError, match="requires incremental"):
+        CheckpointManager(str(tmp_path / "run"), full_period=2)
+    with pytest.raises(ValueError, match="full_period"):
+        CheckpointManager(str(tmp_path / "run"), incremental=True, full_period=0)
+    with pytest.raises(ValueError, match="Unknown codec"):
+        CheckpointManager(str(tmp_path / "run"), chunks=True, codec="lz77").save(1, _state(1))
+    stray = tmp_path / "run" / ".chunkstore" / "objects" / "ff" / ("xs128:" + "f" * 32 + "-4-raw")
+    stray.parent.mkdir(parents=True)
+    stray.write_bytes(b"1")
+    CheckpointManager(str(tmp_path / "run")).reconcile()
+    assert stray.exists()  # younger than the sweep's age guard
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

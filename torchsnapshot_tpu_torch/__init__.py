@@ -5,9 +5,11 @@ and CUDA tensors and DTensors in the JAX package's on-disk format — a
 snapshot taken by either package restores through the other — from one
 rank or every rank of a ``torch.distributed`` job, elastically: a state
 of sharded and replicated values saved by N ranks restores on M. Manages
-step-indexed checkpoints with retention, and trains the flagship
-transformer with hand-written CUDA flash-attention kernels, forward and
-backward. Imports neither JAX nor the JAX package.
+step-indexed checkpoints with retention; deduplicates takes (compression,
+incremental takes against a base, a content-chunk store shared by a run,
+with xs128 fingerprints computed by hand-written CUDA kernels); and trains
+the flagship transformer with hand-written CUDA flash-attention kernels,
+forward and backward. Imports neither JAX nor the JAX package.
 """
 
 from .coord import (

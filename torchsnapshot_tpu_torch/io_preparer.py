@@ -41,6 +41,18 @@ template's dtype, shape or layout differ from the stored box, the
 private buffer is the result.
 ``TPUSNAPSHOT_STRICT_INTEGRITY=1`` reads whole objects where a ranged
 read (which no stored checksum covers) would do.
+
+Three kinds of stored object read otherwise, as the JAX package reads
+them. A compressed object (``compression="zlib"``) is read whole, its
+checksum verified, then decompressed; it is never split or streamed. An
+entry borrowed from a base snapshot (``base``, its location decorated
+``@base<N>/…``) reads through the snapshot's ``RefRouterPlugin``. A
+content-chunked entry (``chunks``) reads one request per content chunk
+from the run's chunk store; each chunk is decoded and content-verified
+(``chunkstore.decode_and_verify_chunk``) and goes to the leaf's private
+buffer at its offset as it lands (when the object is one run of the box;
+otherwise the chunks assemble in a pooled buffer and the whole payload
+is placed); the leaf publishes once every chunk has verified and landed.
 """
 
 import asyncio
@@ -76,7 +88,9 @@ from .serialization import (
     ARRAY_SERIALIZER,
     OBJECT_SERIALIZER,
     bytes_to_object,
+    compress_payload,
     compute_checksum,
+    decompress_payload,
     dtype_itemsize,
     dtype_to_str,
     object_to_bytes,
@@ -181,17 +195,20 @@ async def _in_executor(executor: Optional[Executor], fn: Callable[[], Any]) -> A
 
 class ArrayBufferStager(BufferStager):
     """Stages a tensor or numpy array (or the sub-box ``chunk_slices`` of
-    one) into raw payload bytes and records their checksum in ``entry``."""
+    one) into raw payload bytes, compressed when ``compression`` is set,
+    and records their checksum (and the compression) in ``entry``."""
 
     def __init__(
         self,
         data: Any,
         entry: ArrayEntry,
         chunk_slices: Optional[Tuple[slice, ...]] = None,
+        compression: Optional[str] = None,
     ) -> None:
         self._data = data
         self._entry = entry
         self._chunk_slices = chunk_slices
+        self._compression = compression
         self._nbytes = _nbytes(entry.shape, dtype_itemsize(entry.dtype))
         self._ready = None
         if isinstance(data, torch.Tensor) and data.is_cuda:
@@ -217,6 +234,9 @@ class ArrayBufferStager(BufferStager):
             host = np.array(data, copy=True, order="C")
             payload = memoryview(host.reshape(-1).view(np.uint8))
         self._data = None
+        if self._compression is not None:
+            payload = compress_payload(payload, self._compression)
+            self._entry.compression = self._compression
         self._entry.checksum = compute_checksum(payload)
         return payload
 
@@ -272,12 +292,23 @@ def device_clone_write_reqs(write_reqs: List[WriteReq]) -> bool:
 
 
 class ObjectBufferStager(BufferStager):
-    def __init__(self, obj: Any, entry: ObjectEntry) -> None:
+    """Pickles an object at once (the staging cost is then exact);
+    compression and checksum wait for staging, which the non-owner ranks
+    of a replicated object never reach."""
+
+    def __init__(self, obj: Any, entry: ObjectEntry, compression: Optional[str] = None) -> None:
         self._buf = object_to_bytes(obj)
         self._entry = entry
+        self._compression = compression
+        self._staged = False
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
-        self._entry.checksum = compute_checksum(self._buf)
+        if not self._staged:
+            self._staged = True
+            if self._compression is not None:
+                self._buf = compress_payload(self._buf, self._compression)
+                self._entry.compression = self._compression
+            self._entry.checksum = compute_checksum(self._buf)
         return self._buf
 
     def get_staging_cost_bytes(self) -> int:
@@ -285,13 +316,18 @@ class ObjectBufferStager(BufferStager):
 
 
 class ObjectBufferConsumer(BufferConsumer):
-    """Unpickles an object and hands it back via callback."""
+    """Verifies, decompresses and unpickles an object and hands it back
+    via callback."""
 
     def __init__(
-        self, callback: Callable[[Any], None], checksum: Optional[str]
+        self,
+        callback: Callable[[Any], None],
+        checksum: Optional[str],
+        compression: Optional[str] = None,
     ) -> None:
         self._callback = callback
         self._checksum = checksum
+        self._compression = compression
         self._profile = _cprof.current()
 
     async def consume_buffer(
@@ -300,32 +336,15 @@ class ObjectBufferConsumer(BufferConsumer):
         with _cprof.consume_section():
             with _cprof.substep(self._profile, "verify", len(buf)):
                 verify_checksum(buf, self._checksum)
+            if self._compression is not None:
+                with _cprof.substep(self._profile, "decode", len(buf)):
+                    buf = decompress_payload(buf, self._compression)
             with _cprof.substep(self._profile, "deserialize", len(buf)):
                 obj = bytes_to_object(buf)
         self._callback(obj)
 
     def get_consuming_cost_bytes(self) -> int:
         return 1 << 20
-
-
-def _check_readable(entry: Any, what: str) -> None:
-    """Refuse entries written by JAX-package features not ported yet,
-    rather than return wrong bytes."""
-    if getattr(entry, "compression", None) is not None:
-        raise NotImplementedError(
-            f"{what}: compressed payloads (compression="
-            f"{entry.compression!r}) are not yet ported to torchsnapshot_tpu_torch"
-        )
-    if getattr(entry, "base", None) is not None:
-        raise NotImplementedError(
-            f"{what}: incremental-snapshot base references are not yet "
-            f"ported to torchsnapshot_tpu_torch"
-        )
-    if getattr(entry, "chunks", None) is not None:
-        raise NotImplementedError(
-            f"{what}: content-chunked (.chunkstore) payloads are not yet "
-            f"ported to torchsnapshot_tpu_torch"
-        )
 
 
 class _TargetRegion:
@@ -420,9 +439,10 @@ def _whole(slices: Tuple[slice, ...], shape: List[int]) -> bool:
 
 class _ChunkCopyConsumer(BufferConsumer):
     """Places one read's payload (a whole stored object, whose checksum
-    is verified first, or exactly its overlap with the box, from a ranged
-    read) into the plan's region through the H2D pipeline, and tells the
-    plan once the bytes have landed."""
+    is verified first and which is then decompressed if it was stored
+    compressed, or exactly its overlap with the box, from a ranged read)
+    into the plan's region through the H2D pipeline, and tells the plan
+    once the bytes have landed."""
 
     def __init__(
         self,
@@ -432,6 +452,7 @@ class _ChunkCopyConsumer(BufferConsumer):
         target_slices: Tuple[slice, ...],
         checksum: Optional[str],
         location: str,
+        compression: Optional[str] = None,
     ) -> None:
         self._plan = plan
         self._view_shape = view_shape
@@ -439,6 +460,7 @@ class _ChunkCopyConsumer(BufferConsumer):
         self._target_slices = target_slices
         self._checksum = checksum
         self._location = location
+        self._compression = compression
         self._nbytes = _nbytes(view_shape, plan.itemsize)
         self._cost_release: Optional[Callable[[int], None]] = None
         self._device_release: Optional[Callable[[int], None]] = None
@@ -485,13 +507,16 @@ class _ChunkCopyConsumer(BufferConsumer):
     def _consume(self, buf: Optional[BufferType], lease: Optional[staging_pool.StagingLease] = None) -> None:
         with _cprof.consume_section():
             data = buf if lease is None else memoryview(lease.buffer.numpy())
+            with _cprof.substep(self._profile, "verify", len(data)):
+                verify_checksum(data, self._checksum)
+            if self._compression is not None:
+                with _cprof.substep(self._profile, "decode", len(data)):
+                    data = decompress_payload(data, self._compression)
             if len(data) != self._nbytes:
                 raise RuntimeError(
                     f"{self._location}: read {len(data)} bytes where the "
                     f"manifest describes {self._nbytes}"
                 )
-            with _cprof.substep(self._profile, "verify", len(data)):
-                verify_checksum(data, self._checksum)
             fut = self._plan.place(
                 data, lease, self._view_shape, self._view_slices, self._target_slices
             )
@@ -606,16 +631,19 @@ class _SplitObjectReadState(_PooledAssemblyState):
             for i, start in enumerate(starts)
         ]
 
+    def _land_part(self, start: int, end: int, buf: BufferType) -> None:
+        lease = self._ensure_buf()
+        with _cprof.substep(self._profile, "reassemble", end - start):
+            _check_part(buf, start, end)
+            # Disjoint ranges: concurrent threads never overlap.
+            host_copy(lease.buffer[start:end], buf)
+
     async def absorb(
         self, start: int, end: int, buf: BufferType, executor: Optional[Executor] = None
     ) -> None:
         def _copy() -> None:
             with _cprof.consume_section():
-                lease = self._ensure_buf()
-                with _cprof.substep(self._profile, "reassemble", end - start):
-                    _check_part(buf, start, end)
-                    # Disjoint ranges: concurrent threads never overlap.
-                    host_copy(lease.buffer[start:end], buf)
+                self._land_part(start, end, buf)
 
         await _in_executor(executor, _copy)
         with self._lock:
@@ -629,6 +657,63 @@ class _SplitObjectReadState(_PooledAssemblyState):
                     self._profile, "staging_release", self.nbytes
                 ):
                     self._release_assembly_buffer()
+
+
+def _content_chunk_reads(
+    state: Any, records: List[Dict[str, Any]], store_base: Optional[int]
+) -> Tuple[List[ReadReq], Dict[int, Dict[str, Any]]]:
+    """One read per content chunk record of a chunk-stored object (from
+    the store root, ``@base<store_base>/``), each consumed as bytes
+    [offset, offset + n) of the object: (reads, record by offset)."""
+    from .chunkstore import chunk_object_path
+    from .storage_plugin import make_ref_location
+
+    reqs: List[ReadReq] = []
+    by_offset: Dict[int, Dict[str, Any]] = {}
+    offset = 0
+    for i, rec in enumerate(records):
+        n = int(rec["n"])
+        path = chunk_object_path(rec["k"])
+        if store_base is not None:
+            path = make_ref_location(store_base, path)
+        by_offset[offset] = rec
+        reqs.append(ReadReq(path=path, buffer_consumer=_SubRangeConsumer(state, offset, offset + n, first=(i == 0))))
+        offset += n
+    if offset != state.nbytes:
+        raise RuntimeError(f"content chunks of {offset} bytes describe an object of {state.nbytes}")
+    return reqs, by_offset
+
+
+class _ContentChunksReadState(_SplitObjectReadState):
+    """Assembles the content chunks of ONE chunk-stored object (a
+    ``chunks`` entry of the chunk store) in a pooled buffer, each decoded
+    and content-verified as it lands, then hands the whole payload to the
+    inner consumer: the chunk-store mirror of the split read, for an
+    object that is not one run of the target box. A chunk this manifest
+    only references is verified against its content key, since no
+    checksum of this take covers it."""
+
+    def __init__(self, nbytes: int, inner: Any, dtype_name: str, pinned: bool = False) -> None:
+        super().__init__(nbytes, inner, pinned)
+        self._dtype_name = dtype_name
+        self._by_offset: Dict[int, Dict[str, Any]] = {}
+
+    def build_reads(self, records: List[Dict[str, Any]], store_base: Optional[int]) -> List[ReadReq]:
+        reqs, self._by_offset = _content_chunk_reads(self, records, store_base)
+        self._remaining = len(reqs)
+        return reqs
+
+    def _land_part(self, start: int, end: int, buf: BufferType) -> None:
+        from .chunkstore import decode_and_verify_chunk
+
+        lease = self._ensure_buf()
+        out = memoryview(lease.buffer.numpy())[start:end]
+        logical = decode_and_verify_chunk(
+            self._by_offset[start], self._dtype_name, buf, profile=self._profile, out=out
+        )
+        if logical is not None:
+            with _cprof.substep(self._profile, "reassemble", len(logical)):
+                host_copy(lease.buffer[start:end], logical)
 
 
 def _all_of(futures: List[Future]) -> Future:
@@ -779,11 +864,18 @@ class _StreamingSplitState(_SplitObjectReadState):
         finally:
             self._release_assembly_cost()
 
+    def _payload(self, start: int, end: int, buf: BufferType) -> BufferType:
+        """The bytes [start, end) of the object that the read ``buf``
+        carries: the read itself, for a ranged sub-read."""
+        return buf
+
     async def absorb(
         self, start: int, end: int, buf: BufferType, executor: Optional[Executor] = None
     ) -> None:
         def _consume_part() -> None:
+            nonlocal buf
             with _cprof.consume_section():
+                buf = self._payload(start, end, buf)
                 _check_part(buf, start, end)
                 with self._lock:
                     self._part_refs[start] = 2 if self._crc is not None else 1
@@ -825,6 +917,29 @@ class _StreamingSplitState(_SplitObjectReadState):
         with self._lock:
             self._remaining -= 1
         self._maybe_complete()
+
+
+class _StreamedContentChunksState(_StreamingSplitState):
+    """The content chunks of ONE chunk-stored object that is one run of
+    the region: each chunk is decoded and content-verified as it lands
+    and goes on to the region's private buffer at its offset, as a
+    streamed sub-range does, with no host assembly buffer. The leaf
+    publishes only once every chunk has verified and landed."""
+
+    def __init__(self, plan: "ArrayRestorePlan", nbytes: int, flat_base: int, dtype_name: str) -> None:
+        super().__init__(plan, nbytes, flat_base, checksum=None)
+        self._dtype_name = dtype_name
+        self._by_offset: Dict[int, Dict[str, Any]] = {}
+
+    def build_reads(self, records: List[Dict[str, Any]], store_base: Optional[int]) -> List[ReadReq]:
+        reqs, self._by_offset = _content_chunk_reads(self, records, store_base)
+        self._remaining = self._transfers_remaining = len(reqs)
+        return reqs
+
+    def _payload(self, start: int, end: int, buf: BufferType) -> BufferType:
+        from .chunkstore import decode_and_verify_chunk
+
+        return decode_and_verify_chunk(self._by_offset[start], self._dtype_name, buf, profile=self._profile)
 
 
 class _SubRangeConsumer(BufferConsumer):
@@ -907,8 +1022,6 @@ class ArrayRestorePlan:
             shards = [Shard([0] * len(entry.shape), list(entry.shape), entry)]
         else:
             raise TypeError(f"Not an array entry: {type(entry)}")
-        for shard in shards:
-            _check_readable(shard.array, shard.array.location)
         shape = list(entry.shape)
         dtype = str_to_torch_dtype(entry.dtype)
         self.itemsize = dtype_itemsize(entry.dtype)
@@ -1103,11 +1216,15 @@ class ArrayRestorePlan:
             if ov is None:
                 continue
             obj_nbytes = _nbytes(shard.sizes, itemsize)
+            # A compressed or content-chunked object reads whole, never
+            # ranged, split or streamed: its stored bytes are not the
+            # payload's.
+            whole_only = shard.array.compression is not None or bool(shard.array.chunks)
             rng = contiguous_byte_range(shard.sizes, ov.chunk_slices, itemsize)
-            if rng == (0, obj_nbytes) or strict:
+            if rng == (0, obj_nbytes) or strict or whole_only:
                 rng = None
             read_nbytes = obj_nbytes if rng is None else rng[1] - rng[0]
-            planned.append((shard, ov, rng, read_nbytes > threshold))
+            planned.append((shard, ov, rng, read_nbytes > threshold and not whole_only))
         # One verified whole-object read carries the whole leaf, and one
         # transfer takes it to the template: its bytes may land there
         # straight. Several transfers (a run of more than one staging
@@ -1117,6 +1234,7 @@ class ArrayRestorePlan:
             and len(planned) == 1
             and planned[0][2] is None
             and not planned[0][3]
+            and not planned[0][0].array.chunks
             and (not region.is_cuda or region.nbytes <= transfer.H2D_CHUNK_BYTES)
         )
         reqs: List[ReadReq] = []
@@ -1135,7 +1253,20 @@ class ArrayRestorePlan:
                 reqs.extend(stream.add_sub_reads(location, part, base))
                 self.streamed_bytes += stream.nbytes
                 continue
-            consumer = _ChunkCopyConsumer(self, *view[:2], ov.target_slices, view[2], location)
+            stored = shard.array
+            if stored.chunks:
+                nbytes = _nbytes(view[0], itemsize)
+                if run is not None:
+                    state = _StreamedContentChunksState(self, nbytes, run[0], stored.dtype)
+                    self.streamed_bytes += nbytes
+                else:
+                    consumer = _ChunkCopyConsumer(self, *view[:2], ov.target_slices, None, location)
+                    state = _ContentChunksReadState(nbytes, consumer, stored.dtype, pinned=region.is_cuda)
+                reqs.extend(state.build_reads(stored.chunks, stored.base))
+                continue
+            consumer = _ChunkCopyConsumer(
+                self, *view[:2], ov.target_slices, view[2], location, stored.compression
+            )
             if split:
                 state = _SplitObjectReadState(
                     _nbytes(view[0], itemsize), consumer, pinned=region.is_cuda
@@ -1244,7 +1375,7 @@ class ArrayRestorePlan:
 
 
 def _prepare_array_write(
-    arr: Any, logical_path: str, rank: int, replicated: bool
+    arr: Any, logical_path: str, rank: int, replicated: bool, compression: Optional[str] = None
 ) -> Tuple[Entry, List[WriteReq]]:
     dtype_name = dtype_to_str(arr.dtype)
     shape = list(arr.shape)
@@ -1258,7 +1389,7 @@ def _prepare_array_write(
             shape=shape,
             replicated=replicated,
         )
-        return entry, [WriteReq(location, ArrayBufferStager(arr, entry))]
+        return entry, [WriteReq(location, ArrayBufferStager(arr, entry, compression=compression))]
     # Chunk objects live under their own top-level namespace, with the
     # JAX package's names: "chunked/<rank or replicated>/<path>__chunk_<i>".
     owner = "replicated" if replicated else str(rank)
@@ -1278,7 +1409,7 @@ def _prepare_array_write(
         shards.append(Shard(offsets=list(c_off), sizes=list(c_sz), array=chunk_entry))
         local = tuple(slice(o, o + s) for o, s in zip(c_off, c_sz))
         reqs.append(
-            WriteReq(location, ArrayBufferStager(arr, chunk_entry, chunk_slices=local))
+            WriteReq(location, ArrayBufferStager(arr, chunk_entry, local, compression))
         )
     entry = ShardedArrayEntry(
         dtype=dtype_name,
@@ -1291,7 +1422,7 @@ def _prepare_array_write(
 
 
 def _prepare_sharded_array_write(
-    dt: Any, logical_path: str
+    dt: Any, logical_path: str, compression: Optional[str] = None
 ) -> Tuple[ShardedArrayEntry, List[WriteReq]]:
     """The local box of a sharded DTensor as shards of the global array.
 
@@ -1337,34 +1468,39 @@ def _prepare_sharded_array_write(
                 chunk_slices = tuple(
                     slice(co - o, co - o + cs) for co, cs, o in zip(c_off, c_sz, off)
                 )
-            stager = ArrayBufferStager(local, entry, chunk_slices=chunk_slices)
+            stager = ArrayBufferStager(local, entry, chunk_slices, compression)
             reqs.append(WriteReq(location, stager))
     return ShardedArrayEntry(dtype=dtype_name, shape=global_shape, shards=shards), reqs
 
 
 def prepare_write(
-    obj: Any, logical_path: str, rank: int, replicated: bool = False
+    obj: Any,
+    logical_path: str,
+    rank: int,
+    replicated: bool = False,
+    compression: Optional[str] = None,
 ) -> Tuple[Entry, List[WriteReq]]:
     """Plan the persistence of one leaf value: its manifest entry and
     the write requests this rank is responsible for. For replicated
     values the caller drops the requests on ranks that do not own the
     write; a sharded DTensor is never replicated (its own writer rule
-    applies)."""
+    applies). ``compression`` ("zlib" or None) compresses every stored
+    payload."""
     if is_partitioned(obj):
-        return _prepare_sharded_array_write(obj, logical_path)
+        return _prepare_sharded_array_write(obj, logical_path, compression)
     if is_dtensor(obj):
         obj = obj.to_local()
     if isinstance(obj, torch.Tensor):
-        return _prepare_array_write(obj.detach(), logical_path, rank, replicated)
+        return _prepare_array_write(obj.detach(), logical_path, rank, replicated, compression)
     # numpy scalars subclass Python numbers (np.float64 is a float), so the
     # array check must run before the primitive check.
     if isinstance(obj, (np.generic, np.ndarray)):
-        return _prepare_array_write(np.asarray(obj), logical_path, rank, replicated)
+        return _prepare_array_write(np.asarray(obj), logical_path, rank, replicated, compression)
     if isinstance(obj, _PRIMITIVE_TYPES):
         return PrimitiveEntry.from_value(obj, replicated=replicated), []
     location = get_storage_path(rank, logical_path, replicated)
     entry = ObjectEntry(location=location, serializer=OBJECT_SERIALIZER, replicated=replicated)
-    return entry, [WriteReq(location, ObjectBufferStager(obj, entry))]
+    return entry, [WriteReq(location, ObjectBufferStager(obj, entry, compression))]
 
 
 def prepare_read(
@@ -1378,8 +1514,9 @@ def prepare_read(
         callback(entry.get_value())
         return [], []
     if isinstance(entry, ObjectEntry):
-        _check_readable(entry, entry.location)
-        consumer = ObjectBufferConsumer(callback, checksum=entry.checksum)
+        consumer = ObjectBufferConsumer(
+            callback, checksum=entry.checksum, compression=entry.compression
+        )
         return [ReadReq(path=entry.location, buffer_consumer=consumer)], []
     if isinstance(entry, (ArrayEntry, ShardedArrayEntry)):
         plan = ArrayRestorePlan(entry, template, callback)

@@ -14,10 +14,12 @@ other's.
 prunes after the background drain has committed; the training loop pays
 only the stall of :meth:`Snapshot.async_take`.
 
-Not yet ported from the JAX package's manager: incremental saves, the
-content-chunk store and codecs (the deduplication slice) and the hot
-tier. Their arguments raise, and ``reconcile`` refuses a run directory
-that holds a ``.chunkstore``.
+``incremental=True`` bases every save on the latest committed step
+(``full_period`` forces a full take every that many steps), and retention
+defers a step that newer steps still borrow from. ``chunks``/``codec``
+write every save through the run's ``<base>/.chunkstore``, and retention
+frees chunks through the store's GC; ``reconcile`` sweeps the store.
+Not yet ported from the JAX package's manager: the hot tier.
 """
 
 import asyncio
@@ -27,7 +29,7 @@ from typing import Any, List, Optional
 
 from .coord import Coordinator, get_coordinator
 from .io_types import IOReq, is_not_found_error
-from .snapshot import _COMPLETION_TIMEOUT_S, PendingSnapshot, Snapshot
+from .snapshot import _COMPLETION_TIMEOUT_S, PendingSnapshot, Snapshot, _BaseFromRank0
 from .stateful import AppState
 from .storage_plugin import url_to_storage_plugin
 from .utils.env import env_float
@@ -88,13 +90,21 @@ class CheckpointManager:
         once at construction, to recover async saves orphaned by a crash
         between their commit and their marker. Run it on one rank.
 
-        ``incremental``, ``full_period``, ``chunks`` and ``codec`` are the
-        JAX package's deduplication options; they raise here."""
-        if incremental or full_period is not None or chunks or codec is not None:
-            raise NotImplementedError(
-                "incremental=, full_period=, chunks= and codec= are not yet "
-                "ported to torchsnapshot_tpu_torch (deduplication slice)"
-            )
+        ``incremental=True`` makes every save an incremental take based
+        on the latest committed step: unchanged arrays are neither copied
+        nor written. A step that newer snapshots still borrow from is kept
+        past ``max_to_keep`` (with a log line) until its last referencer
+        is pruned. ``full_period`` forces a full take whenever ``step %
+        full_period == 0``, bounding how long an old base stays pinned.
+
+        ``chunks``/``codec`` write every save through the content-chunk
+        store at ``<base>/.chunkstore`` (defaults: ``TPUSNAPSHOT_CHUNKS``,
+        ``TPUSNAPSHOT_CODEC``); consecutive saves share unchanged chunks,
+        and retention frees chunks through the store's GC."""
+        if full_period is not None and full_period < 1:
+            raise ValueError(f"full_period must be >= 1, got {full_period}")
+        if full_period is not None and not incremental:
+            raise ValueError("full_period requires incremental=True")
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         if keep_period is not None and keep_period < 1:
@@ -107,7 +117,15 @@ class CheckpointManager:
         self.base_path = base_path
         self.max_to_keep = max_to_keep
         self.keep_period = keep_period
+        self.incremental = incremental
+        self.full_period = full_period
+        self.chunks = chunks
+        self.codec = codec
         self._coord = coord
+        # The last step saved through this manager and its handle, the
+        # next incremental base (its cached metadata saves a read).
+        self._last_saved_step: Optional[int] = None
+        self._last_saved: Optional[Snapshot] = None
         if reconcile_on_init is not None:
             self.reconcile(adopt=(reconcile_on_init == "adopt"))
 
@@ -160,12 +178,6 @@ class CheckpointManager:
         """
         storage = url_to_storage_plugin(self.base_path)
         try:
-            if self._list(storage, ".chunkstore/"):
-                raise NotImplementedError(
-                    f"{self.base_path} holds a content-chunk store "
-                    f"(.chunkstore); reconciling it is not yet ported to "
-                    f"torchsnapshot_tpu_torch (deduplication slice)"
-                )
             marked = set(self._list_steps(storage))
             objs = self._list(storage, "step-")
             commit = re.compile(r"^step-(\d+)/\.snapshot_metadata$")
@@ -203,6 +215,7 @@ class CheckpointManager:
                 self._reclaim_uncommitted(storage, objs, committed | marked | tombstoned)
             )
             self._sweep_debris(storage, objs)
+            self._reconcile_chunkstore(storage)
             return handled
         finally:
             storage.close()
@@ -264,21 +277,65 @@ class CheckpointManager:
                 if not is_not_found_error(e):
                     logger.warning(f"reconcile: removing {obj} failed ({e!r})")
 
+    def _reconcile_chunkstore(self, storage: Any) -> None:
+        """Sweep the run's chunk store (stale intents, stale ref documents,
+        unreferenced chunks): the re-drive of any chunk GC a crashed
+        delete left half done. Best-effort, like every debris pass."""
+        try:
+            if not self._list(storage, ".chunkstore/"):
+                return
+            from . import chunkstore
+
+            chunkstore.reconcile_store(self.base_path)
+        except Exception as e:
+            logger.warning(f"reconcile: chunk-store sweep failed: {e!r}")
+
     # -------------------------------------------------------------- save
 
+    def _incremental_base(self, step: int, coordinator: Coordinator) -> Optional[Any]:
+        """The base of an incremental save, or None for a full take. Rank 0
+        resolves it (the take collates it); the other ranks pass the
+        sentinel with their last handle as a hint. The handle of the step
+        this manager just saved stands in for its path."""
+        if not self.incremental:
+            return None
+        if self.full_period is not None and step % self.full_period == 0:
+            return None
+        if coordinator.get_rank() != 0:
+            return _BaseFromRank0(hint=self._last_saved)
+        latest = self.latest_step()
+        if latest is None or latest >= step:
+            # No committed base, or a re-saved step: a full take rather
+            # than a reference to "the future".
+            return None
+        if latest == self._last_saved_step and self._last_saved is not None:
+            return self._last_saved
+        return _step_dir(self.base_path, latest)
+
     def save(
-        self, step: int, app_state: AppState, replicated: Optional[List[str]] = None
+        self,
+        step: int,
+        app_state: AppState,
+        replicated: Optional[List[str]] = None,
+        compression: Optional[str] = None,
     ) -> Snapshot:
         """Take a snapshot for ``step``; commit its marker; prune.
-        ``replicated`` is :meth:`Snapshot.take`'s."""
+        ``replicated`` and ``compression`` are :meth:`Snapshot.take`'s."""
         coordinator = get_coordinator(self._coord)
         snapshot = Snapshot.take(
             _step_dir(self.base_path, step),
             app_state,
             coord=coordinator,
             replicated=replicated,
+            compression=compression,
+            base=self._incremental_base(step, coordinator),
+            fingerprint=True if self.incremental else None,
+            chunks=self.chunks,
+            codec=self.codec,
         )
         self._finalize(step, coordinator)
+        # Every rank keeps the handle: the merged metadata seeded its cache.
+        self._last_saved_step, self._last_saved = step, snapshot
         return snapshot
 
     def async_save(
@@ -287,20 +344,27 @@ class CheckpointManager:
         app_state: AppState,
         replicated: Optional[List[str]] = None,
         *,
+        compression: Optional[str] = None,
         stage: str = "auto",
     ) -> "PendingManagedSnapshot":
         """Async take for ``step``; the handle's ``wait()`` writes the
         marker and prunes after the drain commits. Dropping the handle
         without waiting leaves the step invisible (no marker) and
-        unpruned, until :meth:`reconcile` adopts it. ``stage`` is
-        :meth:`Snapshot.async_take`'s, keyword-only as there."""
+        unpruned, until :meth:`reconcile` adopts it. ``compression`` and
+        ``stage`` are :meth:`Snapshot.async_take`'s, keyword-only as
+        there."""
         coordinator = get_coordinator(self._coord)
         pending = Snapshot.async_take(
             _step_dir(self.base_path, step),
             app_state,
             coord=coordinator,
-            stage=stage,
             replicated=replicated,
+            compression=compression,
+            stage=stage,
+            base=self._incremental_base(step, coordinator),
+            fingerprint=True if self.incremental else None,
+            chunks=self.chunks,
+            codec=self.codec,
         )
         return PendingManagedSnapshot(self, step, pending, coordinator)
 
@@ -346,8 +410,8 @@ class CheckpointManager:
         for step in sorted(set(doomed), reverse=True):
             snapshot = Snapshot(_step_dir(self.base_path, step))
             try:
-                # A step that a live incremental snapshot (a JAX package
-                # one) still borrows from is deferred, keeping its marker:
+                # A step that a live incremental snapshot still borrows
+                # from is deferred, keeping its marker:
                 # max_to_keep is exceeded visibly, not silently.
                 try:
                     referenced = snapshot.is_referenced()
@@ -434,4 +498,6 @@ class PendingManagedSnapshot:
             # the next wait().
             self._manager._finalize(self._step, self._coordinator)
             self._finalized = True
+            self._manager._last_saved_step = self._step
+            self._manager._last_saved = snapshot
         return snapshot

@@ -43,9 +43,10 @@ class ArrayEntry(Entry):
     # data. The port restores such leaves as that raw key data.
     prng_impl: Optional[str] = None
     checksum: Optional[str] = None  # "crc32:<hex>" of the stored bytes
-    # The fields below are written by JAX-package features this port does
-    # not read yet (compression, incremental bases, content chunks);
-    # restore refuses entries that set them.
+    # Compression of the stored payload, its xs128 content fingerprint,
+    # the index in ``SnapshotMetadata.base_paths`` of the root that holds
+    # it (a base snapshot's, or the chunk store's), and its content-chunk
+    # records ({"k": key, "n": bytes, "c": codec, "sn", "cs"}).
     compression: Optional[str] = None
     fingerprint: Optional[str] = None
     base: Optional[int] = None
@@ -314,7 +315,8 @@ class SnapshotMetadata:
     manifest: Manifest = field(default_factory=dict)
     # Unique id of the take that produced this snapshot.
     take_id: Optional[str] = None
-    # Incremental-snapshot base roots (written by the JAX package only).
+    # Roots the entries' ``base`` indices name: base snapshots and the
+    # chunk store, each ``rel:<sibling>`` or ``abs:<url>``.
     base_paths: List[str] = field(default_factory=list)
 
     def to_yaml(self) -> str:

@@ -9,7 +9,9 @@ module maps them to torch dtypes with its own table, so neither
 tensor is staged as its raw bytes (``t.view(torch.uint8)``).
 
 Objects (non-array leaves) use pickle protocol 4. Payload integrity tags
-are ``crc32:<hex>``, as in the JAX package.
+are ``crc32:<hex>``, as in the JAX package. ``compression="zlib"``
+deflates a stored payload at level 1; the checksum then covers the
+compressed bytes, and the entry records the algorithm.
 """
 
 import pickle
@@ -101,6 +103,30 @@ def object_to_bytes(obj: Any) -> bytes:
 
 def bytes_to_object(buf: Any) -> Any:
     return pickle.loads(buf)
+
+
+_COMPRESSION_LEVELS = {"zlib": 1}  # level 1: several times faster than the
+# default, within a few percent of its ratio on float payloads.
+
+
+def check_compression(algo: Optional[str]) -> None:
+    if algo is not None and algo not in _COMPRESSION_LEVELS:
+        raise ValueError(
+            f'Unknown compression algorithm "{algo}". '
+            f"Supported: {sorted(_COMPRESSION_LEVELS)}."
+        )
+
+
+def compress_payload(buf: Any, algo: str) -> bytes:
+    """Losslessly compress a stored payload (opt-in: trained float
+    weights barely compress; cold embedding rows and integer state do)."""
+    check_compression(algo)
+    return zlib.compress(buf, level=_COMPRESSION_LEVELS[algo])
+
+
+def decompress_payload(buf: Any, algo: str) -> bytes:
+    check_compression(algo)
+    return zlib.decompress(buf)
 
 
 def compute_checksum(buf: Any) -> str:

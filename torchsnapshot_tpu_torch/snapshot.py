@@ -56,10 +56,31 @@ asynchronously by either package restores through the other.
 ``delete`` removes a snapshot, metadata first, and with ``sweep=True``
 the objects its manifest does not reference.
 
-Not yet ported from the JAX package: ``verify``, ``copy_to``, ``diff``,
-compression, incremental and content-chunked takes. Snapshots using
-those features raise ``NotImplementedError`` where the port cannot read
-or delete them. JAX PRNG-key leaves restore as their raw uint32 key data.
+Deduplication, as the JAX package writes and reads it:
+
+- ``compression="zlib"`` compresses every stored payload;
+- ``base=`` (a committed snapshot or its path) makes an incremental
+  take (``incremental.py``): a leaf whose fingerprint (K4 on the card)
+  equals the base's is not copied or written, and its entry borrows the
+  base's object; ``fingerprint=`` records fingerprints so that this
+  snapshot can serve as a later base (on by default with a base, or with
+  ``TPUSNAPSHOT_FINGERPRINT=1``);
+- ``chunks=True`` (or ``TPUSNAPSHOT_CHUNKS=1``) writes array payloads as
+  content chunks into the run's ``.chunkstore`` (``chunkstore.py``; K5 on
+  the card), each only if the store lacks it, through the ``codec=``
+  (``codecs.py``; ``TPUSNAPSHOT_CODEC``);
+- ``restore(verify_device=True)`` recomputes every restored leaf's
+  fingerprint where the manifest has one (K4 on the card) and raises on a
+  mismatch;
+- ``delete`` refuses while a live incremental snapshot borrows from this
+  one, and frees the chunks no other live snapshot lists.
+
+A base path is compared with the take's path after normalisation (the
+``fs`` scheme, ``os.path.normpath``, ``realpath`` for a filesystem path):
+a take can never use itself as its base, however the two are spelled.
+Not yet ported from the JAX package: ``verify``, ``copy_to``, ``diff``
+and restore ``paths=``. JAX PRNG-key leaves restore as their raw uint32
+key data.
 """
 
 import asyncio
@@ -67,12 +88,15 @@ import fnmatch
 import json
 import logging
 import os
+import posixpath
 import threading
 import time
 import uuid
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
+
+import torch
 
 from .coord import Coordinator, barrier_compat, get_coordinator, get_rank
 from .flatten import flatten, inflate
@@ -106,6 +130,7 @@ from .manifest import (
     is_replicated,
 )
 from .rng_state import RNGState
+from .serialization import check_compression
 from .scheduler import (
     _MAX_STAGING_THREADS,
     execute_read_reqs,
@@ -113,7 +138,13 @@ from .scheduler import (
     get_memory_budget_bytes,
 )
 from .stateful import AppState, Stateful
-from .storage_plugin import resolve_base_ref, url_to_storage_plugin
+from .storage_plugin import (
+    RefRouterPlugin,
+    is_ref_location,
+    make_ref_location,
+    resolve_base_ref,
+    url_to_storage_plugin,
+)
 from .telemetry import consume_profile as _cprof
 from .utils.env import env_int
 
@@ -125,11 +156,20 @@ FORMAT_VERSION = "0.4.0"
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
 
+# The last take's deduplication numbers on this rank (:func:`_prepare_take`):
+# fingerprinted leaves, leaf hits, chunk hits and misses, stored bytes.
+_last_take_stats: Optional[Dict[str, Any]] = None
+
 # The last restore's (or read_object's) consume profile and read-pipeline
 # numbers (:func:`_set_restore_report`). The JAX package hands this block to
 # its flight recorder; the port has no recorder yet, so it is kept here
 # for a caller to read (chip_smoke.py prints it).
 _last_restore_report: Optional[Dict[str, Any]] = None
+
+# The last ``restore(verify_device=True)``'s counts on this rank
+# (:func:`_verify_restored_fingerprints`): leaves or shard boxes whose
+# fingerprint was recomputed and matched, and those skipped.
+_last_verify_stats: Optional[Dict[str, int]] = None
 
 
 class Snapshot:
@@ -147,6 +187,11 @@ class Snapshot:
         app_state: AppState,
         coord: Optional[Coordinator] = None,
         replicated: Optional[List[str]] = None,
+        compression: Optional[str] = None,
+        base: Optional[Any] = None,
+        fingerprint: Optional[bool] = None,
+        chunks: Optional[bool] = None,
+        codec: Optional[Any] = None,
     ) -> "Snapshot":
         """Persist ``app_state`` to ``path``; returns a handle. Returns
         once every payload is written and the metadata committed, so the
@@ -158,19 +203,32 @@ class Snapshot:
         rank: each is written once and restores on any rank, at any
         world size. A path counts as replicated only where every rank
         matched it. Sharded DTensors are written by their own rule
-        whatever the globs say."""
+        whatever the globs say.
+
+        ``compression`` ("zlib" or None) compresses every stored payload.
+        ``base`` (a committed :class:`Snapshot` or its path) makes the
+        take incremental; ``fingerprint`` records content fingerprints
+        (default: on with a base or ``TPUSNAPSHOT_FINGERPRINT=1``);
+        ``chunks`` writes through the run's content-chunk store and
+        ``codec`` picks its codecs (a name, a ``{glob: codec}`` mapping,
+        or ``TPUSNAPSHOT_CODEC``). Rank 0's ``base``, ``fingerprint``,
+        ``chunks`` and ``codec`` hold for every rank. The handle returned
+        serves as the next take's base without reading its metadata."""
         coordinator = get_coordinator(coord)
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
-        manifest, write_reqs = _capture(app_state, coordinator, replicated or [])
+        manifest, write_reqs, base_paths, chunk_ctx = _prepare_take(
+            path, app_state, coordinator, replicated, compression, base, fingerprint, chunks, codec
+        )
         budget = get_memory_budget_bytes(coordinator)
         storage = url_to_storage_plugin(path)
         try:
-            asyncio.run(execute_write_reqs(write_reqs, storage, budget, rank))
+            writer = chunk_ctx.wrap(storage) if chunk_ctx is not None else storage
+            asyncio.run(execute_write_reqs(write_reqs, writer, budget, rank))
             # Every object this rank wrote is durable before its manifest
             # reaches rank 0, which may commit at once. Rank 0's take_id
             # rides the same gather.
-            storage.ensure_durable()
+            writer.ensure_durable()
             gathered = coordinator.all_gather_object(
                 (uuid.uuid4().hex if rank == 0 else None, manifest)
             )
@@ -179,15 +237,21 @@ class Snapshot:
                 world_size=world_size,
                 manifest=_merge_manifests([m for _, m in gathered]),
                 take_id=gathered[0][0],
+                base_paths=list(base_paths),
             )
             if rank == 0:
+                # The chunk-ref document before the commit point: a
+                # committed manifest is always protected from chunk GC.
+                _write_chunk_refs(path, metadata)
                 asyncio.run(_write_metadata(storage, metadata))
             # No rank returns before rank 0's metadata write.
             barrier_compat(coordinator, _COMPLETION_TIMEOUT_S)
         finally:
             storage.close()
+            if chunk_ctx is not None:
+                chunk_ctx.cleanup()
         snapshot = cls(path, coord)
-        snapshot._metadata = metadata
+        snapshot._metadata = _decorate_metadata_refs(metadata)
         return snapshot
 
     @classmethod
@@ -198,7 +262,12 @@ class Snapshot:
         coord: Optional[Coordinator] = None,
         replicated: Optional[List[str]] = None,
         *,
+        compression: Optional[str] = None,
         stage: str = "auto",
+        base: Optional[Any] = None,
+        fingerprint: Optional[bool] = None,
+        chunks: Optional[bool] = None,
+        codec: Optional[Any] = None,
     ) -> "PendingSnapshot":
         """Capture a consistent cut of ``app_state`` and return; the
         payload writes and the metadata commit drain on a background
@@ -217,41 +286,63 @@ class Snapshot:
 
         The caller may mutate its tensors in place as soon as this
         returns: work it queues on the current stream runs after the
-        clones. ``replicated`` is as for :meth:`take`. The positional
-        order is the JAX package's; ``stage`` is keyword-only, so that
-        ``compression`` can take JAX's place after ``replicated``.
+        clones. ``replicated``, ``compression``, ``base``,
+        ``fingerprint``, ``chunks`` and ``codec`` are as for :meth:`take`;
+        fingerprints and chunk keys are computed before the cut is
+        captured, so a deduplicated leaf is neither cloned nor copied.
+        The positional order is the JAX package's up to ``replicated``;
+        the options after it are keyword-only.
         """
         if stage not in ("auto", "host", "device"):
             raise ValueError(f'stage must be "auto", "host", or "device"; got {stage!r}')
         coordinator = get_coordinator(coord)
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
-        manifest, write_reqs = _capture(app_state, coordinator, replicated or [])
-        budget = get_memory_budget_bytes(coordinator)
-        _prestage_write_reqs(write_reqs, budget, stage, coordinator)
-        # Per-take nonce: completion markers and metadata from earlier or
-        # concurrent takes to the same path never satisfy this take's
-        # polls; it becomes the committed metadata's take_id.
-        background = _BackgroundTake()
-        background.take_id = coordinator.broadcast_object(
-            uuid.uuid4().hex if rank == 0 else None, src=0
+        manifest, write_reqs, base_paths, chunk_ctx = _prepare_take(
+            path, app_state, coordinator, replicated, compression, base, fingerprint, chunks, codec
         )
+        budget = get_memory_budget_bytes(coordinator)
+        background = _BackgroundTake()
+        try:
+            _prestage_write_reqs(write_reqs, budget, stage, coordinator)
+            # Per-take nonce: completion markers and metadata from earlier
+            # or concurrent takes to the same path never satisfy this
+            # take's polls; it becomes the committed metadata's take_id.
+            background.take_id = coordinator.broadcast_object(
+                uuid.uuid4().hex if rank == 0 else None, src=0
+            )
+        except BaseException:
+            if chunk_ctx is not None:
+                chunk_ctx.cleanup()
+            raise
         storage = url_to_storage_plugin(path)
+        writer = chunk_ctx.wrap(storage) if chunk_ctx is not None else storage
 
         async def _drain() -> None:
             background.phase = "storage writes"
-            await execute_write_reqs(write_reqs, storage, budget, rank)
+            await execute_write_reqs(write_reqs, writer, budget, rank)
+            writer.ensure_durable()
             # The marker carries the manifest, so it is serialised only
-            # now: staging fills in the payload checksums.
+            # now: staging fills in the payload checksums and chunk records.
             background.phase = "commit markers"
             await _acommit_via_storage(
-                storage, rank, world_size, manifest, background.take_id
+                storage, rank, world_size, manifest, background.take_id,
+                base_paths=base_paths, snapshot_path=path,
             )
 
+        def _run() -> None:
+            try:
+                asyncio.run(_drain())
+            finally:
+                if chunk_ctx is not None:
+                    chunk_ctx.cleanup()
+
         try:
-            background.start(lambda: asyncio.run(_drain()))
+            background.start(_run)
         except BaseException:
             storage.close()
+            if chunk_ctx is not None:
+                chunk_ctx.cleanup()
             raise
         return PendingSnapshot(path, coord, background, storage)
 
@@ -261,16 +352,18 @@ class Snapshot:
         The metadata (the commit point) goes first, so an interrupted
         delete leaves an unreadable snapshot, never a readable one with
         missing payloads; then every payload its manifest references, its
-        commit markers and the records the JAX package keeps beside a
-        snapshot. Missing objects are skipped. Payloads borrowed from a
-        base snapshot (a JAX incremental take's) are the base's to delete.
+        commit markers and the records kept beside a snapshot. Missing
+        objects are skipped. Payloads borrowed from a base snapshot are
+        the base's to delete; content chunks go through the chunk store's
+        GC (``chunkstore.gc_snapshot_chunks``): this snapshot's ref
+        document goes, and the chunks no other live snapshot lists are
+        freed.
 
         If a live incremental snapshot still references this one (a
         back-link under ``refs/`` naming a committed snapshot whose
         entries borrow from here, or a young one naming a take still in
         flight; ``TPUSNAPSHOT_REFS_MIN_AGE_S``, default 3600), delete
-        refuses with ``RuntimeError`` unless ``force=True``. The port
-        writes no incremental takes, but honours the JAX package's.
+        refuses with ``RuntimeError`` unless ``force=True``.
 
         ``sweep=True`` also removes objects under the prefix that the
         manifest does not reference (leftovers of interrupted takes); the
@@ -294,14 +387,6 @@ class Snapshot:
                         f"({e!r}); sweeping without it."
                     )
                 metadata = None
-            if metadata is not None and any(
-                getattr(e, "chunks", None) for e in _payload_entries(metadata.manifest)
-            ):
-                raise NotImplementedError(
-                    f"{self.path} holds content-chunked payloads; deleting "
-                    f"them (chunk-store GC) is not yet ported to "
-                    f"torchsnapshot_tpu_torch (deduplication slice)"
-                )
             if not force:
                 refs = asyncio.run(
                     _live_referencers(storage, self.path, refs_min_age_s)
@@ -314,9 +399,18 @@ class Snapshot:
                         f"force=True."
                     )
             asyncio.run(_delete_snapshot(storage, metadata, sweep, min_age_s))
+            self._metadata = None
             if metadata is not None and metadata.base_paths:
                 asyncio.run(_gc_backlinks_in_bases(metadata, self.path))
-            self._metadata = None
+            if metadata is not None:
+                from . import chunkstore
+
+                # The metadata is gone: a crash from here on only leaks,
+                # and reconcile re-drives the GC.
+                try:
+                    chunkstore.gc_snapshot_chunks(self.path, metadata)
+                except Exception as e:
+                    logger.warning(f"chunk-store GC failed: {e!r} (reconcile re-drives it)")
         finally:
             storage.close()
 
@@ -335,13 +429,26 @@ class Snapshot:
         finally:
             storage.close()
 
-    def restore(self, app_state: AppState, coord: Optional[Coordinator] = None) -> None:
-        """Restore ``app_state`` in place from this snapshot."""
+    def restore(
+        self,
+        app_state: AppState,
+        coord: Optional[Coordinator] = None,
+        verify_device: bool = False,
+    ) -> None:
+        """Restore ``app_state`` in place from this snapshot.
+
+        ``verify_device=True`` recomputes every restored array's
+        fingerprint where the manifest recorded one (K4 on the card, all
+        dispatched before one batched fetch) and raises ``RuntimeError``
+        if the restored bytes differ from what the take fingerprinted.
+        Leaves without a fingerprint, and lossily coded ones, are
+        skipped."""
         coordinator = get_coordinator(coord if coord is not None else self._coord)
         rank = coordinator.get_rank()
-        storage = url_to_storage_plugin(self.path)
+        storage = self._open_storage()
         token = _cprof.begin()
         stats: Dict[str, Any] = {}
+        verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = [] if verify_device else None
         try:
             metadata = self._read_metadata(storage)
             available = get_available_entries(metadata.manifest, rank)
@@ -355,16 +462,24 @@ class Snapshot:
             for key in global_keys:
                 if key in app_state:
                     _load_stateful(
-                        key, app_state[key], available, storage, rank, budget, worlds, stats
+                        key, app_state[key], available, storage, rank, budget, worlds, stats,
+                        verify_jobs,
                     )
                 coordinator.barrier()
             if rng_stateful is not None:
                 _load_stateful(
-                    rng_key, rng_stateful, available, storage, rank, budget, worlds, stats
+                    rng_key, rng_stateful, available, storage, rank, budget, worlds, stats,
+                    verify_jobs,
                 )
         finally:
             storage.close()
             _set_restore_report(token, stats)
+        if verify_jobs is not None:
+            verified, skipped = _verify_restored_fingerprints(verify_jobs)
+            logger.info(
+                f"restore(verify_device=True): {verified} leaf/leaves fingerprint-"
+                f"verified, {skipped} skipped (no recorded fingerprint)."
+            )
 
     def read_object(
         self, logical_path: str, template: Any = None, rank: Optional[int] = None
@@ -378,7 +493,7 @@ class Snapshot:
         subtree with host values."""
         if rank is None:
             rank = get_rank(self._coord)
-        storage = url_to_storage_plugin(self.path)
+        storage = self._open_storage()
         token = _cprof.begin()
         stats: Dict[str, Any] = {}
         try:
@@ -438,10 +553,20 @@ class Snapshot:
         finally:
             storage.close()
 
+    def _open_storage(self) -> RefRouterPlugin:
+        """The snapshot's root, wrapped so that ``@base<N>/…`` locations
+        (borrowed objects, content chunks) route to their roots."""
+        return RefRouterPlugin(url_to_storage_plugin(self.path))
+
     def _read_metadata(self, storage: StoragePlugin) -> SnapshotMetadata:
         if self._metadata is None:
-            self._metadata = _read_metadata_doc(storage)
-        return self._metadata
+            self._metadata = _decorate_metadata_refs(_read_metadata_doc(storage))
+        metadata = self._metadata
+        if metadata.base_paths and isinstance(storage, RefRouterPlugin):
+            # Resolved against the current path, so a moved snapshot
+            # family keeps resolving.
+            storage.attach_bases([resolve_base_ref(r, self.path) for r in metadata.base_paths])
+        return metadata
 
 
 class _BackgroundTake:
@@ -620,6 +745,7 @@ def _save_stateful(
     replicated_globs: List[str],
     manifest_out: Manifest,
     write_reqs_out: List[WriteReq],
+    compression: Optional[str] = None,
 ) -> None:
     # A rank without this stateful still joins the negotiation (with no
     # paths), so the collective sequences of the ranks stay aligned.
@@ -634,7 +760,7 @@ def _save_stateful(
     manifest_out.update(container_manifest)
     for logical_path, value in sorted(flattened.items()):
         replicated = logical_path in replicated_sizes
-        entry, write_reqs = prepare_write(value, logical_path, rank, replicated)
+        entry, write_reqs = prepare_write(value, logical_path, rank, replicated, compression)
         if isinstance(entry, ShardedArrayEntry) and not entry.replicated:
             # Sharded DTensors go through their own writer rule, not
             # striping (a chunked dense entry keeps its category).
@@ -708,6 +834,7 @@ def _load_stateful(
     budget: int,
     worlds: Tuple[int, int],
     stats: Dict[str, Any],
+    verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = None,
 ) -> None:
     # The template state dict supplies the devices, dtypes and shapes the
     # restored values land in (and, when they match, the tensors).
@@ -739,6 +866,11 @@ def _load_stateful(
         reqs.extend(r)
         plans.extend(f)
     _run_reads(reqs, plans, storage, rank, budget, stats)
+    if verify_jobs is not None:
+        for logical_path in sorted(flattened):
+            entry = available.get(logical_path)
+            if isinstance(entry, (ArrayEntry, ShardedArrayEntry)):
+                verify_jobs.append((logical_path, entry, flattened[logical_path]))
 
     # Prefer the snapshot's container entries so saved structure (dict key
     # sets) round-trips; fall back to the template's for the rest.
@@ -759,7 +891,10 @@ def _load_stateful(
 
 
 def _capture(
-    app_state: AppState, coordinator: Coordinator, replicated_globs: List[str]
+    app_state: AppState,
+    coordinator: Coordinator,
+    replicated_globs: List[str],
+    compression: Optional[str] = None,
 ) -> Tuple[Manifest, List[WriteReq]]:
     """This rank's cut of ``app_state``: its manifest (without rank
     prefixes) and the write requests of the payloads it owns. The RNG
@@ -777,11 +912,15 @@ def _capture(
         rng_captured = rng_stateful.state_dict()
     for key in rng_keys:
         state_dict = rng_captured if key == rng_key else None
-        _save_stateful(key, state_dict, coordinator, replicated_globs, manifest, write_reqs)
+        _save_stateful(
+            key, state_dict, coordinator, replicated_globs, manifest, write_reqs, compression
+        )
     for key in _gather_keys(coordinator, sorted(app_state)):
         stateful = app_state.get(key)
         state_dict = stateful.state_dict() if stateful is not None else None
-        _save_stateful(key, state_dict, coordinator, replicated_globs, manifest, write_reqs)
+        _save_stateful(
+            key, state_dict, coordinator, replicated_globs, manifest, write_reqs, compression
+        )
         coordinator.barrier()
     if rng_stateful is not None:
         rng_stateful.load_state_dict(rng_captured)
@@ -892,11 +1031,15 @@ async def _acommit_via_storage(
     manifest: Manifest,
     take_id: str,
     timeout_s: float = _COMPLETION_TIMEOUT_S,
+    base_paths: Optional[List[str]] = None,
+    snapshot_path: str = "",
 ) -> Optional[SnapshotMetadata]:
     """Commit by completion markers, as the JAX package's async drain
     does: every rank writes its manifest to ``.completed/<take_id>/<rank>``;
-    rank 0 polls for every marker, merges them, writes the metadata and
-    removes the markers. Returns the metadata on rank 0."""
+    rank 0 polls for every marker, merges them, writes the chunk-ref
+    document of ``snapshot_path`` and then the metadata, and removes the
+    markers. ``base_paths`` is the same on every rank. Returns the
+    metadata on rank 0."""
     marker = IOReq(path=f".completed/{take_id}/{rank}")
     marker.buf.write(
         _encode_metadata_doc(
@@ -932,7 +1075,9 @@ async def _acommit_via_storage(
         world_size=world_size,
         manifest=_merge_manifests(manifests),
         take_id=take_id,
+        base_paths=list(base_paths or []),
     )
+    await _awrite_chunk_refs(snapshot_path, metadata)
     await _write_metadata(storage, metadata)
     for r in range(world_size):
         try:
@@ -1077,7 +1222,7 @@ async def _delete_snapshot(
 async def _referencing_snapshots(
     storage: StoragePlugin, own_path: str
 ) -> List[Tuple[str, str]]:
-    """The JAX package's incremental back-links in this snapshot's
+    """The incremental back-links in this snapshot's
     ``refs/``: (marker path, resolved referencing snapshot URL), the URL
     empty for an unreadable marker."""
     out: List[Tuple[str, str]] = []
@@ -1142,7 +1287,7 @@ async def _live_referencers(
 
 
 async def _gc_backlinks_in_bases(metadata: SnapshotMetadata, own_path: str) -> None:
-    """After deleting an incremental snapshot (a JAX package's), remove
+    """After deleting an incremental snapshot, remove
     the back-links it left in its bases, so they become deletable.
     Best-effort: a base's own delete sees a stale back-link anyway."""
     own = own_path.rstrip("/")
@@ -1183,3 +1328,247 @@ async def _write_metadata(storage: StoragePlugin, metadata: SnapshotMetadata) ->
     io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
     io_req.buf.write(_encode_metadata_doc(metadata.to_yaml()))
     await storage.write(io_req)
+
+
+async def _aread_metadata_at(url: str) -> SnapshotMetadata:
+    storage = url_to_storage_plugin(url)
+    try:
+        io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
+        await storage.read(io_req)
+        return SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
+    finally:
+        storage.close()
+
+
+def _decorate_metadata_refs(metadata: SnapshotMetadata) -> SnapshotMetadata:
+    """Give every entry whose payload lives in another root (a base
+    snapshot, the chunk store) its routed ``@base<N>/…`` location, once
+    per in-memory metadata, so every read path resolves it through the
+    router. Idempotent."""
+    if metadata.base_paths:
+        for e in _payload_entries(metadata.manifest):
+            idx = getattr(e, "base", None)
+            if idx is not None and not is_ref_location(e.location):
+                e.location = make_ref_location(idx, e.location)
+    return metadata
+
+
+async def _awrite_chunk_refs(snapshot_path: str, metadata: SnapshotMetadata) -> None:
+    from . import chunkstore
+
+    await chunkstore.awrite_ref_for(snapshot_path, metadata)
+
+
+def _write_chunk_refs(snapshot_path: str, metadata: SnapshotMetadata) -> None:
+    asyncio.run(_awrite_chunk_refs(snapshot_path, metadata))
+
+
+class _BaseFromRank0:
+    """``base=`` of the manager on ranks other than 0: take rank 0's
+    base. ``hint``, this rank's handle of the last save, lends its cached
+    metadata when rank 0 names the same snapshot."""
+
+    def __init__(self, hint: Optional["Snapshot"] = None) -> None:
+        self.hint = hint
+
+
+def _resolve_base_arg(base: Optional[Any]) -> Optional[Any]:
+    """``base`` as a path (or the rank-0 sentinel). Never raises: checks
+    run after the collation, on every rank alike."""
+    if base is None or isinstance(base, _BaseFromRank0):
+        return base
+    return base.path if isinstance(base, Snapshot) else str(base)
+
+
+def _reusable_base_metadata(base: Optional[Any], base_path: Optional[str]) -> Optional[SnapshotMetadata]:
+    """A handle's cached metadata, when the handle is the agreed base:
+    the incremental pass then reads no metadata."""
+    if isinstance(base, _BaseFromRank0):
+        base = base.hint
+    if isinstance(base, Snapshot) and base_path is not None and base.path == base_path:
+        return base._metadata
+    return None
+
+
+def _collate_incremental_args(
+    coordinator: Coordinator,
+    base_path: Optional[Any],
+    fingerprint: Optional[bool],
+    chunks: Optional[bool],
+    codec: Optional[Any],
+) -> Tuple[Optional[str], Optional[bool], Optional[bool], Optional[Any]]:
+    """Rank 0's ``base``, ``fingerprint``, ``chunks`` and ``codec`` for
+    every rank: entry ``base`` indices resolve against rank 0's merged
+    ``base_paths``, so a rank deduplicating against another base would
+    commit references to the wrong bytes."""
+    deferred = isinstance(base_path, _BaseFromRank0)
+    local = (None if deferred else base_path, fingerprint, chunks, codec)
+    collated = tuple(coordinator.broadcast_object(local, src=0))
+    if not deferred and collated != local:
+        logger.warning(
+            f"Rank {coordinator.get_rank()} passed (base, fingerprint, chunks, "
+            f"codec) = {local!r} but rank 0 passed {collated!r}. Using rank 0's."
+        )
+    return collated
+
+
+def _normalized_url(url: str) -> str:
+    """``url`` with the ``fs`` scheme made explicit and its path
+    normalised (``realpath`` for the filesystem, so ``..``, ``.`` and
+    links compare equal)."""
+    scheme, sep, rest = url.partition("://")
+    if not sep:
+        scheme, rest = "fs", url
+    scheme = scheme or "fs"
+    if scheme == "fs":
+        rest = os.path.realpath(os.path.normpath(rest or "."))
+    else:
+        rest = posixpath.normpath(rest)
+    return f"{scheme}://{rest.rstrip('/')}"
+
+
+def _validate_base_path(base_path: Optional[str], path: str) -> None:
+    """Refuse a take whose base is its own path, however spelled: it would
+    reference objects the take is about to overwrite."""
+    if base_path is not None and _normalized_url(base_path) == _normalized_url(path):
+        raise ValueError(
+            f"base snapshot path {base_path!r} is the take path ({path!r}); an "
+            f"incremental take must write to a NEW path"
+        )
+
+
+def _prepare_take(
+    path: str,
+    app_state: AppState,
+    coordinator: Coordinator,
+    replicated: Optional[List[str]],
+    compression: Optional[str],
+    base: Optional[Any],
+    fingerprint: Optional[bool],
+    chunks: Optional[bool],
+    codec: Optional[Any],
+) -> Tuple[Manifest, List[WriteReq], List[str], Any]:
+    """A take's cut, then its incremental pass and its chunk pass, before
+    any payload is staged (so a deduplicated leaf is never copied):
+    (this rank's manifest, the write requests left, ``base_paths``, the
+    chunk context to clean up after the commit, or None)."""
+    global _last_take_stats
+    from . import chunkstore
+    from .incremental import IncrementalStats, apply_incremental
+
+    check_compression(compression)
+    base_path, fingerprint, chunks, codec = _collate_incremental_args(
+        coordinator, _resolve_base_arg(base), fingerprint, chunks, codec
+    )
+    _validate_base_path(base_path, path)
+    manifest, write_reqs = _capture(app_state, coordinator, replicated or [], compression)
+    rank = coordinator.get_rank()
+    record = (
+        fingerprint
+        if fingerprint is not None
+        else (base_path is not None or env_int("TPUSNAPSHOT_FINGERPRINT", 0) != 0)
+    )
+    base_paths: List[str] = []
+    inc = IncrementalStats()
+    if base_path is not None or record:
+        base_paths, inc = apply_incremental(
+            manifest, write_reqs, rank=rank, own_path=path, base_path=base_path,
+            record_fingerprints=record, base_metadata=_reusable_base_metadata(base, base_path),
+            coordinator=coordinator if base_path is not None else None,
+        )
+    chunk_ctx = None
+    stats = chunkstore.ChunkStats()
+    if chunks if chunks is not None else chunkstore.chunks_enabled_default():
+        chunk_ctx = chunkstore.apply_chunkstore(
+            manifest, write_reqs, rank=rank, own_path=path, base_paths=base_paths,
+            codec_spec=codec, stats=stats,
+        )
+    _last_take_stats = {"incremental": inc, "chunks": stats}
+    return manifest, write_reqs, base_paths, chunk_ctx
+
+
+def _verify_restored_fingerprints(jobs: List[Tuple[str, Entry, Any]]) -> Tuple[int, int]:
+    """``restore(verify_device=True)``: recompute each restored array's
+    (or shard box's) fingerprint where the manifest recorded one — every
+    kernel dispatched first, then one fetch per device — and compare. The
+    storage checksum guards storage → host; this closes host → device.
+
+    A mismatch of a 4-byte dtype raises. For other widths it only warns:
+    a fingerprint the JAX package recorded on another platform may pack
+    sub-word elements in another order. Leaves without a fingerprint and
+    lossily coded ones are skipped; the counts are kept in
+    ``_last_verify_stats``."""
+    global _last_verify_stats
+    from .chunkstore import entry_is_lossy
+    from .fingerprint import fingerprint_device_async, fingerprint_host, resolve_fingerprints
+    from .serialization import dtype_itemsize
+
+    pending: List[Tuple[str, str, Any]] = []
+    skipped = 0
+    dtypes: Dict[str, str] = {}
+    for path, entry, value in jobs:
+        dtypes[path] = entry.dtype
+        if isinstance(entry, ShardedArrayEntry):
+            specs = [
+                (
+                    tuple(slice(o, o + n) for o, n in zip(sh.offsets, sh.sizes)),
+                    None if entry_is_lossy(sh.array) else sh.array.fingerprint,
+                )
+                for sh in entry.shards
+            ]
+        else:
+            specs = [(None, None if entry_is_lossy(entry) else entry.fingerprint)]
+        data = value.to_local() if hasattr(value, "to_local") else value
+        for slices, expected in specs:
+            if expected is None:
+                skipped += 1
+                continue
+            if isinstance(data, torch.Tensor) and data.is_cuda:
+                # On the card a kernel that fails to build or launch fails the restore.
+                pending.append((path, expected, fingerprint_device_async(data, slices)))
+                continue
+            try:
+                if isinstance(data, torch.Tensor):
+                    pending.append((path, expected, fingerprint_device_async(data, slices)))
+                else:
+                    host = data if slices is None else data[slices]
+                    pending.append((path, expected, fingerprint_host(host)))
+            except Exception as e:
+                logger.warning(f"verify_device: cannot fingerprint {path}: {e!r}; skipping")
+                skipped += 1
+    device_idxs = [i for i, (_, _, r) in enumerate(pending) if not isinstance(r, str)]
+    actuals = dict(zip(device_idxs, resolve_fingerprints([pending[i][2] for i in device_idxs])))
+    verified = 0
+    hard: List[str] = []
+    soft: List[str] = []
+    for i, (path, expected, result) in enumerate(pending):
+        actual = result if isinstance(result, str) else actuals[i]
+        if isinstance(actual, Exception):
+            if isinstance(result, torch.Tensor) and result.is_cuda:
+                raise actual
+            logger.warning(f"verify_device: cannot resolve the fingerprint of {path}: {actual!r}; skipping")
+            skipped += 1
+        elif actual == expected:
+            verified += 1
+        else:
+            try:
+                four = dtype_itemsize(dtypes[path]) == 4
+            except TypeError:
+                four = False
+            bucket = hard if four else soft
+            if path not in bucket:
+                bucket.append(path)
+    if soft:
+        logger.warning(
+            f"restore(verify_device=True): fingerprint mismatch on {soft}; for "
+            f"these non-4-byte dtypes it is corruption, or a fingerprint recorded "
+            f"on a platform that packs sub-word elements in another order"
+        )
+    if hard:
+        raise RuntimeError(
+            f"restore(verify_device=True): restored content does not match the "
+            f"manifest fingerprint for {hard}: the bytes in device memory are not "
+            f"the bytes the snapshot recorded"
+        )
+    _last_verify_stats = {"verified": verified, "skipped": skipped}
+    return verified, skipped
