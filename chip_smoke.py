@@ -69,6 +69,19 @@ Phases, each printing JSON lines to stdout:
    none freed) and the first (its exclusive chunks freed). Each take
    prints its seconds, payload bytes and objects written, chunk objects
    stored, bytes copied to the host and the K4/K5 milliseconds within it.
+6c. api — on the same model: a take with fingerprints, ``verify()``
+   (clean; seconds and GB/s beside the filesystem's read rate),
+   ``copy_to`` with ``verify=True`` (beside the write+fsync rate), an
+   in-place change to layers 10 and 20 and an incremental take, ``diff``
+   (exactly the 16 changed leaves, no payload byte read), a
+   ``restore(paths=["model/layers/10/**"], verify_device=True)`` into a
+   fresh model (exactly the 8 selected leaves' bytes read, one K4 launch
+   each, every other leaf's storage and bytes as they were), a
+   ``paths=["**"]`` restore of the copy with bit-identical K1 logits, one
+   byte flipped in the copy (``verify()`` names that object alone;
+   ``copy_to`` from it raises and leaves no metadata), and the inspect CLI
+   in a subprocess (``--verify``: exit 1 naming the object; ``--diff``:
+   exit 1 with the changed leaves).
 6b. torn leaf — a copy of a small chunked snapshot with one corrupt
    chunk, then an injected failure of an H2D pipeline transfer, then a
    20 MiB single-object leaf (two staging-slot transfers) whose second
@@ -119,7 +132,8 @@ Phases, each printing JSON lines to stdout:
     divide by sp 2), with Ulysses all-to-all attention through the flash
     kernels (36 launches of each a step).
 11. kernels — one JSON line summarising every kernel of the paths (K4
-    and K5 with their launches on the dedup path).
+    and K5 with their launches on the dedup path, K1 and K4 with theirs
+    on the api path).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -950,6 +964,221 @@ def phase_dedup(model, tokens):
     failed = [k for k, ok in gates.items() if not ok]
     if failed:
         raise AssertionError(f"dedup phase: {failed}")
+    return record
+
+
+class _ReadMeter:
+    """What the fs plugin read, by the same wrapping as ``_TakeMeter``'s
+    of its write: the metadata documents apart, payload bytes and reads."""
+
+    def __init__(self):
+        self._orig = fs_plugin.FSStoragePlugin.read
+        self.reset()
+
+    def reset(self):
+        self.metadata_bytes = self.payload_bytes = self.payload_reads = 0
+
+    def __enter__(self):
+        meter, read = self, self._orig
+
+        async def counting_read(plugin, io_req):
+            await read(plugin, io_req)
+            n = len(io_payload(io_req))
+            if io_req.path == ".snapshot_metadata":
+                meter.metadata_bytes += n
+            else:
+                meter.payload_bytes += n
+                meter.payload_reads += 1
+
+        fs_plugin.FSStoragePlugin.read = counting_read
+        return self
+
+    def __exit__(self, *exc):
+        fs_plugin.FSStoragePlugin.read = self._orig
+
+
+def _inspect_cli(*argv):
+    """``python -m torchsnapshot_tpu_torch.inspect`` in a subprocess of
+    this checkout: (exit code, stdout lines, seconds)."""
+    begin = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch.inspect", *argv],
+                          capture_output=True, text=True, cwd=ROOT, timeout=300)
+    return proc.returncode, proc.stdout.splitlines(), time.perf_counter() - begin, proc.stderr[-2000:]
+
+
+def phase_api(model, tokens, ceilings):
+    """The rest of the Snapshot API at GPT-2 XL widths, full depth, f32
+    (387 leaves, 6.23 GB), on the main path's model: a take with
+    fingerprints; ``verify()`` of it (clean) beside the filesystem's read
+    rate; ``copy_to`` a second directory with ``verify=True`` beside its
+    write+fsync rate; an in-place change to layers 10 and 20 and an
+    incremental take; ``diff`` of the two (exactly the changed leaves,
+    and no payload byte read); a ``restore(paths=[layer 10],
+    verify_device=True)`` into a fresh model on the card, reading exactly
+    the selected leaves' bytes with one K4 launch each and leaving every
+    other leaf as it was; a ``paths=["**"]`` restore of the copy with a
+    K1 forward bit-identical to the original model's; one byte flipped
+    in the copy: ``verify()`` names that object alone, and ``copy_to``
+    from it raises leaving no metadata at its destination; then the
+    inspect CLI in a subprocess, ``--verify`` on the corrupt copy and
+    ``--diff`` against it, gated on their exit codes."""
+    from torchsnapshot_tpu_torch.flatten import flatten
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    cfg = GPT2_XL
+    params = model.params()
+    leaves = list(tf.param_leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_api-")
+    free = shutil.disk_usage(workdir).free
+    if free < 2.2 * state_bytes:
+        shutil.rmtree(workdir)
+        raise RuntimeError(f"{workdir} has {free} bytes free; the api phase needs {2.2 * state_bytes:.0f}")
+    record = {"phase": "api", "model": "GPT-2 XL widths, f32", "leaves": len(leaves),
+              "state_bytes": state_bytes, **ceilings}
+    changed_layers = (10, 20)
+    app = {"model": tf.TransformerState(model)}
+    paths = {name: os.path.join(workdir, name) for name in ("full", "copy", "changed", "from_corrupt")}
+
+    def flat_of(m):
+        return flatten(tf.TransformerState(m).state_dict(), prefix="model")[1]
+
+    def logits_of(m):
+        with torch.no_grad():
+            out = m(tokens)
+        torch.cuda.synchronize()
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - begin
+
+    changed_paths = sorted(p for p in flat_of(model)
+                           if any(p.startswith(f"model/layers/{i}/") for i in changed_layers))
+    selected_prefix = f"model/layers/{changed_layers[0]}/"
+    try:
+        _reset_launch_counts()  # the api path's counts start here
+        with _ReadMeter() as reads:
+            logits_before = logits_of(model)
+            full, record["take_s"] = timed(lambda: Snapshot.take(paths["full"], app, fingerprint=True))
+
+            reads.reset()
+            problems, seconds = timed(lambda: Snapshot(paths["full"]).verify())
+            record["verify"] = {"seconds": seconds, "problems": len(problems), "bytes_read": reads.payload_bytes,
+                                "gbps": reads.payload_bytes / 1e9 / seconds, "fs_read_gbps": ceilings["fs_read_gbps"]}
+            clean = problems == {}
+
+            _, seconds = timed(lambda: Snapshot(paths["full"]).copy_to(paths["copy"], verify=True))
+            record["copy_to"] = {"seconds": seconds, "gbps": state_bytes / 1e9 / seconds,
+                                 "fs_write_fsync_gbps": ceilings["fs_write_fsync_gbps"]}
+
+            with torch.no_grad():
+                for i in changed_layers:
+                    for t in tf.param_leaves(params["layers"][i]):
+                        t.add_(1e-3)
+            _, record["incremental_take_s"] = timed(lambda: Snapshot.take(paths["changed"], app, base=full))
+
+            reads.reset()
+            diff, seconds = timed(lambda: Snapshot(paths["changed"]).diff(paths["full"]))
+            record["diff"] = {"seconds": seconds, "payload_bytes_read": reads.payload_bytes,
+                              "metadata_bytes_read": reads.metadata_bytes,
+                              **{k: len(v) for k, v in diff.items()}}
+
+            fresh = tf.Transformer.init(cfg, seed=1)
+            fresh_flat = flat_of(fresh)
+            selected = sorted(p for p in fresh_flat if p.startswith(selected_prefix))
+            ptrs = {p: t.data_ptr() for p, t in fresh_flat.items()}
+            kept = {p: t.clone() for p, t in fresh_flat.items() if p not in selected}
+            reads.reset()
+            k4_before = fops.fingerprint_box_launches
+            _, seconds = timed(lambda: Snapshot(paths["changed"]).restore(
+                {"model": tf.TransformerState(fresh)}, paths=[selected_prefix + "**"], verify_device=True))
+            model_flat = flat_of(model)
+            after = flat_of(fresh)
+            record["partial_restore"] = {
+                "seconds": seconds, "selected_leaves": len(selected),
+                "bytes_read": reads.payload_bytes, "reads": reads.payload_reads,
+                "selected_bytes": sum(after[p].numel() * after[p].element_size() for p in selected),
+                "k4_launches": fops.fingerprint_box_launches - k4_before,
+                "verify_stats": dict(snapshot_mod._last_verify_stats),
+                "selected_equal": all(torch.equal(after[p], model_flat[p]) for p in selected),
+                "others_untouched": all(after[p].data_ptr() == ptrs[p] and torch.equal(after[p], t)
+                                        for p, t in kept.items()),
+            }
+            del fresh, fresh_flat, after, kept
+
+            fresh = tf.Transformer.init(cfg, seed=1)
+            _, record["full_restore_of_copy_s"] = timed(lambda: Snapshot(paths["copy"]).restore(
+                {"model": tf.TransformerState(fresh)}, paths=["**"]))
+            record["copy_logits_bit_identical"] = bool(torch.equal(logits_of(fresh), logits_before))
+            del fresh, logits_before
+
+            # One byte of the object the copy reads first: a copy from it
+            # fails at once, and (one object admitted at a time) writes nothing.
+            victim = next(snapshot_mod._iter_payload_entries(Snapshot(paths["copy"]).get_manifest())).location
+            victim_file = os.path.join(paths["copy"], victim)
+            offset = os.path.getsize(victim_file) // 2
+            with open(victim_file, "r+b") as f:
+                f.seek(offset)
+                byte = f.read(1)
+                f.seek(offset)
+                f.write(bytes([byte[0] ^ 0x01]))
+            problems, seconds = timed(lambda: Snapshot(paths["copy"]).verify())
+            record["verify_corrupt"] = {"seconds": seconds, "victim": victim, "named": sorted(problems)}
+            os.environ["TPUSNAPSHOT_COPY_BUDGET_BYTES"] = "1"
+            try:
+                Snapshot(paths["copy"]).copy_to(paths["from_corrupt"], verify=True)
+                record["corrupt_copy_raised"] = False
+            except RuntimeError as e:
+                record["corrupt_copy_raised"] = "Checksum mismatch" in str(e)
+            finally:
+                del os.environ["TPUSNAPSHOT_COPY_BUDGET_BYTES"]
+            record["corrupt_copy_left_metadata"] = os.path.exists(
+                os.path.join(paths["from_corrupt"], ".snapshot_metadata"))
+
+        rc, out, seconds, err = _inspect_cli(paths["copy"], "--verify")
+        record["cli_verify"] = {"rc": rc, "seconds": seconds, "lines": out[:4], "stderr": err if rc != 1 else ""}
+        rc, out, seconds, err = _inspect_cli(paths["changed"], "--diff", paths["copy"])
+        record["cli_diff"] = {"rc": rc, "seconds": seconds, "summary": out[-1:] if out else [],
+                              "stderr": err if rc != 1 else ""}
+        record["launches"] = {"flash_fwd": attention.flash_forward_launches,
+                              "xs128_box": fops.fingerprint_box_launches,
+                              "xs128_chunked": fops.fingerprint_chunked_launches}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit(record)
+    n = len(leaves)
+    unchanged = sorted(set(flat_of(model)) - set(changed_paths))
+    partial = record["partial_restore"]
+    gates = {
+        "verify of the take is clean": clean,
+        "diff names exactly the changed leaves": diff["changed"] == changed_paths
+        and diff["unchanged"] == unchanged and not (diff["added"] or diff["removed"] or diff["unknown"]),
+        "diff reads no payload byte": record["diff"]["payload_bytes_read"] == 0,
+        "partial restore reads exactly the selected leaves' bytes": partial["bytes_read"] == partial["selected_bytes"]
+        and partial["selected_leaves"] == 8,
+        "partial restore launches K4 once a selected leaf": partial["k4_launches"] == partial["selected_leaves"]
+        and partial["verify_stats"] == {"verified": 8, "skipped": 0},
+        "partial restore lands the selected leaves": partial["selected_equal"],
+        "partial restore leaves every other leaf as it was": partial["others_untouched"],
+        "the copy restores to bit-identical K1 logits": record["copy_logits_bit_identical"],
+        "verify names exactly the flipped object": record["verify_corrupt"]["named"] == [victim],
+        "copy_to from the corrupt copy raises": record["corrupt_copy_raised"],
+        "the failed copy leaves no metadata": not record["corrupt_copy_left_metadata"],
+        "inspect --verify exits 1 naming the object": record["cli_verify"]["rc"] == 1
+        and any(line.startswith(f"BAD {victim}:") for line in record["cli_verify"]["lines"]),
+        "inspect --diff exits 1 with the changed leaves": record["cli_diff"]["rc"] == 1
+        and record["cli_diff"]["summary"] == [
+            f"0 added, 0 removed, {len(changed_paths)} changed, {n - len(changed_paths)} unchanged, 0 unknown"],
+        "K1 and K4 ran on the path": record["launches"]["flash_fwd"] == 2 * cfg.n_layers
+        and record["launches"]["xs128_box"] == 2 * n + 8,
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"api phase: {failed}")
     return record
 
 
@@ -2040,6 +2269,7 @@ def main():
     fingerprint = phase_kernel_fingerprint()
     main_path, model, tokens = phase_main_path(transfer_record["h2d_pinned_gbps"])
     dedup = phase_dedup(model, tokens)
+    api = phase_api(model, tokens, {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")})
     del model, tokens
     torch.cuda.empty_cache()
     phase_torn_leaf()
@@ -2067,6 +2297,7 @@ def main():
         "replaces": "torchsnapshot_tpu/ops/attention.py:103",
         "launches": train["launches"]["flash_fwd"],
         "launches_forward_path": main_path["flash_launches"],
+        "launches_api_path": api["launches"]["flash_fwd"],
         "launches_multi_rank_path": multi_rank["flash_launches"],
         **sp_launches(0),
         "ring_chunk": chunk_row(flash["ring_chunk_causal"], "kernel_ms", "bound_ms"),
@@ -2107,6 +2338,7 @@ def main():
             "source": "torchsnapshot_tpu_torch/csrc/fingerprint.cu",
             "replaces": f"torchsnapshot_tpu/fingerprint.py:{line}",
             "launches": dedup["launches"][name],
+            "launches_api_path": api["launches"][name],
             "max_abs_err": fingerprint["max_abs_err"],
             # At the 40.96 MB w1; the embed and the whole state beside it.
             "ms": w1[f"{key}_ms"],

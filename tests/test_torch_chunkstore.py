@@ -1,5 +1,6 @@
 """The port's content-chunk store: the cases of tests/test_chunkstore.py
-without telemetry, doctor, snapserve, copy_to or verify, the fault-free
+without telemetry, doctor or snapserve (verify and copy_to held against
+the JAX package on the same snapshots), the fault-free
 cases of tests/test_chunkstore_gc.py, and stores shared between the port
 and the JAX package in both directions (equal bytes, equal keys)."""
 
@@ -307,6 +308,71 @@ def test_corrupt_chunk_fails_the_restore_and_leaves_the_template(tmp_path):
     open(victim, "wb").write(bytes(raw))
     with pytest.raises(RuntimeError, match="corrupt"):
         _assert_restores(Snapshot(s.path), state)
+
+
+def test_verify_detects_corrupt_chunk(tmp_path):
+    """verify() names the one corrupt chunk object, as the JAX package's
+    does on the same snapshot, and the restore fails."""
+    d = str(tmp_path)
+    state = _state(12)
+    s = Snapshot.take(f"{d}/step-1", state, chunks=True)
+    assert s.verify() == {}
+    victim = _store_objects(d)[0]
+    raw = bytearray(open(victim, "rb").read())
+    raw[len(raw) // 2] ^= 0xFF
+    open(victim, "wb").write(bytes(raw))
+    problems = Snapshot(s.path).verify()
+    assert problems == jsnap.Snapshot(s.path).verify()
+    assert list(problems) == ["@base0/objects/" + victim.rsplit("/objects/", 1)[1]]
+    with pytest.raises(RuntimeError):
+        _assert_restores(Snapshot(s.path), state)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_copy_to_materializes_self_contained(tmp_path, writer):
+    """A port copy of a chunked (zlib-coded) snapshot of either package
+    holds plain objects, verifies clean, and restores through both
+    packages after the whole source run, store included, is gone."""
+    import shutil
+
+    d = str(tmp_path)
+    arrays = _arrays(13)
+    if writer == "port":
+        Snapshot.take(f"{d}/step-1", {"m": StateDict(**{k: torch.from_numpy(v.copy()) for k, v in arrays.items()})},
+                      chunks=True, codec="zlib")
+    else:
+        jsnap.Snapshot.take(f"{d}/step-1", {"m": jsnap.StateDict(**arrays)}, chunks=True, codec="zlib")
+    dest = f"{d}/copies/flat"
+    c = Snapshot(f"{d}/step-1").copy_to(dest)
+    assert not chunkstore.manifest_has_chunks(c.get_manifest())
+    assert c.verify() == jsnap.Snapshot(dest).verify() == {}
+    shutil.rmtree(f"{d}/.chunkstore")
+    shutil.rmtree(f"{d}/step-1")
+    _assert_restores(Snapshot(dest), {"m": StateDict(**{k: torch.from_numpy(v) for k, v in arrays.items()})})
+    t = jsnap.StateDict(**{k: np.zeros_like(v) for k, v in arrays.items()})
+    jsnap.Snapshot(dest).restore({"m": t})
+    for k, v in arrays.items():
+        assert np.asarray(t[k]).tobytes() == v.tobytes(), k
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_partial_restore_of_a_chunked_snapshot(tmp_path, writer):
+    """restore(paths=) reads the selected leaf's chunks through the store
+    and leaves the other leaf as it was, as the JAX package does."""
+    d = str(tmp_path)
+    arrays = _arrays(16)
+    if writer == "port":
+        Snapshot.take(f"{d}/step-1", {"m": StateDict(**{k: torch.from_numpy(v.copy()) for k, v in arrays.items()})},
+                      chunks=True, fingerprint=True)
+    else:
+        jsnap.Snapshot.take(f"{d}/step-1", {"m": jsnap.StateDict(**arrays)}, chunks=True, fingerprint=True)
+    t = {"m": StateDict(**{k: torch.full(v.shape, 2.0) for k, v in arrays.items()})}
+    Snapshot(f"{d}/step-1").restore(t, paths=["m/emb"], verify_device=True)
+    jt = jsnap.StateDict(**{k: np.full(v.shape, 2.0, np.float32) for k, v in arrays.items()})
+    jsnap.Snapshot(f"{d}/step-1").restore({"m": jt}, paths=["m/emb"])
+    assert t["m"]["emb"].numpy().tobytes() == np.asarray(jt["emb"]).tobytes() == arrays["emb"].tobytes()
+    assert torch.equal(t["m"]["w"], torch.full((64, 64), 2.0)) and (np.asarray(jt["w"]) == 2.0).all()
+    assert snapshot_mod._last_verify_stats == {"verified": 1, "skipped": 0}
 
 
 def test_read_object_on_chunked_entry(tmp_path):

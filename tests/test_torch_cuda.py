@@ -584,8 +584,9 @@ def test_verify_device_catches_a_byte_flipped_in_hbm(cuda, tmp_path, monkeypatch
     real = snapshot_mod._load_stateful
 
     def flip_after_landing(*args, **kwargs):
-        real(*args, **kwargs)
+        selected = real(*args, **kwargs)
         args[1].state_dict()["w"].view(torch.uint8)[100] ^= 1  # in HBM
+        return selected
 
     monkeypatch.setattr(snapshot_mod, "_load_stateful", flip_after_landing)
     with pytest.raises(RuntimeError, match="m/w"):
@@ -641,3 +642,61 @@ def test_complex_leaf_on_the_card_is_chunked_by_k5_on_its_bytes(cuda, tmp_path):
     target = StateDict(z=torch.zeros_like(z))
     Snapshot(str(tmp_path / "step-1")).restore({"m": target})
     assert torch.equal(target["z"], z)
+
+
+# ---- The rest of the API on the card: partial restores, verify, copy_to.
+
+
+def test_partial_restore_into_cuda_templates_leaves_the_others_untouched(cuda, tmp_path):
+    """restore(paths=) into CUDA templates: the selected leaves land in
+    their tensors; every other leaf keeps its storage and its bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    saved = {f"w{i}": torch.randn(4096 + i, generator=gen, device=cuda) for i in range(4)}
+    saved["big"] = torch.randn(5 << 20, generator=gen, device=cuda)  # 20 MiB: two staging slots
+    Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(**saved)}, fingerprint=True)
+    target = StateDict(**{k: torch.full_like(v, 7.0) for k, v in saved.items()})
+    ptrs = {k: v.data_ptr() for k, v in target.items()}
+    Snapshot(str(tmp_path / "snap")).restore({"m": target}, paths=["m/w1", "m/big"])
+    torch.cuda.synchronize()
+    for k, v in target.items():
+        assert v.is_cuda and v.data_ptr() == ptrs[k], k
+        if k in ("w1", "big"):
+            assert torch.equal(v, saved[k]), k
+        else:
+            assert torch.equal(v, torch.full_like(v, 7.0)), k
+
+
+def test_verify_device_with_paths_launches_k4_once_a_selected_leaf(cuda, tmp_path):
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    saved = {f"l{i}/w": torch.randn(2048, generator=gen, device=cuda) for i in range(6)}
+    app = {"m": StateDict(layers={k.split("/")[0]: {"w": v} for k, v in saved.items()})}
+    Snapshot.take(str(tmp_path / "snap"), app, fingerprint=True)
+    target = {"m": StateDict(layers={k.split("/")[0]: {"w": torch.zeros_like(v)} for k, v in saved.items()})}
+    before = ops.fingerprint_box_launches
+    Snapshot(str(tmp_path / "snap")).restore(target, paths=["m/layers/l2/**", "m/layers/l4/**"],
+                                            verify_device=True)
+    torch.cuda.synchronize()
+    assert ops.fingerprint_box_launches - before == 2
+    assert snapshot_mod._last_verify_stats == {"verified": 2, "skipped": 0}
+    layers = target["m"]["layers"]
+    assert torch.equal(layers["l2"]["w"], saved["l2/w"]) and not layers["l3"]["w"].any()
+
+
+def test_verify_and_copy_to_of_a_cuda_snapshot_touch_no_device(cuda, tmp_path, monkeypatch):
+    """verify() and copy_to() work from storage alone: no kernel launch,
+    no device allocation."""
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    w = torch.randn(1 << 16, device=cuda)
+    Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(w=w)}, fingerprint=True)
+    torch.cuda.synchronize()
+    allocated, launches = torch.cuda.memory_allocated(), ops.fingerprint_box_launches
+    assert Snapshot(str(tmp_path / "snap")).verify() == {}
+    Snapshot(str(tmp_path / "snap")).copy_to(str(tmp_path / "copy"))
+    assert (torch.cuda.memory_allocated(), ops.fingerprint_box_launches) == (allocated, launches)
+    target = StateDict(w=torch.zeros_like(w))
+    Snapshot(str(tmp_path / "copy")).restore({"m": target})
+    assert torch.equal(target["w"], w)

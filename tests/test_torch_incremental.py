@@ -1,13 +1,16 @@
 """Incremental (deduplicated) takes of the port: the cases of
-tests/test_incremental.py whose features the port has (not copy_to,
-verify, diff, paths= or the inspect CLI), on CPU tensors, and chains
-crossing between the port and the JAX package in both directions."""
+tests/test_incremental.py, on CPU tensors (copy_to, verify, diff and
+paths= over references held against the JAX package on the same
+snapshots), and chains crossing between the port and the JAX package in
+both directions."""
 
 import json
 import logging
 import os
 import shutil
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -167,6 +170,7 @@ def test_base_without_fingerprints_degrades_to_full_write(tmp_path):
     s2 = Snapshot.take(_path(tmp_path, "s2"), app, base=s1)
     assert s2.get_manifest()["0/model/w"].base is None
     assert _count_payload_files(_path(tmp_path, "s2")) == 2
+    assert s2.verify() == {}
     Snapshot.take(_path(tmp_path, "s3"), app, base=s2)
     assert _count_payload_files(_path(tmp_path, "s3")) == 0
 
@@ -180,6 +184,7 @@ def test_async_take_with_base(tmp_path):
     fresh = _fresh()
     s2.restore(fresh)
     assert np.array_equal(fresh["model"]["b"], app["model"]["b"])
+    assert s2.verify() == {}
 
 
 def test_moved_family_rel_refs(tmp_path):
@@ -192,6 +197,7 @@ def test_moved_family_rel_refs(tmp_path):
     fresh = _fresh()
     Snapshot(str(tmp_path / "archive" / "s2")).restore(fresh)
     assert torch.equal(fresh["model"]["w"], app["model"]["w"])
+    assert Snapshot(str(tmp_path / "archive" / "s2")).verify() == {}
 
 
 def test_read_object_through_refs(tmp_path):
@@ -392,8 +398,10 @@ def test_incremental_across_compression_change(tmp_path):
     fresh = {"model": StateDict(w=torch.zeros(4096))}
     s2.restore(fresh, verify_device=True)
     assert torch.equal(fresh["model"]["w"], app["model"]["w"])
+    assert s2.verify() == {}
     s3 = Snapshot.take(_path(tmp_path, "s3"), app, base=s2, compression="zlib")
     assert s3.get_manifest()["0/model/w"].base is not None
+    assert s3.verify() == {}
 
 
 def test_incremental_bfloat16_leaves(tmp_path):
@@ -415,6 +423,7 @@ def test_rng_state_flows_through_incremental(tmp_path):
     torch.manual_seed(99)
     s2.restore({"rng": RNGState(), "model": _state(seed=5)})
     assert torch.equal(torch.rand(1), expected)
+    assert s2.verify() == {}
 
 
 def test_complex_leaf_degrades_to_unfingerprinted_full_write(tmp_path):
@@ -518,3 +527,172 @@ def test_out_of_range_base_index_degrades_to_a_full_write(tmp_path, caplog):
             _jax_app(app["model"]["w"].numpy(), app["model"]["b"]),
             base=_path(tmp_path, "s2"),
         )
+
+
+# ---- copy_to, verify, paths= and diff over references (the cases held
+# back until these calls were ported), each against the JAX package.
+
+
+def _take(kind, path, arrays, **kwargs):
+    """Take ``{"model": arrays}`` with ``kind``'s package (arrays as its
+    own tensors; other values as they are)."""
+    if kind == "port":
+        sd = StateDict(**{k: torch.from_numpy(v.copy()) if isinstance(v, np.ndarray) else v
+                          for k, v in arrays.items()})
+        return Snapshot.take(path, {"model": sd}, **kwargs)
+    sd = jsnap.StateDict(**{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+                            for k, v in arrays.items()})
+    return jsnap.Snapshot.take(path, {"model": sd}, **kwargs)
+
+
+def _arrays(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"w": rng.randn(1024).astype(np.float32), "b": rng.randn(32).astype(np.float32), "step": 7}
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_copy_to_survives_base_deletion(tmp_path, writer):
+    """A port copy of an incremental snapshot (of either package)
+    materialises the borrowed objects: it restores through both packages
+    after its base and itself are deleted, and verifies clean."""
+    a = _arrays()
+    base = _take(writer, _path(tmp_path, "s1"), a, fingerprint=True)
+    _take(writer, _path(tmp_path, "s2"), a, base=base)
+    flat = Snapshot(_path(tmp_path, "s2")).copy_to(_path(tmp_path, "flat"))
+    assert not Snapshot(flat.path).get_manifest()["0/model/w"].base
+    Snapshot(_path(tmp_path, "s2")).delete()
+    Snapshot(_path(tmp_path, "s1")).delete()
+    fresh = _fresh()
+    flat.restore(fresh)
+    assert fresh["model"]["w"].numpy().tobytes() == a["w"].tobytes()
+    jfresh = jsnap.StateDict(w=np.zeros(1024, np.float32), b=np.zeros(32, np.float32), step=0)
+    jsnap.Snapshot(flat.path).restore({"model": jfresh})
+    assert np.asarray(jfresh["w"]).tobytes() == a["w"].tobytes() and jfresh["step"] == 7
+    assert flat.verify() == jsnap.Snapshot(flat.path).verify() == {}
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_verify_detects_corrupt_base_object(tmp_path, writer):
+    """A byte flipped in the base's object shows in the incremental
+    snapshot's verify(), through its reference, in both packages."""
+    a = _arrays()
+    base = _take(writer, _path(tmp_path, "s1"), a, fingerprint=True)
+    _take(writer, _path(tmp_path, "s2"), a, base=base)
+    target = tmp_path / "s1" / "0" / "model" / "w"
+    raw = bytearray(target.read_bytes())
+    raw[10] ^= 0xFF
+    target.write_bytes(bytes(raw))
+    problems = Snapshot(_path(tmp_path, "s2")).verify()
+    assert problems == jsnap.Snapshot(_path(tmp_path, "s2")).verify()
+    assert list(problems) == ["@base0/0/model/w"] and "Checksum mismatch" in problems["@base0/0/model/w"]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_paths_filter_restore_with_refs(tmp_path, writer):
+    """A filtered restore reads the borrowed leaf through its reference
+    and leaves the others as they were, as the JAX package does."""
+    a = _arrays()
+    base = _take(writer, _path(tmp_path, "s1"), a, fingerprint=True)
+    _take(writer, _path(tmp_path, "s2"), a, base=base)
+    fresh = _fresh()
+    Snapshot(_path(tmp_path, "s2")).restore(fresh, paths=["model/w"], verify_device=True)
+    assert fresh["model"]["w"].numpy().tobytes() == a["w"].tobytes()
+    assert not fresh["model"]["b"].any() and fresh["model"]["step"] == 0
+    assert snapshot_mod._last_verify_stats == {"verified": 1, "skipped": 0}
+    jfresh = jsnap.StateDict(w=np.zeros(1024, np.float32), b=np.zeros(32, np.float32), step=0)
+    jsnap.Snapshot(_path(tmp_path, "s2")).restore({"model": jfresh}, paths=["model/w"])
+    assert np.asarray(jfresh["w"]).tobytes() == a["w"].tobytes() and not np.asarray(jfresh["b"]).any()
+
+
+def _diff_both(newer, older):
+    got = Snapshot(newer).diff(older)
+    assert got == jsnap.Snapshot(newer).diff(older)
+    return got
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_diff_reports_changed_and_unchanged(tmp_path, writer):
+    a = {"w": np.arange(128, dtype=np.float32), "b": np.ones(16, np.float32), "lr": 0.1}
+    _take(writer, _path(tmp_path, "s1"), a, fingerprint=True)
+    a2 = {"b": a["b"] + 1.0, "lr": 0.01, "new": np.zeros(4, np.float32)}
+    s2 = _take(writer, _path(tmp_path, "s2"), a2, fingerprint=True)
+    d = _diff_both(_path(tmp_path, "s2"), _path(tmp_path, "s1"))
+    assert d == {"added": ["model/new"], "removed": ["model/w"], "changed": ["model/b", "model/lr"],
+                 "unchanged": [], "unknown": []}
+    _take(writer, _path(tmp_path, "s3"), a2, base=s2)
+    d2 = _diff_both(_path(tmp_path, "s3"), _path(tmp_path, "s2"))
+    assert d2["unchanged"] == ["model/b", "model/lr", "model/new"]
+    assert not d2["added"] and not d2["removed"] and not d2["changed"]
+
+
+def test_diff_reads_no_payload(tmp_path, monkeypatch):
+    from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+
+    a = _arrays()
+    s1 = Snapshot.take(_path(tmp_path, "s1"), {"model": StateDict(w=torch.from_numpy(a["w"]))},
+                       fingerprint=True)
+    Snapshot.take(_path(tmp_path, "s2"), {"model": StateDict(w=torch.from_numpy(a["w"] + 1))}, base=s1)
+    reads = []
+    real = FSStoragePlugin.read
+
+    async def spy(self, io_req):
+        reads.append(io_req.path)
+        await real(self, io_req)
+
+    monkeypatch.setattr(FSStoragePlugin, "read", spy)
+    assert Snapshot(_path(tmp_path, "s2")).diff(_path(tmp_path, "s1"))["changed"] == ["model/w"]
+    assert reads == [".snapshot_metadata", ".snapshot_metadata"]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_diff_without_fingerprints_uses_checksums(tmp_path, writer):
+    a = {"w": np.arange(128, dtype=np.float32)}
+    _take(writer, _path(tmp_path, "s1"), a)
+    _take(writer, _path(tmp_path, "s2"), a)
+    assert _diff_both(_path(tmp_path, "s2"), _path(tmp_path, "s1"))["unchanged"] == ["model/w"]
+    _take(writer, _path(tmp_path, "s3"), {"w": a["w"] + 1})
+    assert _diff_both(_path(tmp_path, "s3"), _path(tmp_path, "s1"))["changed"] == ["model/w"]
+    # Different compression: checksums not comparable, no fingerprints.
+    _take(writer, _path(tmp_path, "s4"), a, compression="zlib")
+    assert _diff_both(_path(tmp_path, "s4"), _path(tmp_path, "s1"))["unknown"] == ["model/w"]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_diff_sharded_region_granular(tmp_path, writer, monkeypatch):
+    """A sharded value (mesh-sharded by JAX, chunked dense in 256-byte
+    regions by the port) compares region by region."""
+    x = np.ones((8, 16), np.float32)
+
+    def take(name, host):
+        if writer == "jax":
+            mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]), ("dp",))
+            value = jax.device_put(host, jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("dp")))
+            jsnap.Snapshot.take(_path(tmp_path, name), {"model": jsnap.StateDict(emb=value)}, fingerprint=True)
+        else:
+            monkeypatch.setattr(io_preparer, "MAX_CHUNK_SIZE_BYTES", 64)
+            Snapshot.take(_path(tmp_path, name), {"model": StateDict(emb=torch.from_numpy(host.copy()))},
+                          fingerprint=True)
+
+    take("s1", x)
+    host = x.copy()
+    host[2] = 5.0
+    take("s2", host)
+    assert len(Snapshot(_path(tmp_path, "s2")).get_manifest()["0/model/emb"].shards) == 8
+    assert _diff_both(_path(tmp_path, "s2"), _path(tmp_path, "s1"))["changed"] == ["model/emb"]
+    take("s3", host)
+    assert _diff_both(_path(tmp_path, "s3"), _path(tmp_path, "s2"))["unchanged"] == ["model/emb"]
+
+
+def test_inspect_diff_cli_over_an_incremental_chain(tmp_path, capsys):
+    from torchsnapshot_tpu.inspect import main as jax_main
+    from torchsnapshot_tpu_torch.inspect import main
+
+    a = _arrays()
+    s1 = Snapshot.take(_path(tmp_path, "s1"), {"model": StateDict(w=torch.from_numpy(a["w"]))},
+                       fingerprint=True)
+    Snapshot.take(_path(tmp_path, "s2"), {"model": StateDict(w=torch.from_numpy(a["w"] * 2))}, base=s1)
+    argv = [_path(tmp_path, "s2"), "--diff", _path(tmp_path, "s1")]
+    assert main(argv) == 1
+    out = capsys.readouterr().out
+    assert jax_main(argv) == 1 and capsys.readouterr().out == out
+    assert "changed  model/w" in out

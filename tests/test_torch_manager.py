@@ -257,3 +257,25 @@ def test_fn_stateful_round_trips(tmp_path):
     box["v"] = torch.zeros(6)
     Snapshot(str(tmp_path / "snap")).restore(app)
     assert torch.equal(box["v"], torch.arange(6.0))
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_manager_restore_with_paths(tmp_path, writer):
+    """CheckpointManager.restore(paths=) resolves the latest step and
+    restores the filtered leaves, as the JAX manager does."""
+    from test_torch_partial_restore import _app, _arrays, _as_np
+
+    mgr_cls = CheckpointManager if writer == "port" else jsnap.CheckpointManager
+    mgr = mgr_cls(str(tmp_path))
+    mgr.save(1, _app(writer, _arrays()))
+    mgr.save(2, _app(writer, {k: v + 1 for k, v in _arrays().items()}))
+    port, jax_app = _app("port"), _app("jax")
+    assert CheckpointManager(str(tmp_path)).restore(port, paths=["model/head"]) == 2
+    assert jsnap.CheckpointManager(str(tmp_path)).restore(jax_app, paths=["model/head"]) == 2
+    got, ref = _as_np(port), _as_np(jax_app)
+    assert got["head"].tobytes() == ref["head"].tobytes() == (_arrays()["head"] + 1).tobytes()
+    assert not got["w0"].any() and got["step"] == ref["step"] == -1
+    assert CheckpointManager(str(tmp_path)).restore(port, step=1, paths=["optim/**"]) == 1
+    assert port["optim"].sd["mu"].numpy().tobytes() == _arrays()["mu"].tobytes()
+    with pytest.raises(RuntimeError, match="matched no leaf"):
+        CheckpointManager(str(tmp_path)).restore(_app("port"), paths=["nothing/**"])

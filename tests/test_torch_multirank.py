@@ -35,7 +35,7 @@ from torchsnapshot_tpu_torch.models import transformer as ttf
 from torchsnapshot_tpu_torch.parallel.mesh import make_mesh, placements_for
 from torchsnapshot_tpu_torch.resharding import shard_box
 from torchsnapshot_tpu_torch.serialization import tensor_bytes
-from torchsnapshot_tpu_torch.utils.test_utils import run_multiprocess
+from torchsnapshot_tpu_torch.utils.test_utils import run_multiprocess, run_thread_ranks
 from torchsnapshot_tpu_torch.utils.train_state import PytreeStateful
 
 # max_seq_len 33: the positions, replicated in the tensor-parallel
@@ -393,3 +393,44 @@ def test_restore_refuses_corrupt_and_short_payloads(tmp_path):
     )
     with pytest.raises(RuntimeError, match="read 8 bytes where the manifest describes 32"):
         consumer._consume(bytes(8))
+
+
+def _rank_state(rank, torch_side):
+    """A replicated weight and a per-rank value, made from a seed."""
+    w = np.random.default_rng(0).standard_normal(64).astype(np.float32)
+    r = np.full(8, rank, np.float32)
+    if torch_side:
+        return {"m": StateDict(w=torch.from_numpy(w), r=torch.from_numpy(r))}, (w, r)
+    return {"m": jsnap.StateDict(w=w, r=r)}, (w, r)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_a_rank_with_another_path_writes_under_rank_0s(tmp_path, writer):
+    """A rank passing another path than rank 0's warns and writes under
+    rank 0's path: one snapshot, which restores bit-exactly at world 2
+    through the other package; rank 1's path stays empty."""
+    paths = [str(tmp_path / "rank0"), str(tmp_path / "rank1")]
+
+    def take(coord, rank):
+        app, _ = _rank_state(rank, writer == "port")
+        pkg = Snapshot if writer == "port" else jsnap.Snapshot
+        return pkg.take(paths[rank], app, coord=coord, replicated=["m/w"]).path
+
+    launch = run_thread_ranks if writer == "port" else jax_thread_ranks
+    assert launch(2, take) == [paths[0], paths[0]]
+    assert not os.path.exists(paths[1])
+    assert os.path.exists(os.path.join(paths[0], ".snapshot_metadata"))
+
+    def restore(coord, rank):
+        _, (w, r) = _rank_state(rank, True)
+        if writer == "port":
+            target = jsnap.StateDict(w=np.zeros(64, np.float32), r=np.zeros(8, np.float32))
+            jsnap.Snapshot(paths[0]).restore({"m": target}, coord=coord)
+            got = (np.asarray(target["w"]), np.asarray(target["r"]))
+        else:
+            target = StateDict(w=torch.zeros(64), r=torch.zeros(8))
+            Snapshot(paths[0]).restore({"m": target}, coord=coord)
+            got = (target["w"].numpy(), target["r"].numpy())
+        assert got[0].tobytes() == w.tobytes() and got[1].tobytes() == r.tobytes()
+
+    (jax_thread_ranks if writer == "port" else run_thread_ranks)(2, restore)

@@ -24,7 +24,7 @@ from torchsnapshot_tpu_torch import (
     get_coordinator,
     io_preparer,
 )
-from torchsnapshot_tpu_torch.manifest import ArrayEntry, ShardedArrayEntry
+from torchsnapshot_tpu_torch.manifest import ArrayEntry, ShardedArrayEntry, SnapshotMetadata
 from torchsnapshot_tpu_torch.models import transformer as ttf
 from torchsnapshot_tpu_torch.scheduler import available_memory_bytes
 from torchsnapshot_tpu_torch.serialization import tensor_bytes
@@ -371,8 +371,8 @@ def test_memory_storage_and_unported_backends(tmp_path):
     target = StateDict(w=torch.zeros(10, dtype=torch.int64))
     Snapshot("memory://bucket/step-1").restore({"m": target})
     assert torch.equal(target["w"], w)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Snapshot.take("gs://bucket/x", {"m": StateDict(w=w)})
+    with pytest.raises(NotImplementedError, match="not yet ported.*Queue 1 item 10"):
+        Snapshot.take("snapserve://localhost:1/memory://bucket/x", {"m": StateDict(w=w)})
 
 
 def test_coordination_pieces(tmp_path):
@@ -429,3 +429,54 @@ def test_storage_ops_retry_transient_failures_only(monkeypatch):
     with pytest.raises(FileNotFoundError):
         asyncio.run(plugin.read(IOReq(path="missing")))
     assert Flaky.reads == 3
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_sync_take_commits_through_storage_above_the_threshold(tmp_path, monkeypatch, world):
+    """Above TPUSNAPSHOT_COMMIT_VIA_STORAGE_BYTES the sync take commits
+    through storage markers: the same metadata, byte for byte (take_id
+    apart), as the gather's, no marker left behind, and a snapshot that
+    restores through the JAX package on every rank."""
+    from torchsnapshot_tpu.utils.test_utils import run_thread_ranks as jax_thread_ranks
+    from torchsnapshot_tpu_torch import snapshot as snapshot_mod
+    from torchsnapshot_tpu_torch.utils.test_utils import run_thread_ranks
+
+    shared = np.random.default_rng(1).standard_normal(300).astype(np.float32)
+
+    def app(rank):
+        return {"m": StateDict(
+            w=torch.full((16,), float(rank)), shared=torch.from_numpy(shared.copy()),
+            step=rank, name=f"rank-{rank}",
+        )}
+
+    routes = []
+    real = snapshot_mod._acommit_via_storage
+
+    async def spy(*args, **kwargs):
+        routes.append(kwargs["snapshot_path"])
+        return await real(*args, **kwargs)
+
+    monkeypatch.setattr(snapshot_mod, "_acommit_via_storage", spy)
+
+    def take(path):
+        run_thread_ranks(world, lambda c, r: Snapshot.take(path, app(r), coord=c, replicated=["m/shared"]))
+        return (tmp_path / path / ".snapshot_metadata").read_bytes()
+
+    gathered = take(str(tmp_path / "gathered"))
+    assert routes == []
+    monkeypatch.setenv("TPUSNAPSHOT_COMMIT_VIA_STORAGE_BYTES", "100")
+    stored = take(str(tmp_path / "stored"))
+    assert routes == [str(tmp_path / "stored")] * world  # every rank's marker
+    assert not [p for p in (tmp_path / "stored").rglob(".completed/**/*") if p.is_file()]
+    ids = [SnapshotMetadata.from_yaml(doc.decode()).take_id for doc in (gathered, stored)]
+    assert gathered.replace(ids[0].encode(), b"ID") == stored.replace(ids[1].encode(), b"ID")
+
+    def restore(coord, rank):
+        target = jsnap.StateDict(w=np.zeros(16, np.float32), shared=np.zeros(300, np.float32),
+                                 step=-1, name="")
+        jsnap.Snapshot(str(tmp_path / "stored")).restore({"m": target}, coord=coord)
+        assert np.asarray(target["w"]).tobytes() == np.full(16, rank, np.float32).tobytes()
+        assert np.asarray(target["shared"]).tobytes() == shared.tobytes()
+        assert (target["step"], target["name"]) == (rank, f"rank-{rank}")
+
+    jax_thread_ranks(world, restore)

@@ -7,9 +7,12 @@ rank or every rank of a ``torch.distributed`` job, elastically: a state
 of sharded and replicated values saved by N ranks restores on M. Manages
 step-indexed checkpoints with retention; deduplicates takes (compression,
 incremental takes against a base, a content-chunk store shared by a run,
-with xs128 fingerprints computed by hand-written CUDA kernels); and trains
-the flagship transformer with hand-written CUDA flash-attention kernels,
-forward and backward. Imports neither JAX nor the JAX package.
+with xs128 fingerprints computed by hand-written CUDA kernels); restores
+selected leaves (``paths=``), verifies, copies and diffs snapshots, on the
+local filesystem, in memory, on GCS or S3 (``python -m
+torchsnapshot_tpu_torch.inspect`` from the shell); and trains the flagship
+transformer with hand-written CUDA flash-attention kernels, forward and
+backward. Imports neither JAX nor the JAX package.
 """
 
 from .coord import (

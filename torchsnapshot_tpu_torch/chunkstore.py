@@ -585,7 +585,7 @@ def decode_and_verify_chunk(
         if actual != expected_fp:
             raise RuntimeError(
                 f"content chunk {key}: stored bytes decode to content fingerprinting "
-                f"as {actual}: the store object is corrupt or mis-addressed{note}"
+                f"as {actual} — the store object is corrupt or mis-addressed{note}"
             )
 
     if out is not None and codec in (None, "identity"):
@@ -607,7 +607,9 @@ def decode_and_verify_chunk(
             logical, codec = bytes(stored), None
         if codecs.is_lossy(codec):
             if len(logical) != logical_n:
-                raise RuntimeError(f"content chunk {key}: decoded {len(logical)} bytes, expected {logical_n}")
+                raise RuntimeError(
+                    f"content chunk {key}: decoded {len(logical)} bytes, expected {logical_n}{note}"
+                )
         else:
             check_content(logical)
     if stale_note:

@@ -7,7 +7,7 @@
   is where deserialization and the host→device copy happen.
 - ``WriteReq``/``ReadReq`` pair a storage path with a stager/consumer.
 - ``IOReq`` is the unit handed to a ``StoragePlugin``.
-- ``StoragePlugin`` — async write/read/delete/list + sync close;
+- ``StoragePlugin`` — async write/read/delete/list/age/size + sync close;
   concrete backends live in ``torchsnapshot_tpu_torch.storage_plugins``.
 - ``RetryingStoragePlugin`` — capped, jittered retries around every op.
 """
@@ -29,13 +29,77 @@ BufferType = Union[bytes, bytearray, memoryview]
 logger = logging.getLogger(__name__)
 
 
+def _code_attr_http_status(exc: BaseException) -> Optional[int]:
+    """The exception's ``.code`` as an int, but only when the exception
+    looks like an HTTP client's: ``code`` is also a gRPC status or a
+    library's own error number, and reading those as HTTP statuses would
+    make a retryable failure look deterministic. The test: an ``errors``
+    or ``response`` attribute (google.api_core carries both), or a
+    defining module of an HTTP client."""
+    code = getattr(exc, "code", None)
+    if code is None:
+        return None
+    if not (
+        hasattr(exc, "errors")
+        or getattr(exc, "response", None) is not None
+        or any(
+            tok in type(exc).__module__
+            for tok in ("google", "http", "urllib", "requests", "aiohttp")
+        )
+    ):
+        return None
+    try:
+        return int(code)
+    except (TypeError, ValueError):
+        return None
+
+
 def is_not_found_error(exc: BaseException) -> bool:
-    """Whether a storage failure means "object does not exist" — the
-    dialect both ported backends (fs, memory) speak. Not-found is
-    deterministic: the retry layer never retries it. (The JAX package
-    also classifies cloud clients' 404s; those backends are not ported.)
-    """
-    return isinstance(exc, FileNotFoundError)
+    """Whether a storage failure means "object does not exist".
+
+    fs and memory raise ``FileNotFoundError``; the cloud clients' errors
+    carry NotFound / NoSuchKey in their type's name or a structured 404.
+    Classified by structure, never by message text (a proxy's error page
+    may contain "404"). Not-found is deterministic: the retry layer never
+    retries it, and pollers read it as "not yet"."""
+    if isinstance(exc, FileNotFoundError):
+        return True
+    for klass in type(exc).__mro__:
+        if klass.__name__ in ("NotFound", "NoSuchKey", "NoSuchBucket"):
+            return True
+    if _code_attr_http_status(exc) == 404:
+        return True
+    response = getattr(exc, "response", None)
+    if isinstance(response, dict):
+        error_code = response.get("Error", {}).get("Code")
+        if error_code in ("404", "NoSuchKey", "NotFound", "NoSuchBucket"):
+            return True
+        if response.get("ResponseMetadata", {}).get("HTTPStatusCode") == 404:
+            return True
+    return False
+
+
+def is_range_not_satisfiable_error(exc: BaseException) -> bool:
+    """Whether a storage failure means "the requested byte range starts
+    at or past the end of the object" (GCS 416, S3 InvalidRange). On
+    those backends a healthy object answers ``verify()``'s probe one byte
+    past its end this way, so the probe reads it as a clean end of file.
+    Deterministic, like not-found: never retried. Classified by structure,
+    never by message text."""
+    for klass in type(exc).__mro__:
+        if klass.__name__ in (
+            "RequestRangeNotSatisfiable",
+            "RequestedRangeNotSatisfiable",
+            "InvalidRange",
+        ):
+            return True
+    response = getattr(exc, "response", None)
+    if isinstance(response, dict):
+        if response.get("Error", {}).get("Code") in ("416", "InvalidRange"):
+            return True
+        if response.get("ResponseMetadata", {}).get("HTTPStatusCode") == 416:
+            return True
+    return _code_attr_http_status(exc) == 416
 
 
 # Storage-op retry policy: decorrelated-jitter backoff (each delay drawn
@@ -72,7 +136,11 @@ async def retry_storage_op(make_coro, desc: str):
         except asyncio.CancelledError:
             raise
         except Exception as e:
-            if is_not_found_error(e) or attempt == attempts:
+            if (
+                is_not_found_error(e)
+                or is_range_not_satisfiable_error(e)
+                or attempt == attempts
+            ):
                 raise
             delay = min(
                 cap, _retry_rng.uniform(floor, max(floor, prev_delay * 3.0))
@@ -210,6 +278,13 @@ class StoragePlugin(abc.ABC):
         guard: they may belong to a take still in flight."""
         return None
 
+    async def object_size_bytes(self, path: str) -> Optional[int]:
+        """Stored size of ``path`` (a stat or HEAD, not a read), or None
+        when the backend cannot tell. ``copy_to`` admits object entries,
+        whose size the manifest does not record, against its byte budget
+        with it; an unknown size is admitted at the whole budget."""
+        return None
+
     def ensure_durable(self) -> None:
         """Make everything written through this plugin so far
         crash-durable. Called before the metadata commit, so a backend may
@@ -258,6 +333,11 @@ class RetryingStoragePlugin(StoragePlugin):
         # (spares the object) instead of reading it as "age unknown".
         return await retry_storage_op(
             lambda: self._inner.object_age_s(path), f"age({path})"
+        )
+
+    async def object_size_bytes(self, path: str) -> Optional[int]:
+        return await retry_storage_op(
+            lambda: self._inner.object_size_bytes(path), f"size({path})"
         )
 
     def ensure_durable(self) -> None:

@@ -455,10 +455,17 @@ class CheckpointManager:
 
     # ------------------------------------------------------------ restore
 
-    def restore(self, app_state: AppState, step: Optional[int] = None) -> int:
+    def restore(
+        self,
+        app_state: AppState,
+        step: Optional[int] = None,
+        paths: Optional[List[str]] = None,
+    ) -> int:
         """Restore ``app_state`` from ``step`` (default: the latest);
         returns the step restored. The latest step is resolved on rank 0
-        and broadcast, so a racing prune cannot split the ranks."""
+        and broadcast, so a racing prune cannot split the ranks.
+        ``paths`` restores only the matching leaves, as
+        :meth:`Snapshot.restore` does."""
         coordinator = get_coordinator(self._coord)
         if step is None:
             chosen = self.latest_step() if coordinator.get_rank() == 0 else None
@@ -468,7 +475,9 @@ class CheckpointManager:
                     f"No committed checkpoints under {self.base_path} "
                     f"(no {_STEP_PREFIX}* markers)."
                 )
-        Snapshot(_step_dir(self.base_path, step)).restore(app_state, coord=coordinator)
+        Snapshot(_step_dir(self.base_path, step)).restore(
+            app_state, coord=coordinator, paths=paths
+        )
         return step
 
 

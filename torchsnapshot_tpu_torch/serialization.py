@@ -90,6 +90,14 @@ def dtype_itemsize(name: str) -> int:
     return str_to_torch_dtype(name).itemsize
 
 
+def array_nbytes(dtype_name: str, shape: Any) -> int:
+    """Bytes of an uncompressed stored array of this dtype and shape."""
+    n = dtype_itemsize(dtype_name)
+    for dim in shape:
+        n *= int(dim)
+    return n
+
+
 def tensor_bytes(t: torch.Tensor) -> torch.Tensor:
     """The C-order payload bytes of ``t`` as a flat uint8 tensor on
     ``t``'s device: a view when ``t`` is contiguous, else a copy (0-d and

@@ -78,9 +78,29 @@ Deduplication, as the JAX package writes and reads it:
 A base path is compared with the take's path after normalisation (the
 ``fs`` scheme, ``os.path.normpath``, ``realpath`` for a filesystem path):
 a take can never use itself as its base, however the two are spelled.
-Not yet ported from the JAX package: ``verify``, ``copy_to``, ``diff``
-and restore ``paths=``. JAX PRNG-key leaves restore as their raw uint32
-key data.
+The rest of the API, as the JAX package has it:
+
+- ``restore(paths=[globs])`` restores only the leaves whose
+  ``"<stateful_key>/<flattened/path>"`` matches a glob (the others keep
+  their values, and only the selected leaves' objects are read); a
+  filter that matches nothing raises;
+- ``verify()`` scrubs every stored object against its checksum and size
+  (large objects streamed through a running crc32, content chunks
+  decoded and fingerprinted), touching no device, and returns
+  ``{location: problem}``;
+- ``copy_to(dest)`` copies the snapshot to another location or backend,
+  checking every payload in transit, materialising borrowed objects and
+  content chunks so the copy stands alone, metadata last;
+- ``diff(older)`` says which paths were added, removed, changed,
+  unchanged or unknown, from the two metadata documents alone;
+- a sync take whose manifest is larger than
+  ``TPUSNAPSHOT_COMMIT_VIA_STORAGE_BYTES`` (1 MiB) on some rank commits
+  through storage markers, as an async take does, instead of gathering
+  every manifest through the coordinator;
+- every rank takes rank 0's ``path`` (a rank that passed another logs a
+  warning).
+
+JAX PRNG-key leaves restore as their raw uint32 key data.
 """
 
 import asyncio
@@ -88,6 +108,7 @@ import fnmatch
 import json
 import logging
 import os
+import pickle
 import posixpath
 import threading
 import time
@@ -115,6 +136,7 @@ from .io_types import (
     WriteReq,
     io_payload,
     is_not_found_error,
+    is_range_not_satisfiable_error,
 )
 from .manifest import (
     ArrayEntry,
@@ -123,6 +145,7 @@ from .manifest import (
     ListEntry,
     Manifest,
     ObjectEntry,
+    PrimitiveEntry,
     ShardedArrayEntry,
     SnapshotMetadata,
     entry_has_content,
@@ -142,6 +165,7 @@ from .storage_plugin import (
     RefRouterPlugin,
     is_ref_location,
     make_ref_location,
+    parse_ref_location,
     resolve_base_ref,
     url_to_storage_plugin,
 )
@@ -155,6 +179,16 @@ logger = logging.getLogger(__name__)
 FORMAT_VERSION = "0.4.0"
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
+
+# verify() reads an object larger than this in ranged reads of this size
+# through a running crc32, so its memory is this times the read fan-out.
+_VERIFY_SCRUB_CHUNK_BYTES = 64 * 1024 * 1024
+
+# A sync take commits through storage markers, not a gather of every
+# manifest through the coordinator, once some rank's pickled manifest is
+# larger than this (rank 0's value holds for every rank).
+_COMMIT_VIA_STORAGE_ENV_VAR = "TPUSNAPSHOT_COMMIT_VIA_STORAGE_BYTES"
+_DEFAULT_COMMIT_VIA_STORAGE_BYTES = 1 << 20
 
 # The last take's deduplication numbers on this rank (:func:`_prepare_take`):
 # fingerprinted leaves, leaf hits, chunk hits and misses, stored bytes.
@@ -179,6 +213,8 @@ class Snapshot:
         self.path = path
         self._coord = coord
         self._metadata: Optional[SnapshotMetadata] = None
+        # get_available_entries of the cached metadata, by rank.
+        self._available_cache: Dict[int, Manifest] = {}
 
     @classmethod
     def take(
@@ -213,8 +249,14 @@ class Snapshot:
         ``codec`` picks its codecs (a name, a ``{glob: codec}`` mapping,
         or ``TPUSNAPSHOT_CODEC``). Rank 0's ``base``, ``fingerprint``,
         ``chunks`` and ``codec`` hold for every rank. The handle returned
-        serves as the next take's base without reading its metadata."""
+        serves as the next take's base without reading its metadata.
+
+        The manifests reach rank 0 through the coordinator, or, once some
+        rank's is larger than ``TPUSNAPSHOT_COMMIT_VIA_STORAGE_BYTES``
+        (default 1 MiB), through storage markers as in an async take:
+        one object a rank instead of every manifest to every rank."""
         coordinator = get_coordinator(coord)
+        path = _collate_path(coordinator, path)
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
         manifest, write_reqs, base_paths, chunk_ctx = _prepare_take(
@@ -222,28 +264,46 @@ class Snapshot:
         )
         budget = get_memory_budget_bytes(coordinator)
         storage = url_to_storage_plugin(path)
+        metadata: Optional[SnapshotMetadata] = None
         try:
             writer = chunk_ctx.wrap(storage) if chunk_ctx is not None else storage
             asyncio.run(execute_write_reqs(write_reqs, writer, budget, rank))
             # Every object this rank wrote is durable before its manifest
-            # reaches rank 0, which may commit at once. Rank 0's take_id
-            # rides the same gather.
+            # reaches rank 0, which may commit at once.
             writer.ensure_durable()
+            # The route must be the same on every rank, so both of its
+            # inputs are gathered (rank 0's threshold holds); rank 0's
+            # take_id rides the same gather.
             gathered = coordinator.all_gather_object(
-                (uuid.uuid4().hex if rank == 0 else None, manifest)
+                (
+                    len(pickle.dumps(manifest, protocol=4)),
+                    _commit_via_storage_threshold(),
+                    uuid.uuid4().hex if rank == 0 else None,
+                )
             )
-            metadata = SnapshotMetadata(
-                version=FORMAT_VERSION,
-                world_size=world_size,
-                manifest=_merge_manifests([m for _, m in gathered]),
-                take_id=gathered[0][0],
-                base_paths=list(base_paths),
-            )
-            if rank == 0:
-                # The chunk-ref document before the commit point: a
-                # committed manifest is always protected from chunk GC.
-                _write_chunk_refs(path, metadata)
-                asyncio.run(_write_metadata(storage, metadata))
+            threshold, take_id = gathered[0][1], gathered[0][2]
+            if world_size > 1 and max(size for size, _, _ in gathered) > threshold:
+                # Rank 0 collects every marker (so every rank's writes are
+                # done), writes the chunk refs and then the metadata.
+                metadata = asyncio.run(
+                    _acommit_via_storage(
+                        storage, rank, world_size, manifest, take_id,
+                        base_paths=base_paths, snapshot_path=path,
+                    )
+                )
+            else:
+                metadata = SnapshotMetadata(
+                    version=FORMAT_VERSION,
+                    world_size=world_size,
+                    manifest=_merge_manifests(coordinator.all_gather_object(manifest)),
+                    take_id=take_id,
+                    base_paths=list(base_paths),
+                )
+                if rank == 0:
+                    # The chunk-ref document before the commit point: a
+                    # committed manifest is always protected from chunk GC.
+                    _write_chunk_refs(path, metadata)
+                    asyncio.run(_write_metadata(storage, metadata))
             # No rank returns before rank 0's metadata write.
             barrier_compat(coordinator, _COMPLETION_TIMEOUT_S)
         finally:
@@ -251,7 +311,8 @@ class Snapshot:
             if chunk_ctx is not None:
                 chunk_ctx.cleanup()
         snapshot = cls(path, coord)
-        snapshot._metadata = _decorate_metadata_refs(metadata)
+        if metadata is not None:
+            snapshot._metadata = _decorate_metadata_refs(metadata)
         return snapshot
 
     @classmethod
@@ -296,6 +357,7 @@ class Snapshot:
         if stage not in ("auto", "host", "device"):
             raise ValueError(f'stage must be "auto", "host", or "device"; got {stage!r}')
         coordinator = get_coordinator(coord)
+        path = _collate_path(coordinator, path)
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
         manifest, write_reqs, base_paths, chunk_ctx = _prepare_take(
@@ -399,7 +461,7 @@ class Snapshot:
                         f"force=True."
                     )
             asyncio.run(_delete_snapshot(storage, metadata, sweep, min_age_s))
-            self._metadata = None
+            self.invalidate_caches()
             if metadata is not None and metadata.base_paths:
                 asyncio.run(_gc_backlinks_in_bases(metadata, self.path))
             if metadata is not None:
@@ -433,9 +495,19 @@ class Snapshot:
         self,
         app_state: AppState,
         coord: Optional[Coordinator] = None,
+        paths: Optional[List[str]] = None,
         verify_device: bool = False,
     ) -> None:
         """Restore ``app_state`` in place from this snapshot.
+
+        ``paths`` restores only the leaves whose logical path matches one
+        of its globs (``["model/**"]``: the weights without the optimizer
+        state), in the namespace of ``replicated`` and :meth:`read_object`:
+        ``"<stateful_key>/<flattened/path>"``. The other leaves keep their
+        values (their tensors untouched), a stateful with no selected leaf
+        is not loaded at all, and only the selected leaves' objects are
+        read. A filter that selects nothing raises ``RuntimeError``, after
+        every collective.
 
         ``verify_device=True`` recomputes every restored array's
         fingerprint where the manifest recorded one (K4 on the card, all
@@ -449,9 +521,10 @@ class Snapshot:
         token = _cprof.begin()
         stats: Dict[str, Any] = {}
         verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = [] if verify_device else None
+        n_selected = 0
         try:
             metadata = self._read_metadata(storage)
-            available = get_available_entries(metadata.manifest, rank)
+            available = self._available_entries(metadata, rank)
             app_state = dict(app_state)
             rng_key, rng_stateful = _pop_rng_state(app_state)
             # Every rank joins every per-key barrier, whichever statefuls
@@ -461,15 +534,15 @@ class Snapshot:
             worlds = (coordinator.get_world_size(), metadata.world_size)
             for key in global_keys:
                 if key in app_state:
-                    _load_stateful(
+                    n_selected += _load_stateful(
                         key, app_state[key], available, storage, rank, budget, worlds, stats,
-                        verify_jobs,
+                        verify_jobs, paths,
                     )
                 coordinator.barrier()
             if rng_stateful is not None:
-                _load_stateful(
+                n_selected += _load_stateful(
                     rng_key, rng_stateful, available, storage, rank, budget, worlds, stats,
-                    verify_jobs,
+                    verify_jobs, paths,
                 )
         finally:
             storage.close()
@@ -479,6 +552,14 @@ class Snapshot:
             logger.info(
                 f"restore(verify_device=True): {verified} leaf/leaves fingerprint-"
                 f"verified, {skipped} skipped (no recorded fingerprint)."
+            )
+        if paths is not None and n_selected == 0:
+            # Most likely a typo: a silent no-op would resume from fresh
+            # weights. Every collective above has completed.
+            raise RuntimeError(
+                f"restore(paths={paths!r}) matched no leaf in the app_state. "
+                f'Leaves are named "<stateful_key>/<flattened/path>", e.g. '
+                f'"model/params/w"; see get_manifest().'
             )
 
     def read_object(
@@ -497,9 +578,7 @@ class Snapshot:
         token = _cprof.begin()
         stats: Dict[str, Any] = {}
         try:
-            available = get_available_entries(
-                self._read_metadata(storage).manifest, rank
-            )
+            available = self._available_entries(self._read_metadata(storage), rank)
             if logical_path not in available:
                 known = [
                     p for p in sorted(available)
@@ -553,14 +632,174 @@ class Snapshot:
         finally:
             storage.close()
 
+    def diff(self, other: Any, rank: int = 0) -> Dict[str, List[str]]:
+        """What changed from ``other`` (the older snapshot, a handle or a
+        path) to this one, by logical path as ``rank`` sees them:
+        ``added``, ``removed``, ``changed``, ``unchanged``, and
+        ``unknown`` where neither fingerprints nor comparable checksums
+        decide. Reads the two metadata documents and no payload; takes
+        with ``fingerprint=True`` make it exact leaf by leaf, and region
+        by region for sharded values. Single-process, collective-free."""
+        older = other if isinstance(other, Snapshot) else Snapshot(str(other))
+        mine = get_available_entries(self.get_manifest(), rank)
+        theirs = get_available_entries(older.get_manifest(), rank)
+
+        def _is_container(e: Entry) -> bool:
+            return isinstance(e, (ListEntry, DictEntry))
+
+        out: Dict[str, List[str]] = {
+            "added": [], "removed": [], "changed": [], "unchanged": [], "unknown": [],
+        }
+        for path in sorted(set(mine) | set(theirs)):
+            a, b = theirs.get(path), mine.get(path)
+            if a is not None and _is_container(a) and b is not None and _is_container(b):
+                continue  # structure shows through its leaves
+            if b is None or (a is not None and _is_container(b)):
+                out["removed"].append(path)
+            elif a is None or _is_container(a):
+                out["added"].append(path)
+            else:
+                out[_diff_verdict(a, b)].append(path)
+        return out
+
+    def copy_to(self, dest_path: str, verify: bool = True) -> "Snapshot":
+        """Copy this committed snapshot to ``dest_path``, on any backend.
+
+        Every payload object is copied with bounded concurrency and, in
+        bytes, under ``TPUSNAPSHOT_COPY_BUDGET_BYTES`` (2 GiB; an object
+        larger than the budget copies alone; an object entry, whose size
+        the manifest does not record, is sized by the source backend).
+        ``verify=True`` checks each payload against its checksum in
+        transit, so a corrupt source object raises instead of spreading.
+        Objects borrowed from a base snapshot and content-chunked values
+        are materialised (chunks decoded and verified) at their own
+        locations, so the copy stands alone and restores through the
+        plain path. The metadata is written last: an interrupted copy
+        leaves no readable snapshot. Single-process, like :meth:`delete`.
+        Returns the destination's handle."""
+        src = self._open_storage()
+        dst = url_to_storage_plugin(dest_path)
+        try:
+            metadata = self._read_metadata(src)
+            by_loc: Dict[str, Any] = {}
+            # Chunked entries, keyed by their natural location (a leaf
+            # whose chunks are shared still gets its own payload).
+            chunked_by_natural: Dict[str, Any] = {}
+            materialized_checksums: Dict[str, str] = {}
+            for entry in _iter_payload_entries(metadata.manifest):
+                if getattr(entry, "chunks", None):
+                    parsed = parse_ref_location(entry.location)
+                    natural = entry.location if parsed is None else parsed[1]
+                    chunked_by_natural.setdefault(natural, entry)
+                    continue
+                seen = by_loc.get(entry.location)
+                # Keep the entry that carries the checksum, so transit
+                # verification never silently checks nothing.
+                if seen is None or (
+                    getattr(seen, "checksum", None) is None
+                    and getattr(entry, "checksum", None) is not None
+                ):
+                    by_loc[entry.location] = entry
+            asyncio.run(
+                _copy_payloads(src, dst, by_loc, chunked_by_natural, materialized_checksums, verify)
+            )
+            # The destination stands alone: no base references or chunk
+            # records. A round-tripped copy is rewritten (the cached
+            # metadata stays as it is), every entry of it, replicated
+            # mirrors included.
+            dest_metadata = metadata
+            if metadata.base_paths:
+                dest_metadata = SnapshotMetadata.from_yaml(metadata.to_yaml())
+                dest_metadata.base_paths = []
+                for e in _walk_all_payload_entries(dest_metadata.manifest):
+                    parsed = parse_ref_location(e.location)
+                    if parsed is not None:
+                        e.location = parsed[1]
+                    if getattr(e, "base", None) is not None:
+                        e.base = None
+                    if getattr(e, "chunks", None):
+                        e.chunks = None
+                        e.compression = None
+                        e.checksum = materialized_checksums.get(e.location, e.checksum)
+            asyncio.run(_write_metadata(dst, dest_metadata))
+        finally:
+            src.close()
+            dst.close()
+        return Snapshot(dest_path)
+
+    def verify(self) -> Dict[str, str]:
+        """Scrub the snapshot without touching a device: read every object
+        its manifest references and check its checksum and size. Returns
+        ``{location: problem}`` (empty: clean), the answer to "is this
+        snapshot safe to keep, and its predecessor safe to delete?".
+
+        A replicated value is checked once, against its writing owner's
+        checksum. An object larger than 64 MiB is streamed through a
+        running crc32; one without a crc32 (a non-owner's view, an
+        unknown algorithm) is probed for its length only (its last byte
+        and one past its end; a backend's "range not satisfiable" past
+        the end is a clean end). Content chunks, borrowed ones too, are
+        decoded and fingerprinted (``chunkstore.decode_and_verify_chunk``).
+        Single-process."""
+        storage = self._open_storage()
+        problems: Dict[str, str] = {}
+        try:
+            metadata = self._read_metadata(storage)
+            by_location: Dict[str, Tuple[Optional[str], Optional[int]]] = {}
+            chunk_targets: Dict[str, Tuple[Dict[str, Any], str]] = {}
+            for a in _iter_payload_entries(metadata.manifest):
+                recs = getattr(a, "chunks", None)
+                if recs:
+                    from .chunkstore import chunk_object_path
+
+                    base_idx = getattr(a, "base", None)
+                    for rec in recs:
+                        loc = chunk_object_path(rec["k"])
+                        if base_idx is not None:
+                            loc = make_ref_location(base_idx, loc)
+                        known_rec = chunk_targets.get(loc)
+                        # Prefer the record with the stored size and crc
+                        # (the writing take's) over a bare reference.
+                        if known_rec is None or (
+                            known_rec[0].get("cs") is None and rec.get("cs") is not None
+                        ):
+                            chunk_targets[loc] = (rec, a.dtype)
+                    continue
+                checksum = getattr(a, "checksum", None)
+                known = by_location.get(a.location)
+                if known is None or (checksum and not known[0]):
+                    by_location[a.location] = (checksum, _expected_nbytes(a))
+            asyncio.run(_scrub(storage, by_location, chunk_targets, problems))
+        finally:
+            storage.close()
+        return problems
+
     def _open_storage(self) -> RefRouterPlugin:
         """The snapshot's root, wrapped so that ``@base<N>/…`` locations
         (borrowed objects, content chunks) route to their roots."""
         return RefRouterPlugin(url_to_storage_plugin(self.path))
 
+    def _available_entries(self, metadata: SnapshotMetadata, rank: int) -> Manifest:
+        """``get_available_entries`` of the cached metadata, memoised."""
+        available = self._available_cache.get(rank)
+        if available is None:
+            available = self._available_cache[rank] = get_available_entries(
+                metadata.manifest, rank
+            )
+        return available
+
+    def invalidate_caches(self) -> None:
+        """Drop the cached metadata and the views derived from it: the
+        next call reads the metadata again. :meth:`delete` calls it; call
+        it after another handle or process re-took this path (a new handle
+        needs none)."""
+        self._metadata = None
+        self._available_cache = {}
+
     def _read_metadata(self, storage: StoragePlugin) -> SnapshotMetadata:
         if self._metadata is None:
             self._metadata = _decorate_metadata_refs(_read_metadata_doc(storage))
+            self._available_cache = {}
         metadata = self._metadata
         if metadata.base_paths and isinstance(storage, RefRouterPlugin):
             # Resolved against the current path, so a moved snapshot
@@ -835,16 +1074,27 @@ def _load_stateful(
     worlds: Tuple[int, int],
     stats: Dict[str, Any],
     verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = None,
-) -> None:
+    path_globs: Optional[List[str]] = None,
+) -> int:
+    """Load one stateful; returns how many of its leaves ``path_globs``
+    selected (all of them without a filter)."""
     # The template state dict supplies the devices, dtypes and shapes the
     # restored values land in (and, when they match, the tensors).
     container_manifest, flattened = flatten(stateful.state_dict(), prefix=key)
+    selected = set(flattened)
+    if path_globs is not None:
+        selected = {p for p in flattened if any(fnmatch.fnmatch(p, g) for g in path_globs)}
+        if not selected:
+            # Nothing of this stateful is selected: no load_state_dict call.
+            return 0
     # The RNG streams torch adds (torch/CUDA generator states) are absent
     # from a JAX-package snapshot; they then keep their current state.
     optional = isinstance(stateful, RNGState)
     reqs: List[ReadReq] = []
     plans: List[ArrayRestorePlan] = []
     for logical_path, template in list(flattened.items()):
+        if logical_path not in selected:
+            continue  # a partial restore: the template keeps its value
         if logical_path not in available:
             if optional:
                 del flattened[logical_path]
@@ -867,27 +1117,32 @@ def _load_stateful(
         plans.extend(f)
     _run_reads(reqs, plans, storage, rank, budget, stats)
     if verify_jobs is not None:
-        for logical_path in sorted(flattened):
+        for logical_path in sorted(selected & set(flattened)):
             entry = available.get(logical_path)
             if isinstance(entry, (ArrayEntry, ShardedArrayEntry)):
                 verify_jobs.append((logical_path, entry, flattened[logical_path]))
 
     # Prefer the snapshot's container entries so saved structure (dict key
-    # sets) round-trips; fall back to the template's for the rest.
+    # sets) round-trips; fall back to the template's for the rest. A
+    # partial restore keeps the template's structure: its unrestored
+    # subtrees hold template values the snapshot's key sets need not
+    # describe.
     inflate_manifest: Manifest = {
         p: e
         for p, e in container_manifest.items()
         if not optional or p in available
     }
-    inflate_manifest.update(
-        {
-            p: e
-            for p, e in available.items()
-            if isinstance(e, (ListEntry, DictEntry))
-            and (p == key or p.startswith(key + "/"))
-        }
-    )
+    if path_globs is None:
+        inflate_manifest.update(
+            {
+                p: e
+                for p, e in available.items()
+                if isinstance(e, (ListEntry, DictEntry))
+                and (p == key or p.startswith(key + "/"))
+            }
+        )
     stateful.load_state_dict(inflate(inflate_manifest, flattened, prefix=key))
+    return len(selected)
 
 
 def _capture(
@@ -1134,13 +1389,262 @@ def _read_metadata_doc(storage: StoragePlugin) -> SnapshotMetadata:
     return SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
 
 
-def _payload_entries(manifest: Manifest):
-    """Every entry that names a stored payload object."""
+def _walk_all_payload_entries(manifest: Manifest):
+    """Every entry that names a stored payload object, each replicated
+    mirror and every shard's entry included, as they are: for rewrites in
+    place (copy_to's, the ref decoration) that must not miss a mirror.
+    Readers want :func:`_iter_payload_entries`."""
     for entry in manifest.values():
         if isinstance(entry, ShardedArrayEntry):
             yield from (shard.array for shard in entry.shards)
         elif isinstance(entry, (ArrayEntry, ObjectEntry)):
             yield entry
+
+
+def _iter_payload_entries(manifest: Manifest):
+    """The entries that name the objects this snapshot stores or
+    borrows, the one definition delete, verify and copy_to share. A
+    replicated path yields one entry, its writing owner's (the one with a
+    checksum or chunk records): every rank's mirror names the same
+    object, and after an incremental take a non-owner's mirror may name
+    a location that was never written. A sharded value's shards may
+    repeat a location; callers deduplicate as they need."""
+    preferred: Dict[str, Entry] = {}
+    for path, entry in manifest.items():
+        if is_replicated(entry):
+            local = path.split("/", 1)[1] if "/" in path else path
+            current = preferred.get(local)
+            if current is None or (entry_has_content(entry) and not entry_has_content(current)):
+                preferred[local] = entry
+    emitted: Set[str] = set()
+    for path, entry in manifest.items():
+        if is_replicated(entry):
+            local = path.split("/", 1)[1] if "/" in path else path
+            if local in emitted:
+                continue
+            emitted.add(local)
+            entry = preferred[local]
+        if isinstance(entry, ShardedArrayEntry):
+            yield from (shard.array for shard in entry.shards)
+        elif isinstance(entry, (ArrayEntry, ObjectEntry)):
+            yield entry
+
+
+def _expected_nbytes(entry: Any) -> Optional[int]:
+    """An uncompressed array payload's stored size; None where the
+    manifest does not imply one (compressed payloads, objects)."""
+    if getattr(entry, "compression", None) is not None or not hasattr(entry, "dtype"):
+        return None
+    from .serialization import array_nbytes
+
+    try:
+        return array_nbytes(entry.dtype, entry.shape)
+    except (TypeError, ValueError):
+        return None
+
+
+async def _scrub(
+    storage: StoragePlugin,
+    by_location: Dict[str, Tuple[Optional[str], Optional[int]]],
+    chunk_targets: Dict[str, Tuple[Dict[str, Any], str]],
+    problems: Dict[str, str],
+) -> None:
+    """verify()'s reads, at the backend's read fan-out."""
+    from .chunkstore import decode_and_verify_chunk
+    from .serialization import StreamingCrc32, verify_checksum
+
+    sem = asyncio.Semaphore(max(1, storage.max_read_concurrency))
+    scrub_chunk = _VERIFY_SCRUB_CHUNK_BYTES
+
+    async def _probe(loc: str, start: int) -> Optional[int]:
+        """Bytes a one-byte read at ``start`` returns (0 past the end);
+        None after recording an unreadable object."""
+        io_req = IOReq(path=loc, byte_range=(start, start + 1))
+        try:
+            await storage.read(io_req)
+        except Exception as e:
+            if is_range_not_satisfiable_error(e):
+                return 0
+            problems[loc] = f"unreadable: {e!r}"
+            return None
+        return len(io_payload(io_req))
+
+    async def _length_only(loc: str, nbytes: int) -> None:
+        # No crc to compare: probe the last byte and one past the end
+        # instead of reading the object.
+        last = await _probe(loc, nbytes - 1)
+        if last is None:
+            return
+        if last != 1:
+            problems[loc] = f"size mismatch: shorter than the {nbytes} bytes the manifest implies"
+            return
+        extra = await _probe(loc, nbytes)
+        if extra:
+            problems[loc] = f"size mismatch: longer than the {nbytes} bytes the manifest implies"
+
+    async def _streamed(loc: str, checksum: Optional[str], nbytes: int, crc_ok: bool) -> None:
+        crc = StreamingCrc32()
+        got = 0
+        for start in range(0, nbytes, scrub_chunk):
+            end = min(start + scrub_chunk, nbytes)
+            io_req = IOReq(path=loc, byte_range=(start, end))
+            try:
+                await storage.read(io_req)
+            except Exception as e:
+                if is_range_not_satisfiable_error(e):
+                    break  # starts past the end: truncated
+                problems[loc] = f"unreadable: {e!r}"
+                return
+            piece = io_payload(io_req)
+            got += len(piece)
+            crc.update(piece)
+            if len(piece) < end - start:
+                break  # truncated
+        if got == nbytes:
+            # Bytes past the manifest's size are corruption too.
+            extra = await _probe(loc, nbytes)
+            if extra is None:
+                return
+            got += extra
+        if got != nbytes:
+            problems[loc] = (
+                f"size mismatch: stored {got} bytes (or more), manifest implies {nbytes}"
+            )
+        elif crc_ok and crc.tag() != checksum:
+            problems[loc] = (
+                f"Checksum mismatch: stored object is corrupt (expected {checksum}, "
+                f"got {crc.tag()})."
+            )
+
+    async def _one(loc: str, checksum: Optional[str], nbytes: Optional[int]) -> None:
+        # Only crc32 tags are checked; an unknown algorithm is skipped,
+        # as verify_checksum does, leaving the length.
+        crc_ok = bool(checksum and checksum.startswith("crc32:"))
+        async with sem:
+            if nbytes is not None and nbytes > scrub_chunk:
+                if crc_ok:
+                    await _streamed(loc, checksum, nbytes, crc_ok)
+                else:
+                    await _length_only(loc, nbytes)
+                return
+            io_req = IOReq(path=loc)
+            try:
+                await storage.read(io_req)
+            except Exception as e:
+                problems[loc] = f"unreadable: {e!r}"
+                return
+        payload = io_payload(io_req)
+        if nbytes is not None and len(payload) != nbytes:
+            problems[loc] = f"size mismatch: stored {len(payload)} bytes, manifest implies {nbytes}"
+            return
+        try:
+            verify_checksum(payload, checksum)
+        except Exception as e:
+            problems[loc] = str(e)
+
+    async def _one_chunk(loc: str, rec: Dict[str, Any], dtype_name: str) -> None:
+        async with sem:
+            io_req = IOReq(path=loc)
+            try:
+                await storage.read(io_req)
+            except Exception as e:
+                problems[loc] = f"unreadable: {e!r}"
+                return
+        try:
+            decode_and_verify_chunk(rec, dtype_name, bytes(io_payload(io_req)))
+        except Exception as e:
+            problems[loc] = str(e)
+
+    await asyncio.gather(
+        *(_one(loc, cs, n) for loc, (cs, n) in by_location.items()),
+        *(_one_chunk(loc, rec, dt) for loc, (rec, dt) in chunk_targets.items()),
+    )
+
+
+async def _copy_payloads(
+    src: StoragePlugin,
+    dst: StoragePlugin,
+    by_loc: Dict[str, Any],
+    chunked_by_natural: Dict[str, Any],
+    materialized_checksums: Dict[str, str],
+    verify: bool,
+) -> None:
+    """copy_to's transfers: at most the backends' fan-out at once, and in
+    bytes at most ``TPUSNAPSHOT_COPY_BUDGET_BYTES`` in flight (an object
+    larger than the budget copies alone)."""
+    from .chunkstore import chunk_object_path, decode_and_verify_chunk
+    from .serialization import array_nbytes, compute_checksum, verify_checksum
+
+    sem = asyncio.Semaphore(max(1, min(src.max_read_concurrency, dst.max_write_concurrency)))
+    budget = env_int("TPUSNAPSHOT_COPY_BUDGET_BYTES", 2 << 30)
+    in_flight = 0
+    gate = asyncio.Condition()
+
+    async def _admit(est: int) -> None:
+        nonlocal in_flight
+        async with gate:
+            await gate.wait_for(lambda: in_flight == 0 or in_flight + est <= budget)
+            in_flight += est
+
+    async def _release(est: int) -> None:
+        nonlocal in_flight
+        async with gate:
+            in_flight -= est
+            gate.notify_all()
+
+    async def _one(loc: str, entry: Any) -> None:
+        # An object entry's size is the backend's (a stat or HEAD, under
+        # the semaphore); unknown, it is admitted at the whole budget.
+        if getattr(entry, "shape", None) is not None and getattr(entry, "dtype", None):
+            est = array_nbytes(entry.dtype, entry.shape)
+        else:
+            async with sem:
+                size = await src.object_size_bytes(loc)
+            est = budget if size is None else size
+        await _admit(est)
+        try:
+            async with sem:
+                io_req = IOReq(path=loc)
+                await src.read(io_req)
+                payload = io_payload(io_req)
+                if verify:
+                    # A compressed payload's checksum covers its stored
+                    # bytes: exactly what is copied.
+                    verify_checksum(payload, getattr(entry, "checksum", None))
+                # A borrowed object lands at its own location under the
+                # destination's root.
+                parsed = parse_ref_location(loc)
+                await dst.write(IOReq(path=loc if parsed is None else parsed[1], data=payload))
+        finally:
+            await _release(est)
+
+    async def _one_chunked(natural: str, entry: Any) -> None:
+        est = sum(int(r["n"]) for r in entry.chunks)
+        await _admit(est)
+        try:
+            parts = []
+            base_idx = getattr(entry, "base", None)
+            for rec in entry.chunks:
+                loc = chunk_object_path(rec["k"])
+                if base_idx is not None:
+                    loc = make_ref_location(base_idx, loc)
+                async with sem:
+                    io_req = IOReq(path=loc)
+                    await src.read(io_req)
+                # Decoding and the content check always run: the payload
+                # is materialised from the decoded chunks.
+                parts.append(decode_and_verify_chunk(rec, entry.dtype, bytes(io_payload(io_req))))
+            payload = b"".join(parts)
+            materialized_checksums[natural] = compute_checksum(payload)
+            async with sem:
+                await dst.write(IOReq(path=natural, data=payload))
+        finally:
+            await _release(est)
+
+    await asyncio.gather(
+        *(_one(loc, e) for loc, e in by_loc.items()),
+        *(_one_chunked(nat, e) for nat, e in chunked_by_natural.items()),
+    )
 
 
 async def _delete_ignore_missing(storage: StoragePlugin, path: str) -> None:
@@ -1169,7 +1673,7 @@ async def _delete_snapshot(
     if metadata is not None:
         locations = {
             e.location
-            for e in _payload_entries(metadata.manifest)
+            for e in _iter_payload_entries(metadata.manifest)
             if getattr(e, "base", None) is None
         }
         if metadata.take_id:
@@ -1280,7 +1784,7 @@ async def _live_referencers(
             if resolve_base_ref(ref, ref_url).rstrip("/") == own
         }
         if own_idxs and any(
-            getattr(e, "base", None) in own_idxs for e in _payload_entries(md.manifest)
+            getattr(e, "base", None) in own_idxs for e in _iter_payload_entries(md.manifest)
         ):
             live.add(ref_url.rstrip("/"))
     return live
@@ -1346,7 +1850,7 @@ def _decorate_metadata_refs(metadata: SnapshotMetadata) -> SnapshotMetadata:
     per in-memory metadata, so every read path resolves it through the
     router. Idempotent."""
     if metadata.base_paths:
-        for e in _payload_entries(metadata.manifest):
+        for e in _walk_all_payload_entries(metadata.manifest):
             idx = getattr(e, "base", None)
             if idx is not None and not is_ref_location(e.location):
                 e.location = make_ref_location(idx, e.location)
@@ -1435,6 +1939,65 @@ def _validate_base_path(base_path: Optional[str], path: str) -> None:
             f"base snapshot path {base_path!r} is the take path ({path!r}); an "
             f"incremental take must write to a NEW path"
         )
+
+
+def _collate_path(coordinator: Coordinator, path: str) -> str:
+    """Rank 0's ``path`` for every rank: rank 0 commits the manifest, so
+    a rank writing under another path would leave a snapshot that does
+    not restore."""
+    collated = coordinator.broadcast_object(path, src=0)
+    if collated != path:
+        logger.warning(
+            f"Rank {coordinator.get_rank()} specified a path ({path}) different "
+            f"from rank 0 ({collated}). Using rank 0's."
+        )
+    return collated
+
+
+def _commit_via_storage_threshold() -> int:
+    return env_int(_COMMIT_VIA_STORAGE_ENV_VAR, _DEFAULT_COMMIT_VIA_STORAGE_BYTES)
+
+
+def _diff_verdict(a: Entry, b: Entry) -> str:
+    """One logical path's verdict across two snapshots, ``a`` the older
+    one's entry and ``b`` the newer one's."""
+    if type(a) is not type(b):
+        return "changed"
+    if isinstance(a, PrimitiveEntry):
+        return "unchanged" if a.readable == b.readable else "changed"
+    if isinstance(a, (ArrayEntry, ShardedArrayEntry)) and (
+        a.dtype != b.dtype or list(a.shape) != list(b.shape) or a.prng_impl != b.prng_impl
+    ):
+        return "changed"
+    if isinstance(a, ArrayEntry):
+        if a.fingerprint and b.fingerprint:
+            return "unchanged" if a.fingerprint == b.fingerprint else "changed"
+        if a.checksum and b.checksum and a.compression == b.compression:
+            # Equal checksums of equal dtype and shape: unchanged.
+            # Different ones prove a change only for uncompressed crc32s
+            # of the logical bytes.
+            if a.checksum == b.checksum:
+                return "unchanged"
+            if a.compression is None:
+                return "changed"
+        return "unknown"
+    if isinstance(a, ShardedArrayEntry):
+        regions_a = {(tuple(s.offsets), tuple(s.sizes)): s.array for s in a.shards}
+        regions_b = {(tuple(s.offsets), tuple(s.sizes)): s.array for s in b.shards}
+        if set(regions_a) != set(regions_b):
+            return "unknown"  # laid out anew: no region to compare
+        verdicts = {_diff_verdict(regions_a[k], regions_b[k]) for k in regions_a}
+        for verdict in ("changed", "unknown"):
+            if verdict in verdicts:
+                return verdict
+        return "unchanged"
+    if isinstance(a, ObjectEntry):
+        # Equal pickled bytes prove equality; different ones prove
+        # nothing (pickle is not deterministic over dict and set order).
+        if a.checksum and b.checksum and a.compression == b.compression and a.checksum == b.checksum:
+            return "unchanged"
+        return "unknown"
+    return "unknown"
 
 
 def _prepare_take(

@@ -1,8 +1,10 @@
 """URL → StoragePlugin dispatch, and the routing of references.
 
-Protocols: ``fs`` (the default when no ``://`` is present) and
-``memory``. The JAX package's other backends (``gs``, ``s3``,
-``snapserve``) are not ported yet and raise.
+Protocols: ``fs`` (the default when no ``://`` is present), ``memory``,
+``gs`` and ``s3`` (their SDKs imported only when such a URL is opened);
+any other resolves through the ``storage_plugins`` entry-point group, so
+third-party backends register themselves. ``snapserve`` (the JAX
+package's read plane) is not ported yet and raises.
 
 :class:`RefRouterPlugin` is the storage side of incremental and
 content-chunked snapshots: a manifest entry whose payload lives in a base
@@ -14,6 +16,7 @@ resolves.
 """
 
 import logging
+from importlib import metadata as importlib_metadata
 from typing import Dict, List, Optional, Tuple
 
 from .io_types import IOReq, RetryingStoragePlugin, StoragePlugin
@@ -26,27 +29,60 @@ logger = logging.getLogger(__name__)
 # to the same store across plugin instances within a process.
 _MEMORY_STORES: Dict[str, Dict[str, bytes]] = {}
 
-_NOT_YET_PORTED = ("gs", "s3", "snapserve")
-
 
 def url_to_storage_plugin(url_path: str) -> StoragePlugin:
     """Resolve a URL to its backend, wrapped with the retry policy."""
+    return RetryingStoragePlugin(_resolve_plugin(url_path))
+
+
+def _resolve_plugin(url_path: str) -> StoragePlugin:
     if "://" in url_path:
         protocol, path = url_path.split("://", 1)
         protocol = protocol or "fs"
     else:
         protocol, path = "fs", url_path
     if protocol == "fs":
-        return RetryingStoragePlugin(FSStoragePlugin(root=path))
+        return FSStoragePlugin(root=path)
     if protocol == "memory":
         bucket, _, prefix = path.partition("/")
         store = _MEMORY_STORES.setdefault(bucket, {})
-        return RetryingStoragePlugin(MemoryStoragePlugin(store=store, prefix=prefix))
-    if protocol in _NOT_YET_PORTED:
+        return MemoryStoragePlugin(store=store, prefix=prefix)
+    if protocol == "gs":
+        from .storage_plugins.gcs import GCSStoragePlugin
+
+        return GCSStoragePlugin(root=path)
+    if protocol == "s3":
+        from .storage_plugins.s3 import S3StoragePlugin
+
+        return S3StoragePlugin(root=path)
+    if protocol == "snapserve":
         raise NotImplementedError(
-            f"The {protocol}:// storage backend is not yet ported to "
-            f"torchsnapshot_tpu_torch; use a local path or memory://."
+            "The snapserve:// read plane is not yet ported to "
+            "torchsnapshot_tpu_torch (ROADMAP Queue 1 item 10, the read "
+            "plane); read through its backend URL instead."
         )
+    # Third-party plugins register under the ``storage_plugins``
+    # entry-point group, as for the JAX package.
+    try:
+        eps = importlib_metadata.entry_points()
+        if hasattr(eps, "select"):
+            group = list(eps.select(group="storage_plugins"))
+        else:  # pragma: no cover
+            group = list(eps.get("storage_plugins", []))
+    except Exception:
+        # Broken metadata of an unrelated package must not hide the
+        # "unsupported protocol" error below, but it must show.
+        logger.warning(
+            f"Enumerating storage_plugins entry points for protocol "
+            f"{protocol!r} failed",
+            exc_info=True,
+        )
+        group = []
+    for ep in group:
+        if ep.name == protocol:
+            # The plugin is installed: its load or constructor error is
+            # the one to report.
+            return ep.load()(path)
     raise RuntimeError(f"Unsupported protocol: {protocol}")
 
 
@@ -177,6 +213,10 @@ class RefRouterPlugin(StoragePlugin):
     async def object_age_s(self, path: str) -> Optional[float]:
         plugin, p = self._route(path)
         return await plugin.object_age_s(p)
+
+    async def object_size_bytes(self, path: str) -> Optional[int]:
+        plugin, p = self._route(path)
+        return await plugin.object_size_bytes(p)
 
     def ensure_durable(self) -> None:
         self._inner.ensure_durable()

@@ -156,6 +156,12 @@ class FSStoragePlugin(StoragePlugin):
             return None  # vanished: deleting it is a no-op
         return max(0.0, time.time() - st.st_mtime)
 
+    async def object_size_bytes(self, path: str) -> Optional[int]:
+        try:
+            return os.stat(os.path.join(self.root, path)).st_size
+        except FileNotFoundError:
+            return None
+
     def close(self) -> None:
         # A plugin retired without reaching a publish point (an aborted
         # take) still leaves every dirent it created durable.

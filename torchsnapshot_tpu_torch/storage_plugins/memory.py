@@ -75,5 +75,9 @@ class MemoryStoragePlugin(StoragePlugin):
         mtime = self._mtimes.get(self._key(path))
         return None if mtime is None else max(0.0, time.time() - mtime)
 
+    async def object_size_bytes(self, path: str) -> Optional[int]:
+        data = self.store.get(self._key(path))
+        return None if data is None else len(data)
+
     def close(self) -> None:
         pass
