@@ -13,16 +13,18 @@ Phases, each printing JSON lines to stdout:
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
    inputs (a yardstick only: the port never calls it) and the least time
    the card could take for the same work. The shapes include the ring
-   path's chunk ([4,25,256,64] f32, causal and full) and the Ulysses
-   path's full-sequence attention ([4,10,1024,64] f32).
+   path's chunk ([4,25,256,64] f32, causal and full), the Ulysses
+   path's full-sequence attention ([4,10,1024,64] f32) and the dry run's
+   ring chunk ([2,2,16,16] f32, head_dim 16, causal and full).
 4. kernel_bwd — the two flash backward kernels (dq; dk and dv) against
    the plain backward at the train path's shape and the shapes around
    it (f32, bf16, f16; causal or not; GQA; ragged S; head_dim 128 and
    80), with the tolerance stated, a check that two launches give
    bitwise-equal results, each kernel's time and bound, the plain
    version's time and, as the pair's yardstick, the backward of
-   ``scaled_dot_product_attention`` on the same inputs. The ring and
-   Ulysses shapes are among them, and one ring-chunk case goes through
+   ``scaled_dot_product_attention`` on the same inputs. The ring,
+   Ulysses and dry-run shapes are among them, and one ring-chunk case
+   of the ring and of the dry run each goes through
    ``flash_attention_backward`` with a non-zero lse cotangent, against the
    plain backward with the same delta' = rowsum(dO·O) − dlse.
 5. transfer — pinned device→host and host→device copy rates over 1 GiB,
@@ -113,27 +115,49 @@ Phases, each printing JSON lines to stdout:
    model on the card, byte-equal, and a forward on 4 × 1024 tokens
    through the flash kernel with logits bit-identical to those of a
    model built from the seed with the same change.
-9. ring — the flagship at GPT-2 XL's widths and full depth, f32, 4 ×
-   1024 tokens, trained one step by two processes sharing the card over
-   gloo on a ``{"sp": 2}`` DeviceMesh: zigzag ring attention with flash
-   chunks, so K1–K3 run as chunk kernels (5 chunk attentions a layer a
-   rank: 240 launches of each kernel a step). The reference is one
-   process's flash step on the same weights and tokens, run first: the
-   ranks' losses are equal and within rtol 1e-4 of it, and the gradients
-   of ``embed``, ``layers/0/attn/wq``, ``layers/47/mlp/w2`` and
+9. ring — the flagship at GPT-2 XL's widths and depth (48 layers), f32,
+   4 × 1024 tokens, trained one step by two processes
+   sharing the card over gloo on a ``{"sp": 2}`` DeviceMesh: zigzag ring
+   attention with flash chunks, so K1–K3 run as chunk kernels (5 chunk
+   attentions a layer a rank: 240 launches of each kernel a step). The
+   reference is one process's flash step on the same weights and
+   tokens, run first: the ranks' losses are equal and within rtol 1e-4 of it, and the gradients
+   of ``embed``, ``layers/0/attn/wq``, the last layer's ``mlp/w2`` and
    ``final_ln`` within 1e-3 of each one's largest reference entry. Each
    rank reports its step time, the bytes it sent through the ring and
    the other collectives, how many were staged through host memory (the
    helpers stage CUDA tensors on a gloo group), its peak card memory,
    and the step's transport alone: the gradient all-reduce, and the
    hops (or all-to-alls) on tensors of the same sizes.
-10. ulysses — the same at gpt2-large's widths and full depth (n_embd
-    1280, 20 heads, 36 layers, n_inner 5120: GPT-2 XL's 25 heads do not
-    divide by sp 2), with Ulysses all-to-all attention through the flash
-    kernels (36 launches of each a step).
-11. kernels — one JSON line summarising every kernel of the paths (K4
-    and K5 with their launches on the dedup path, K1 and K4 with theirs
-    on the api path).
+10. ulysses — the same at gpt2-large's widths and depth (n_embd 1280,
+    20 heads, 36 layers, n_inner 5120: GPT-2 XL's 25 heads do not divide
+    by sp 2), with Ulysses all-to-all attention through the flash kernels
+    (36 launches of each a step).
+11. dlrm — DLRM at the Criteo Kaggle widths of facebookresearch/dlrm's
+    bench/dlrm_s_criteo_kaggle.sh (embedding 16, bottom MLP
+    13-512-256-64-16, top 367-512-256-1, batch 128, lr 0.1) with the 26
+    Kaggle row counts torchrec's DLRM example lists (33,762,577 rows;
+    params and momentum 4.33 GB, f32, nothing cut), one process: 5
+    momentum steps, a sync take, a restore (bit-exact, bit-identical
+    logits), ``convert_back`` and a ``ReferenceSnapshotReader`` restore
+    and read, two chunk takes around a step (exactly the changed chunks;
+    K5), a ``verify_device`` restore (K4); then K4 on every leaf and on
+    the stored boxes of the two leaves above the dense-chunk cap, and K5
+    on every leaf, held bit for bit against their plain versions.
+12. dlrm_ep — the same at ep 2 (two processes sharing the card over
+    gloo): one step (loss within rtol 1e-5 of one process), a take (bytes
+    a rank), a world-1 restore bit-exact in every box.
+13. resnet — the JAX CNN at ResNet-18's widths on CIFAR-10's shapes,
+    batch 128: 5 steps, take and restore (BN statistics included), a dp-2
+    step held to one process and to a float64 step, a replicated take.
+    ``tools/resnet_dp_faults.py`` runs the same phase with the dp step's
+    faults injected, to read how far the gates sit from them.
+14. ddp — the reference DDP benchmark's model (20 × 100 MiB) taken
+    replicated by two ranks, each writing half, restored bit-exact.
+15. dryrun — ``dryrun.dryrun_multichip(2)``: K1–K3 as ring chunks, K4.
+16. kernels — one JSON line summarising every kernel of the paths (K4
+    and K5 with their launches on the dedup and dlrm paths, K1 and K4
+    with theirs on the api path, K1–K4 on the dry run's).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -170,11 +194,12 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
     Snapshot,
     StateDict,
 )
-from torchsnapshot_tpu_torch import io_preparer, staging_pool  # noqa: E402
+from torchsnapshot_tpu_torch import dryrun, io_preparer, staging_pool  # noqa: E402
 from torchsnapshot_tpu_torch.io_types import io_payload  # noqa: E402
 from torchsnapshot_tpu_torch import snapshot as snapshot_mod  # noqa: E402
-from torchsnapshot_tpu_torch.manifest import ArrayEntry  # noqa: E402
-from torchsnapshot_tpu_torch.models import transformer as tf  # noqa: E402
+from torchsnapshot_tpu_torch.manifest import ArrayEntry, ShardedArrayEntry  # noqa: E402
+from torchsnapshot_tpu_torch.models import dlrm, resnet, transformer as tf  # noqa: E402
+from torchsnapshot_tpu_torch.models.ddp_synthetic import SyntheticModel  # noqa: E402
 from torchsnapshot_tpu_torch.ops import attention, build, transfer  # noqa: E402
 from torchsnapshot_tpu_torch.parallel import collectives  # noqa: E402
 from torchsnapshot_tpu_torch.parallel.mesh import make_mesh, shard_pytree  # noqa: E402
@@ -242,6 +267,11 @@ FLASH_SHAPES = [
     ("ring_chunk_causal", BATCH, 25, 25, 256, 64, torch.float32, True),
     ("ring_chunk_full", BATCH, 25, 25, 256, 64, torch.float32, False),
     ("ulysses_heads", BATCH, 10, 10, SEQ, 64, torch.float32, True),
+    # The dry run's ring chunks at world 2 (dp 1, sp 1, tp 2; 32 tokens,
+    # d_model 64 over 4 heads): 2 heads a rank, head_dim 16, 16-row
+    # zigzag halves, causal on the diagonal and full on the past.
+    ("dryrun_chunk_causal", 2, 2, 2, 16, 16, torch.float32, True),
+    ("dryrun_chunk_full", 2, 2, 2, 16, 16, torch.float32, False),
 ]
 
 
@@ -259,11 +289,14 @@ BWD_SHAPES = [
     ("ring_chunk_full", BATCH, 25, 25, 256, 64, torch.float32, False),
     ("ring_chunk_dlse", BATCH, 25, 25, 256, 64, torch.float32, False),
     ("ulysses_heads", BATCH, 10, 10, SEQ, 64, torch.float32, True),
+    ("dryrun_chunk_causal", 2, 2, 2, 16, 16, torch.float32, True),
+    ("dryrun_chunk_full", 2, 2, 2, 16, 16, torch.float32, False),
+    ("dryrun_chunk_dlse", 2, 2, 2, 16, 16, torch.float32, False),
 ]
 # Cases whose lse cotangent is not zero, as a ring chunk's is (the merge
 # differentiates through the lse): they go through flash_attention_backward
 # with a d_lse, whose delta' = rowsum(dO·O) − dlse the plain backward gets.
-DLSE_CASES = {"ring_chunk_dlse"}
+DLSE_CASES = {"ring_chunk_dlse", "dryrun_chunk_dlse"}
 
 # |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. The plain
 # version computes in f32 from the same inputs (bf16/f16 inputs are exact
@@ -322,6 +355,13 @@ def bwd_bound(b, hq, hkv, s, d, dtype, causal, products, out_heads):
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _hold(phase, gates):
+    """Raise naming every gate of ``phase`` that failed."""
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} phase: {failed}")
 
 
 def within(err, ref, atol, rtol):
@@ -961,9 +1001,7 @@ def phase_dedup(model, tokens):
         and len(before) - len(after_first) == len(keys[1] - keys[3]),
         "K4 and K5 ran on the path": all(record["launches"].values()),
     }
-    failed = [k for k, ok in gates.items() if not ok]
-    if failed:
-        raise AssertionError(f"dedup phase: {failed}")
+    _hold("dedup", gates)
     return record
 
 
@@ -1176,9 +1214,7 @@ def phase_api(model, tokens, ceilings):
         "K1 and K4 ran on the path": record["launches"]["flash_fwd"] == 2 * cfg.n_layers
         and record["launches"]["xs128_box"] == 2 * n + 8,
     }
-    failed = [k for k, ok in gates.items() if not ok]
-    if failed:
-        raise AssertionError(f"api phase: {failed}")
+    _hold("api", gates)
     return record
 
 
@@ -1963,6 +1999,14 @@ def _mr_records(out_dir, kind, world):
     return records
 
 
+def _spawn(fn, world, args, out_dir, kind, timeout_s=None):
+    """Run ``fn`` on ``world`` spawned gloo ranks; (the records each rank
+    wrote as ``<out_dir>/<kind>_<rank>.json``, the seconds it took)."""
+    begin = time.perf_counter()
+    run_multiprocess(fn, world, args, timeout_s=timeout_s or MODEL_RANK_TIMEOUT_S)
+    return _mr_records(out_dir, kind, world), time.perf_counter() - begin
+
+
 def phase_multi_rank():
     cfg = GPT2_XL
     torch.cuda.empty_cache()
@@ -1985,10 +2029,7 @@ def phase_multi_rank():
                 f"{state_bytes} bytes; point TMPDIR at a larger disk."
             )
         record["state_bytes"] = state_bytes
-        begin = time.perf_counter()
-        run_multiprocess(mr_save, 2, (base, out_dir), timeout_s=MR_RANK_TIMEOUT_S)
-        record["world2_s"] = time.perf_counter() - begin
-        saves = _mr_records(out_dir, "save", 2)
+        saves, record["world2_s"] = _spawn(mr_save, 2, (base, out_dir), out_dir, "save", MR_RANK_TIMEOUT_S)
         record["world2"] = saves
         record["world2_save_gbps"] = sum(r["save_bytes"] for r in saves) / 1e9 / max(r["save_s"] for r in saves)
         record["world2_drain_gbps"] = (
@@ -1999,10 +2040,8 @@ def phase_multi_rank():
         if sum(r["local_bytes"] for r in saves) < state_bytes:
             raise AssertionError("the world-2 shards do not cover the state")
 
-        begin = time.perf_counter()
-        run_multiprocess(mr_restore, 4, (base, out_dir), timeout_s=MR_RANK_TIMEOUT_S)
-        record["world4_s"] = time.perf_counter() - begin
-        restores = _mr_records(out_dir, "restore", 4)
+        restores, record["world4_s"] = _spawn(
+            mr_restore, 4, (base, out_dir), out_dir, "restore", MR_RANK_TIMEOUT_S)
         record["world4"] = restores
         record["world4_restore_gbps"] = (
             sum(r["read_bytes"] for r in restores) / 1e9 / max(r["restore_s"] for r in restores)
@@ -2079,7 +2118,7 @@ SP_RANK_TIMEOUT_S = 600.0
 # n_inner 5120, vocab 50257, n_positions 1024. Its 20 heads divide by
 # sp 2, as Ulysses needs; GPT-2 XL's 25 do not.
 GPT2_LARGE = dataclasses.replace(GPT2_XL, d_model=1280, n_heads=20, n_layers=36, d_ff=5120)
-# (phase, config, ring_attention mode, chunk attentions a layer a rank)
+# (phase, config, ring_attention mode, chunk attentions a layer a rank).
 SP_PHASES = {
     "ring": (GPT2_XL, "zigzag", 5),
     "ulysses": (GPT2_LARGE, "ulysses", 1),
@@ -2184,7 +2223,7 @@ def sp_rank(rank, world, phase, workdir):
 
 
 def phase_seq_parallel(phase):
-    """The flagship at the phase's published widths and full depth,
+    """The flagship at the phase's published widths and depth (SP_PHASES),
     f32, 4 × 1024 tokens: the reference is one process's flash step on
     the same weights and tokens (run first and freed, so the ranks get
     the card to themselves); then two ranks train one step over
@@ -2222,10 +2261,8 @@ def phase_seq_parallel(phase):
         del params, grads, loss
         torch.cuda.empty_cache()
 
-        begin = time.perf_counter()
-        run_multiprocess(sp_rank, SP_WORLD, (phase, workdir), timeout_s=SP_RANK_TIMEOUT_S)
-        record["spawned_world_s"] = time.perf_counter() - begin
-        ranks = _mr_records(workdir, phase, SP_WORLD)
+        ranks, record["spawned_world_s"] = _spawn(
+            sp_rank, SP_WORLD, (phase, workdir), workdir, phase, SP_RANK_TIMEOUT_S)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     record["ranks"] = ranks
@@ -2251,6 +2288,682 @@ def phase_seq_parallel(phase):
     return record
 
 
+# ---------------------------------------------------------------------------
+# The other workloads and the reference-format interop: DLRM at the Criteo
+# Kaggle widths (one process, then ep 2), the ResNet-18-width CNN, the
+# synthetic DDP model and the dry run.
+
+DLRM_BATCH = 128  # --mini-batch-size of bench/dlrm_s_criteo_kaggle.sh
+DLRM_LR = 0.1  # its --learning-rate
+DLRM_STEPS = 5
+DLRM_BATCH_SEED = 100
+DLRM_WORLD = 2
+MODEL_RANK_TIMEOUT_S = 420.0
+RESNET_BATCH = 128
+RESNET_STEPS = 5
+RESNET_BATCH_SEED = 200
+# The dp-2 step against one process on the same global batch. The two
+# sum the batch statistics and gradients in other orders, and cuDNN picks
+# its algorithms by batch size, so the f32 weight gradients of layers
+# followed by batch norm (which sum to zero over the batch, a cancelling
+# sum) differ by tenths of a percent. Each parameter's step is therefore
+# held to the same step in float64: within RESNET_DP_PARAM_REL of the
+# leaf's largest float64 change, plus 2 ulp of its largest entry (the
+# rounding of p − lr·g). The running statistics (no cancellation) are
+# held to the one-process step within RESNET_DP_STATS_REL of the leaf's
+# largest change. The loss within rtol 1e-4. tools/resnet_dp_faults.py
+# reads both against the faults they are for, on an H100 80GB HBM3 at
+# 700 W: sound, parameters 4.0e-3 (one process alone 3.9e-3) and
+# statistics 2.5e-6; the gradient all-reduce left out, parameters 16.7;
+# each rank's own statistics, parameters 0.23 and statistics 0.96. Each
+# bound sits between its sound and its faulty reading.
+RESNET_DP_PARAM_REL = 1e-2
+RESNET_DP_STATS_REL = 1e-3
+DDP_PARAMS = 20
+DDP_PARAM_BYTES = 100 << 20  # the reference DDP benchmark's parameter size
+
+
+def _state_bytes(*trees):
+    return sum(tf._local(t).numel() * tf._local(t).element_size()
+               for tree in trees for t in tf.param_leaves(tree))
+
+
+def _trees_bit_equal(a, b):
+    """How many leaves of two trees are byte-equal, and how many there are."""
+    pairs = list(zip(tf.param_leaves(a), tf.param_leaves(b)))
+    equal = sum(bool(x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))) for x, y in pairs)
+    return equal, len(pairs)
+
+
+# The DLRM chunk takes' expectations, from the chunk store's documented
+# defaults rather than from its code: 4 MiB chunks (FP_CHUNK_BYTES) of
+# each leaf's bytes, leaves under 64 KiB written whole, and leaves above
+# the 512 MiB dense-chunk cap split into boxes, which are written whole.
+CHUNK_MIN_BYTES = 64 << 10
+DENSE_CHUNK_CAP_BYTES = 512 << 20
+
+
+def _chunked(leaf):
+    """Whether a chunk take chunks ``leaf``."""
+    return CHUNK_MIN_BYTES <= leaf.numel() * leaf.element_size() <= DENSE_CHUNK_CAP_BYTES
+
+
+def _chunks_of(leaf):
+    return -(-leaf.numel() * leaf.element_size() // FP_CHUNK_BYTES)
+
+
+def _changed_chunks(before, after):
+    """4 MiB chunks of each leaf's bytes that differ between two values
+    of it, compared on the card."""
+    total = 0
+    for a, b in zip(before, after):
+        ne = a.reshape(-1).view(torch.uint8) != b.reshape(-1).view(torch.uint8)
+        n = _chunks_of(a)
+        full = (n - 1) * FP_CHUNK_BYTES
+        total += int(ne[:full].view(n - 1, FP_CHUNK_BYTES).any(dim=1).sum()) + int(ne[full:].any())
+    return total
+
+
+def _dlrm_logits(params, batch):
+    with torch.no_grad():
+        out = dlrm.forward(params, *batch[:2], dlrm.CRITEO_KAGGLE)
+    torch.cuda.synchronize()
+    return out
+
+
+def _fresh_dlrm(seed):
+    """A DLRM state of other values than the seed-0 state: other tables
+    and weights, momentum filled with -1."""
+    params = dlrm.init_params(dlrm.CRITEO_KAGGLE, seed=seed)
+    momentum = dlrm.init_momentum(params)
+    for t in tf.param_leaves(momentum):
+        t.fill_(-1.0)
+    return dlrm.DLRMState(params, momentum)
+
+
+def phase_dlrm(ceilings):
+    """DLRM at the Criteo Kaggle widths of facebookresearch/dlrm's
+    bench/dlrm_s_criteo_kaggle.sh (26 tables of torchrec's Kaggle row
+    counts, 33,762,577 rows of 16 f32; bottom MLP 13-512-256-64-16, top
+    367-512-256-1; batch 128, lr 0.1), one process, f32 with TF32 off and
+    deterministic algorithms on: 5 momentum steps; a sync take with
+    fingerprints of params, momentum and progress (4.33 GB), its s and
+    GB/s against the write+fsync ceiling; a restore into a fresh model
+    (bit-exact leaves, bit-identical logits; GB/s against the read
+    ceiling); ``convert_back`` to the reference format and a
+    ``ReferenceSnapshotReader.restore`` into a fresh model on the card
+    (bit-exact; s and GB/s for both) and one ``read`` of the
+    10,131,227-row table; two ``chunks=True`` takes around one more step,
+    the second writing exactly the chunks whose bytes changed (compared
+    on the card), K5 counted; a ``verify_device=True`` restore, K4
+    counted."""
+    from torchsnapshot_tpu_torch import chunkstore
+    from torchsnapshot_tpu_torch.interop import ReferenceSnapshotReader
+    from torchsnapshot_tpu_torch.interop.reference_writer import convert_back
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.empty_cache()
+    cfg = dlrm.CRITEO_KAGGLE
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dlrm-")
+    record = {"phase": "dlrm", "config": "dlrm_s_criteo_kaggle.sh widths, torchrec Kaggle rows, f32",
+              "tables": len(cfg.table_rows), "rows": sum(cfg.table_rows.values()),
+              "top_mlp_in": cfg.embed_dim + dlrm._n_pairs(cfg), "batch": DLRM_BATCH, "lr": DLRM_LR,
+              "precision": "f32, TF32 off"}
+    try:
+        _reset_launch_counts()
+        params = dlrm.init_params(cfg, seed=0)
+        state = dlrm.DLRMState(params, dlrm.init_momentum(params))
+        del params
+        leaves = list(tf.param_leaves(state.params)) + list(tf.param_leaves(state.momentum))
+        nbytes = _state_bytes(state.params, state.momentum)
+        record["state_bytes"], record["leaves"] = nbytes, len(leaves)
+        batches = [dlrm.synthetic_batch(cfg, DLRM_BATCH, seed=DLRM_BATCH_SEED + i)
+                   for i in range(DLRM_STEPS + 1)]
+        losses, step_s = [], []
+        for batch in batches[:DLRM_STEPS]:
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            _, _, loss = dlrm.sgd_momentum_train_step(state.params, state.momentum, *batch, cfg, lr=DLRM_LR)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - begin)
+        record["losses"], record["step_s"] = losses, step_s
+        progress = StateDict(step=DLRM_STEPS)
+        app = {"model": state, "progress": progress}
+        probe = batches[0]
+        logits = _dlrm_logits(state.params, probe)
+
+        path = os.path.join(workdir, "run", "sync")
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        Snapshot.take(path, app, fingerprint=True)
+        take_s = time.perf_counter() - begin
+        record["take"] = {"seconds": take_s, "gbps": nbytes / 1e9 / take_s,
+                          "fs_write_fsync_gbps": ceilings["fs_write_fsync_gbps"]}
+
+        saved = _fresh_dlrm(1)
+        begin = time.perf_counter()
+        Snapshot(path).restore({"model": saved, "progress": StateDict(step=0)})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - begin
+        record["restore"] = {"seconds": restore_s, "gbps": nbytes / 1e9 / restore_s,
+                             "fs_read_gbps": ceilings["fs_read_gbps"],
+                             "leaves_byte_equal": _trees_bit_equal(saved.state_dict(), state.state_dict()),
+                             "logits_bit_identical": bool(torch.equal(_dlrm_logits(saved.params, probe), logits))}
+
+        ref = os.path.join(workdir, "reference_format")
+        begin = time.perf_counter()
+        convert_back(path, ref)
+        convert_s = time.perf_counter() - begin
+        other = _fresh_dlrm(2)
+        reader = ReferenceSnapshotReader(ref)
+        progress_back = StateDict(step=0)
+        begin = time.perf_counter()
+        reader.restore({"model": other, "progress": progress_back})
+        torch.cuda.synchronize()
+        ref_restore_s = time.perf_counter() - begin
+        begin = time.perf_counter()
+        table = reader.read("model/params/tables/cat_2")
+        read_s = time.perf_counter() - begin
+        reader.close()
+        record["reference_format"] = {
+            "convert_back_s": convert_s, "convert_back_gbps": nbytes / 1e9 / convert_s,
+            "reference_restore_s": ref_restore_s, "reference_restore_gbps": nbytes / 1e9 / ref_restore_s,
+            "bytes_written": sum(os.path.getsize(p) for p in glob.glob(os.path.join(ref, "**"), recursive=True)
+                                 if os.path.isfile(p)),
+            "leaves_byte_equal": _trees_bit_equal(other.state_dict(), saved.state_dict()),
+            "progress": progress_back["step"],
+            "logits_bit_identical": bool(torch.equal(_dlrm_logits(other.params, probe), logits)),
+            "read_table_rows": list(table.shape), "read_s": read_s,
+            "read_table_byte_equal": bool(torch.equal(
+                table.view(torch.int32), saved.params["tables"]["cat_2"].cpu().view(torch.int32))),
+        }
+        del other, table
+        shutil.rmtree(ref)
+        torch.cuda.empty_cache()
+
+        # Chunk takes around one more step; the second writes the chunks
+        # whose bytes the step changed. A leaf above the dense-chunk cap
+        # (the 10,131,227-row table and its momentum) is split into boxes,
+        # which take the plain path, as in the JAX package: written whole
+        # by every take.
+        chunkstore._FP_AGREEMENT.clear()
+        eligible = [i for i, t in enumerate(leaves) if _chunked(t)]
+        probes = len({leaves[i].dtype for i in eligible})
+        with _TakeMeter() as meter:
+            meter.take(record, "chunk_take_1", lambda: Snapshot.take(
+                os.path.join(workdir, "run", "chunk-1"), app, chunks=True))
+            before = [leaves[i].clone() for i in eligible]
+            _, _, loss = dlrm.sgd_momentum_train_step(
+                state.params, state.momentum, *batches[DLRM_STEPS], cfg, lr=DLRM_LR)
+            progress["step"] = DLRM_STEPS + 1
+            changed = _changed_chunks(before, [leaves[i] for i in eligible])
+            del before
+            torch.cuda.empty_cache()
+            meter.take(record, "chunk_take_2", lambda: Snapshot.take(
+                os.path.join(workdir, "run", "chunk-2"), app, chunks=True))
+        record["chunk_take_2"]["changed_chunks"] = changed
+        record["chunks_of_the_chunked_leaves"] = sum(_chunks_of(leaves[i]) for i in eligible)
+        record["eligible_leaves"], record["k5_probes"] = len(eligible), probes
+        record["leaves_over_the_cap"] = sum(
+            t.numel() * t.element_size() > DENSE_CHUNK_CAP_BYTES for t in leaves)
+        manifest = Snapshot(path).get_manifest()
+        record["stored_array_objects"] = sum(
+            len(e.shards) if isinstance(e, ShardedArrayEntry) else 1
+            for e in manifest.values() if isinstance(e, (ArrayEntry, ShardedArrayEntry)))
+
+        k4_before = fops.fingerprint_box_launches
+        fresh = _fresh_dlrm(3)
+        begin = time.perf_counter()
+        Snapshot(path).restore({"model": fresh, "progress": StateDict(step=0)}, verify_device=True)
+        torch.cuda.synchronize()
+        record["verify_device_restore"] = {
+            "seconds": time.perf_counter() - begin,
+            **snapshot_mod._last_verify_stats,
+            "k4_launches": fops.fingerprint_box_launches - k4_before,
+            "leaves_byte_equal": _trees_bit_equal(fresh.state_dict(), saved.state_dict()),
+        }
+        record["launches"] = {"xs128_box": fops.fingerprint_box_launches,
+                              "xs128_chunked": fops.fingerprint_chunked_launches}
+
+        # K4 and K5 at this path's shapes against their plain versions,
+        # bit for bit (after the path's counts were read): K4 on every
+        # leaf and on each stored box of the leaves above the cap (what the
+        # verify_device restore hashed), K5 on every leaf's 4 MiB grid.
+        tree = state.state_dict()
+        k4_cases = [(t, None) for t in leaves]
+        for key, entry in manifest.items():
+            if isinstance(entry, ShardedArrayEntry):
+                leaf = tree
+                for part in key.split("/")[2:]:  # "<rank>/model/params/tables/cat_2"
+                    leaf = leaf[part]
+                k4_cases += [(leaf, [(o, o + n) for o, n in zip(sh.offsets, sh.sizes)])
+                             for sh in entry.shards]
+        k4_err = max(_lanes_err(fops.fingerprint_box(t, box), fops.fingerprint_box_reference(t, box))
+                     for t, box in k4_cases)
+        k5_err = max(_lanes_err(fops.fingerprint_chunked(t, FP_CHUNK_BYTES),
+                                fops.fingerprint_chunked_reference(t, FP_CHUNK_BYTES)) for t in leaves)
+        record["kernels_against_plain"] = {
+            "k4_cases": len(k4_cases), "k4_boxes": len(k4_cases) - len(leaves), "k4_max_abs_err": k4_err,
+            "k5_cases": len(leaves), "k5_max_abs_err": k5_err}
+        del fresh, saved, state, leaves, tree
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit(record)
+    n = record["leaves"]
+    ref_fmt, verify = record["reference_format"], record["verify_device_restore"]
+    gates = {
+        "the state is 33,762,577 rows of 16, 4.33 GB": record["rows"] == 33762577
+        and record["top_mlp_in"] == 367 and 4.3e9 < record["state_bytes"] < 4.4e9,
+        "every loss is finite": all(math.isfinite(x) for x in record["losses"] + [float(loss)]),
+        "restore is bit-exact": record["restore"]["leaves_byte_equal"] == (n, n)
+        and record["restore"]["logits_bit_identical"],
+        "the reference-format restore is bit-exact": ref_fmt["leaves_byte_equal"] == (n, n)
+        and ref_fmt["logits_bit_identical"] and ref_fmt["progress"] == DLRM_STEPS,
+        "the reference reader reads the largest table": ref_fmt["read_table_rows"] == [10131227, 16]
+        and ref_fmt["read_table_byte_equal"],
+        "chunk takes launch K5 once an eligible leaf": [
+            record[f"chunk_take_{s}"]["k5_launches"] for s in (1, 2)] == [len(eligible) + probes, len(eligible)],
+        "the second chunk take writes exactly the changed chunks":
+            record["chunk_take_2"]["chunk_objects_stored"] == changed,
+        "verify_device checks every stored array with K4":
+            (verify["verified"], verify["skipped"], verify["k4_launches"])
+            == (record["stored_array_objects"], 0, record["stored_array_objects"])
+            and verify["leaves_byte_equal"] == (n, n),
+        "K4 and K5 ran on the path": all(record["launches"].values()),
+        "K4 and K5 agree with their plain versions on every leaf and box, bit for bit":
+            record["kernels_against_plain"]["k4_max_abs_err"] == 0
+            and record["kernels_against_plain"]["k5_max_abs_err"] == 0
+            and record["kernels_against_plain"]["k4_boxes"] == sum(
+                len(e.shards) for e in manifest.values() if isinstance(e, ShardedArrayEntry)) > 0,
+    }
+    _hold("dlrm", gates)
+    return record
+
+
+def _digests(tensors):
+    """xs128 fingerprints of tensors on the card (K4), for comparing the
+    bytes two processes hold."""
+    from torchsnapshot_tpu_torch import fingerprint
+
+    return fingerprint.resolve_fingerprints([fingerprint.fingerprint_device_async(t) for t in tensors])
+
+
+def dlrm_ep_rank(rank, world, workdir, out_dir):
+    """DLRM at the Criteo Kaggle widths with tables and momentum
+    row-sharded over ``{"ep": world}``: one step on the phase's first
+    batch, then a take with ``replicated=["**"]`` (each table box once,
+    the MLPs once, striped); each local box's fingerprint for the
+    parent's world-1 restore."""
+    counts = _mr_count_payload_bytes()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    cfg = dlrm.CRITEO_KAGGLE
+    mesh = make_mesh({"ep": world}, "cuda")
+    full = dlrm.init_params(cfg, seed=0)
+    params = dlrm.shard_params(full, mesh)
+    momentum = dlrm.shard_params(dlrm.init_momentum(full), mesh)
+    del full
+    torch.cuda.empty_cache()
+    batch = dlrm.synthetic_batch(cfg, DLRM_BATCH, seed=DLRM_BATCH_SEED)
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    _, _, loss = dlrm.sgd_momentum_train_step(params, momentum, *batch, cfg, mesh, lr=DLRM_LR)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - begin
+    state = dlrm.DLRMState(params, momentum)
+    begin = time.perf_counter()
+    Snapshot.take(os.path.join(workdir, "ep"), {"model": state}, replicated=["**"])
+    take_s = time.perf_counter() - begin
+    locals_ = [t.to_local() for t in tf.param_leaves(state.state_dict())]
+    boxes = [list(map(list, t_box)) for t_box in
+             (io_preparer.dtensor_box(t) for t in tf.param_leaves(state.state_dict()))]
+    tables = [t.to_local() for tree in (params, momentum) for t in tree["tables"].values()]
+    record = {
+        "rank": rank, "loss": float(loss), "step_s": step_s, "take_s": take_s,
+        "bytes_written": counts["written"],
+        "table_box_bytes": sum(t.numel() * t.element_size() for t in tables),
+        "all_reduce_bytes": collectives.sent_bytes["all_reduce"],
+        "staged_bytes": collectives.staged_bytes,
+        "boxes": boxes, "digests": _digests(locals_),
+        "uneven_tables": sorted(n for n, rows in cfg.table_rows.items() if rows % world),
+        "peak_gb": _peak_gb(),
+    }
+    with open(os.path.join(out_dir, f"dlrm_ep_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_dlrm_ep(reference_loss):
+    """The same configuration at ep 2: two processes sharing the card in
+    one gloo group, the tables and momentum row-sharded (``torch.chunk``
+    boxes: 583 rows as 292 + 291, and every other odd count), one step
+    whose loss must be within rtol 1e-5 of the one-process loss on the
+    same batch, a take (each rank's bytes: its table boxes, and half the
+    replicated MLPs), and the world-1 restore into unsharded templates in
+    this process, every box bit-equal to what the rank held."""
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dlrm_ep-")
+    record = {"phase": "dlrm_ep", "mesh": {"ep": DLRM_WORLD}, "reference_loss": reference_loss,
+              "loss_rtol": 1e-5}
+    try:
+        _reset_launch_counts()
+        ranks, record["spawned_world_s"] = _spawn(dlrm_ep_rank, DLRM_WORLD, (workdir, workdir), workdir, "dlrm_ep")
+        target = _fresh_dlrm(1)
+        nbytes = _state_bytes(target.params, target.momentum)
+        begin = time.perf_counter()
+        Snapshot(os.path.join(workdir, "ep")).restore({"model": target})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - begin
+        leaves = list(tf.param_leaves(target.state_dict()))
+        equal = 0
+        for r in ranks:
+            mine = [t[tuple(slice(o, o + n) for o, n in zip(*box))] for t, box in zip(leaves, r["boxes"])]
+            equal += sum(a == b for a, b in zip(_digests(mine), r["digests"]))
+        del target, leaves
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    record.update(ranks=[{k: v for k, v in r.items() if k not in ("boxes", "digests")} for r in ranks],
+                  state_bytes=nbytes, world1_restore_s=restore_s,
+                  world1_restore_gbps=nbytes / 1e9 / restore_s,
+                  boxes_bit_equal=equal, boxes=sum(len(r["boxes"]) for r in ranks))
+    emit(record)
+    written = sum(r["bytes_written"] for r in ranks)
+    gates = {
+        "the ranks' losses are equal": len({r["loss"] for r in ranks}) == 1,
+        "the ep loss is within rtol 1e-5 of one process":
+            abs(ranks[0]["loss"] - reference_loss) <= 1e-5 * abs(reference_loss),
+        "every byte is written once": written == nbytes,
+        "each rank writes its table boxes": all(r["bytes_written"] >= r["table_box_bytes"] for r in ranks),
+        "the world-1 restore is bit-exact in every box": equal == record["boxes"],
+    }
+    _hold("dlrm_ep", gates)
+    return record
+
+
+def _resnet_app(params, stats):
+    return {"params": PytreeStateful(params), "stats": PytreeStateful(stats)}
+
+
+RESNET_DP_FAULTS = {
+    # The gradient all-reduce left out: each rank steps on its own rows'
+    # share of the gradient.
+    "no_grad_sum": lambda: setattr(resnet, "all_reduce_", lambda t, group: t),
+    # Batch statistics of each rank's rows alone (batch norm without
+    # synchronisation): the local sums scaled by the world, over the
+    # global count, are the local mean and variance.
+    "rank_stats": lambda: setattr(
+        resnet, "_summed",
+        lambda x, group: x if group is None else x * torch.distributed.get_world_size(group)),
+}
+
+
+def resnet_rank(rank, world, snap, out_dir, fault=None):
+    """One dp step of the ResNet-18-width CNN over ``{"dp": world}`` from
+    the one-process snapshot ``snap``, on this rank's rows of the global
+    batch (synchronised batch statistics, summed gradients), then a take
+    with ``replicated=["**"]``. ``fault`` names one of
+    ``RESNET_DP_FAULTS`` to inject into the step."""
+    if fault is not None:
+        RESNET_DP_FAULTS[fault]()
+    counts = _mr_count_payload_bytes()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = resnet.RESNET18_CIFAR10
+    mesh = make_mesh({"dp": world}, "cuda")
+    params, stats = resnet.replicate_state(resnet.init_state(cfg, seed=1), mesh)
+    app = _resnet_app(params, stats)
+    Snapshot(snap).restore(app)
+    params, stats = app["params"].tree, app["stats"].tree
+    images, labels = resnet.synthetic_batch(cfg, RESNET_BATCH, seed=RESNET_BATCH_SEED + RESNET_STEPS)
+    images, labels = resnet.dp_shard_batch(images, mesh), resnet.dp_shard_batch(labels, mesh)
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    params, stats, loss = resnet.sgd_train_step(params, stats, images, labels, cfg)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - begin
+    before = counts["written"]
+    begin = time.perf_counter()
+    Snapshot.take(os.path.join(out_dir, "dp"), _resnet_app(params, stats), replicated=["**"])
+    record = {"rank": rank, "loss": float(loss), "step_s": step_s,
+              "take_s": time.perf_counter() - begin, "bytes_written": counts["written"] - before,
+              "all_reduce_bytes": collectives.sent_bytes["all_reduce"],
+              "staged_bytes": collectives.staged_bytes, "local_rows": images.to_local().shape[0]}
+    with open(os.path.join(out_dir, f"resnet_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def _resnet_dp_step(snap, workdir, before, one, exact, fault=None):
+    """Two processes sharing the card take one dp step from ``snap`` on
+    the phase's last batch (``fault`` injected, if named) and take the
+    result; that is restored here and held to the float64 step ``exact``
+    (each parameter: the error beyond 2 ulp of its largest entry, over
+    its largest float64 change) and each running statistic to the
+    one-process step ``one`` (over its largest change)."""
+    cfg = resnet.RESNET18_CIFAR10
+    out_dir = os.path.join(workdir, fault or "sound")
+    os.makedirs(out_dir)
+    ranks, seconds = _spawn(resnet_rank, 2, (snap, out_dir, fault), out_dir, "resnet", MODEL_RANK_TIMEOUT_S)
+    got = _resnet_app(*resnet.init_state(cfg, seed=2))
+    Snapshot(os.path.join(out_dir, "dp")).restore(got)
+    eps = torch.finfo(torch.float32).eps
+    param_err, stats_err = {}, {}
+    for i, (dp, want, old) in enumerate(zip(
+            tf.param_leaves(got["params"].tree), tf.param_leaves(exact), tf.param_leaves(before["params"]))):
+        change = float((want - old.double()).abs().max())
+        slack = 2 * eps * float(want.abs().max())
+        param_err[i] = max(float((dp.double() - want).abs().max()) - slack, 0.0) / (change or 1.0)
+    for i, (dp, want, old) in enumerate(zip(
+            tf.param_leaves(got["stats"].tree), tf.param_leaves(one["stats"]), tf.param_leaves(before["stats"]))):
+        change = float((want - old).abs().max())
+        stats_err[i] = float((dp - want).abs().max()) / (change or 1.0)
+    return {"ranks": ranks, "spawned_world_s": seconds,
+            "param_max_rel_err": max(param_err.values()),
+            "param_worst_leaf": max(param_err, key=param_err.get),
+            "stats_max_rel_err": max(stats_err.values())}
+
+
+def phase_resnet(faults=()):
+    """The JAX CNN at ResNet-18's widths (64, 128, 256, 512; 2 blocks a
+    stage; no strides) on CIFAR-10's shapes (32×32×3, 10 classes), batch
+    128, f32 with TF32 off: 5 SGD steps (the running statistics must
+    change); a take with ``replicated=["**"]`` and a restore into a fresh
+    model, bit-exact with the BN statistics; then two processes sharing
+    the card take one dp step on the same global batch from that
+    snapshot, each on its 64 rows, and take the result with
+    ``replicated=["**"]`` (bytes a rank); each parameter's step agrees
+    with the same step in float64 (and the one-process f32 step's error
+    is printed beside it), each running statistic's with the one-process
+    step, and the loss within rtol 1e-4 (bounds at
+    ``RESNET_DP_PARAM_REL``). Each of ``faults`` (names of
+    ``RESNET_DP_FAULTS``) then runs the dp step again with that fault
+    injected: its readings are printed, and the gate it breaks must
+    reject it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    cfg = resnet.RESNET18_CIFAR10
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_resnet-")
+    record = {"phase": "resnet", "widths": list(cfg.widths), "blocks_per_stage": cfg.blocks_per_stage,
+              "image": [cfg.image_size, cfg.image_size, cfg.in_channels], "batch": RESNET_BATCH,
+              "precision": "f32, TF32 off (cuDNN and cuBLAS)",
+              "dp_param_rel_bound": RESNET_DP_PARAM_REL, "dp_stats_rel_bound": RESNET_DP_STATS_REL}
+    try:
+        params, stats = resnet.init_state(cfg, seed=0)
+        initial_stats = [t.clone() for t in tf.param_leaves(stats)]
+        nbytes = _state_bytes(params, stats)
+        record["state_bytes"] = nbytes
+        losses, step_s = [], []
+        for i in range(RESNET_STEPS + 1):
+            images, labels = resnet.synthetic_batch(cfg, RESNET_BATCH, seed=RESNET_BATCH_SEED + i)
+            if i == RESNET_STEPS:
+                before = {"params": tf.map_leaves(torch.clone, params), "stats": tf.map_leaves(torch.clone, stats)}
+                snap = os.path.join(workdir, "one")
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                Snapshot.take(snap, _resnet_app(params, stats), replicated=["**"])
+                record["take_s"] = time.perf_counter() - begin
+                fresh = _resnet_app(*resnet.init_state(cfg, seed=1))
+                begin = time.perf_counter()
+                Snapshot(snap).restore(fresh)
+                torch.cuda.synchronize()
+                record["restore_s"] = time.perf_counter() - begin
+                record["restore_leaves_byte_equal"] = _trees_bit_equal(
+                    {"p": fresh["params"].tree, "s": fresh["stats"].tree}, {"p": params, "s": stats})
+                del fresh
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            params, stats, loss = resnet.sgd_train_step(params, stats, images, labels, cfg)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - begin)
+            losses.append(float(loss))
+        record["losses"], record["step_s"] = losses, step_s
+        record["stats_changed"] = sum(
+            not torch.equal(a, b) for a, b in zip(initial_stats, tf.param_leaves(stats)))
+        record["stats_leaves"] = len(initial_stats)
+
+        # The same step in float64 from the same state and batch.
+        exact = tf.map_leaves(lambda t: t.double(), before["params"])
+        s64 = tf.map_leaves(lambda t: t.double(), before["stats"])
+        resnet.sgd_train_step(exact, s64, images.double(), labels, dataclasses.replace(cfg, dtype=torch.float64))
+        eps = torch.finfo(torch.float32).eps
+        record["one_process_param_max_rel_err"] = max(
+            max(float((p.double() - want).abs().max()) - 2 * eps * float(want.abs().max()), 0.0)
+            / (float((want - old.double()).abs().max()) or 1.0)
+            for p, want, old in zip(tf.param_leaves(params), tf.param_leaves(exact),
+                                    tf.param_leaves(before["params"])))
+        one = {"stats": stats}
+        dp = _resnet_dp_step(snap, workdir, before, one, exact)
+        ranks = dp["ranks"]
+        record.update(spawned_world_s=dp["spawned_world_s"], dp_param_max_rel_err=dp["param_max_rel_err"],
+                      dp_param_worst_leaf=dp["param_worst_leaf"], dp_stats_max_rel_err=dp["stats_max_rel_err"])
+        record["faults"] = {}
+        for fault in faults:
+            reading = _resnet_dp_step(snap, workdir, before, one, exact, fault)
+            reading["losses"] = [r["loss"] for r in reading.pop("ranks")]
+            record["faults"][fault] = reading
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    record["ranks"] = ranks
+    emit(record)
+    written = sum(r["bytes_written"] for r in ranks)
+    gates = {
+        "the running statistics changed": record["stats_changed"] == record["stats_leaves"],
+        "the restore is bit-exact, BN statistics included":
+            record["restore_leaves_byte_equal"][0] == record["restore_leaves_byte_equal"][1],
+        "every loss is finite": all(math.isfinite(x) for x in losses),
+        "the dp ranks' losses are equal": len({r["loss"] for r in ranks}) == 1,
+        "the dp loss is within rtol 1e-4 of one process":
+            abs(ranks[0]["loss"] - losses[-1]) <= 1e-4 * abs(losses[-1]),
+        "the dp step's parameters agree with the float64 step":
+            record["dp_param_max_rel_err"] <= RESNET_DP_PARAM_REL,
+        "the dp step's running statistics agree with one process":
+            record["dp_stats_max_rel_err"] <= RESNET_DP_STATS_REL,
+        "the replicated take writes every byte once, on both ranks":
+            written == nbytes and all(r["bytes_written"] > 0 for r in ranks),
+    }
+    faulty = record["faults"]
+    if "no_grad_sum" in faulty:
+        gates["the parameter gate rejects a lost gradient sum"] = (
+            faulty["no_grad_sum"]["param_max_rel_err"] > RESNET_DP_PARAM_REL)
+    if "rank_stats" in faulty:
+        gates["the statistics gate rejects per-rank statistics"] = (
+            faulty["rank_stats"]["stats_max_rel_err"] > RESNET_DP_STATS_REL)
+    _hold("resnet", gates)
+    return record
+
+
+def ddp_rank(rank, world, path, out_dir):
+    """The synthetic DDP model on the card, the same seed on every rank,
+    taken with ``replicated=["**"]``: the writes striped over the ranks."""
+    counts = _mr_count_payload_bytes()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    model = SyntheticModel(n_params=DDP_PARAMS, param_bytes=DDP_PARAM_BYTES, seed=0)
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    Snapshot.take(path, {"model": model}, replicated=["**"])
+    record = {"rank": rank, "take_s": time.perf_counter() - begin, "bytes_written": counts["written"]}
+    with open(os.path.join(out_dir, f"ddp_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_ddp():
+    """The reference DDP benchmark's model (``SyntheticModel``) at its
+    100 MiB parameter size, 20 of its 200 parameters (2.1 GB), on the
+    card in two processes: a replicated take striped over the ranks (each
+    writes about half), then a restore in this process into a model of
+    other values, bit-exact."""
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ddp-")
+    path = os.path.join(workdir, "ddp")
+    record = {"phase": "ddp", "n_params": DDP_PARAMS, "param_bytes": DDP_PARAM_BYTES}
+    try:
+        ranks, record["spawned_world_s"] = _spawn(ddp_rank, 2, (path, workdir), workdir, "ddp")
+        target = SyntheticModel(n_params=DDP_PARAMS, param_bytes=DDP_PARAM_BYTES, seed=1)
+        nbytes = target.total_bytes()
+        begin = time.perf_counter()
+        Snapshot(path).restore({"model": target})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - begin
+        expected = SyntheticModel(n_params=DDP_PARAMS, param_bytes=DDP_PARAM_BYTES, seed=0)
+        equal = _trees_bit_equal(target.state_dict(), expected.state_dict())
+        del target, expected
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    record.update(ranks=ranks, state_bytes=nbytes, restore_s=restore_s,
+                  restore_gbps=nbytes / 1e9 / restore_s, leaves_byte_equal=equal,
+                  take_gbps=nbytes / 1e9 / max(r["take_s"] for r in ranks))
+    emit(record)
+    gates = {
+        "every byte is written once": sum(r["bytes_written"] for r in ranks) == nbytes,
+        "each rank writes about half": all(
+            abs(r["bytes_written"] - nbytes / 2) <= DDP_PARAM_BYTES for r in ranks),
+        "the restore is bit-exact": equal == (DDP_PARAMS, DDP_PARAMS),
+    }
+    _hold("ddp", gates)
+    return record
+
+
+def phase_dryrun():
+    """``dryrun.dryrun_multichip(2)`` on the card: two ranks sharing it
+    run the JAX dry run's sequence (the zigzag ring step with flash chunks,
+    so K1–K3 run as ring-chunk kernels; Ulysses; replicated, incremental
+    with ``verify_device`` (K4), half-ranks and split restores; the DLRM
+    ep step with its narrower-ep restore; the manager). Each rank's
+    launches are read from its record."""
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dryrun-")
+    try:
+        begin = time.perf_counter()
+        dryrun.dryrun_multichip(2, record_dir=workdir, timeout_s=MODEL_RANK_TIMEOUT_S)
+        seconds = time.perf_counter() - begin
+        ranks = _mr_records(workdir, "dryrun", 2)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = {"phase": "dryrun", "world": 2, "seconds": seconds, "ranks": ranks}
+    emit(record)
+    gates = {
+        "every loss is finite": all(math.isfinite(r[k]) for r in ranks for k in ("loss", "dlrm_loss")),
+        "the ring ran flash chunks": all(r["ring_impl"] == "flash" for r in ranks),
+        "K1-K3 ran on the ring": all(r["ring_launches"][k] > 0 for r in ranks
+                                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+        "K4 ran on the fingerprinted takes": all(r["launches"]["xs128_box"] > 0 for r in ranks),
+    }
+    _hold("dryrun", gates)
+    return record
+
+
 def _gpt2_xl_shapes(cfg):
     d, f = cfg.d_model, cfg.d_ff
     layer = [(d, d)] * 4 + [(d, f), (f, d), (d,), (d,)]
@@ -2269,13 +2982,19 @@ def main():
     fingerprint = phase_kernel_fingerprint()
     main_path, model, tokens = phase_main_path(transfer_record["h2d_pinned_gbps"])
     dedup = phase_dedup(model, tokens)
-    api = phase_api(model, tokens, {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")})
+    ceilings = {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")}
+    api = phase_api(model, tokens, ceilings)
     del model, tokens
     torch.cuda.empty_cache()
     phase_torn_leaf()
     train = phase_train()
     multi_rank = phase_multi_rank()
     sp_paths = {phase: phase_seq_parallel(phase) for phase in SP_PHASES}
+    dlrm_record = phase_dlrm(ceilings)
+    phase_dlrm_ep(dlrm_record["losses"][0])
+    phase_resnet()
+    phase_ddp()
+    dryrun_ranks = phase_dryrun()["ranks"]
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
 
@@ -2300,7 +3019,9 @@ def main():
         "launches_api_path": api["launches"]["flash_fwd"],
         "launches_multi_rank_path": multi_rank["flash_launches"],
         **sp_launches(0),
+        "launches_dryrun_path": dryrun_ranks[0]["ring_launches"]["flash_fwd"],
         "ring_chunk": chunk_row(flash["ring_chunk_causal"], "kernel_ms", "bound_ms"),
+        "dryrun_chunk": chunk_row(flash["dryrun_chunk_causal"], "kernel_ms", "bound_ms"),
         "max_abs_err": fwd["max_abs_err"],
         "ms": fwd["kernel_ms"],
         "kernel_ms": fwd["kernel_ms"],
@@ -2319,7 +3040,9 @@ def main():
             "replaces": f"torchsnapshot_tpu/ops/attention.py:{line}",
             "launches": train["launches"][name],
             **sp_launches(i),
+            "launches_dryrun_path": dryrun_ranks[0]["ring_launches"][name],
             "ring_chunk": chunk_row(flash_bwd["ring_chunk_causal"], f"{key}_kernel_ms", f"{key}_bound_ms"),
+            "dryrun_chunk": chunk_row(flash_bwd["dryrun_chunk_causal"], f"{key}_kernel_ms", f"{key}_bound_ms"),
             "ring_chunk_dlse_max_abs_err": flash_bwd["ring_chunk_dlse"]["max_abs_err"],
             "max_abs_err": bwd["max_abs_err"],
             "ms": bwd[f"{key}_kernel_ms"],
@@ -2339,6 +3062,9 @@ def main():
             "replaces": f"torchsnapshot_tpu/fingerprint.py:{line}",
             "launches": dedup["launches"][name],
             "launches_api_path": api["launches"][name],
+            "launches_dlrm_path": dlrm_record["launches"][name],
+            "dlrm_max_abs_err": dlrm_record["kernels_against_plain"][f"{key}_max_abs_err"],
+            "launches_dryrun_path": dryrun_ranks[0]["launches"][name],
             "max_abs_err": fingerprint["max_abs_err"],
             # At the 40.96 MB w1; the embed and the whole state beside it.
             "ms": w1[f"{key}_ms"],

@@ -81,6 +81,9 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         from torchsnapshot_tpu_torch.ops import fingerprint as fingerprint_ops
         from torchsnapshot_tpu_torch import inspect
         from torchsnapshot_tpu_torch.storage_plugins import gcs, s3
+        from torchsnapshot_tpu_torch import dryrun, interop
+        from torchsnapshot_tpu_torch.interop.reference_writer import convert_back
+        from torchsnapshot_tpu_torch.models import ddp_synthetic, dlrm, resnet
 
         w = torch.randn(5, 3).to(torch.bfloat16)
         Snapshot.take({str(tmp_path / "snap")!r}, {{"m": StateDict(w=w), "rng": RNGState()}})
@@ -123,6 +126,29 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         Snapshot(run + "/s2").restore({{"m": target}}, paths=["m/w"])
         Snapshot(run + "/s2").copy_to(run + "/copy")
         assert inspect.main([run + "/copy", "--verify"]) == 0
+        # The other workloads and the reference format: a DLRM take, its
+        # convert_back (JSON metadata) and a reader restore, a bfloat16
+        # leaf included, with PyYAML and ml_dtypes blocked.
+        cfg = dlrm.DLRMConfig(table_rows={{"a": 16, "b": 8}}, embed_dim=4, dense_in=3, bag_len=2,
+                              bottom_mlp=(8, 4), top_mlp=(4, 1))
+        params = dlrm.init_params(cfg, seed=0, device="cpu")
+        state = dlrm.DLRMState(params, dlrm.init_momentum(params))
+        dlrm.sgd_momentum_train_step(state.params, state.momentum,
+                                     *dlrm.synthetic_batch(cfg, 4, seed=1, device="cpu"), cfg)
+        Snapshot.take(run + "/dlrm", {{"model": state, "extra": StateDict(w=w)}})
+        convert_back(run + "/dlrm", run + "/ref")
+        assert open(run + "/ref/.snapshot_metadata").read().startswith("{{")
+        other = dlrm.init_params(cfg, seed=1, device="cpu")
+        back = dlrm.DLRMState(other, dlrm.init_momentum(other))
+        extra = StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16))
+        interop.ReferenceSnapshotReader(run + "/ref").restore({{"model": back, "extra": extra}})
+        assert torch.equal(back.params["tables"]["a"], state.params["tables"]["a"])
+        assert torch.equal(extra["w"].view(torch.int16), w.view(torch.int16))
+        assert inspect.main([run + "/dlrm", "--convert-back", run + "/ref2"]) == 0
+        rparams, rstats = resnet.init_state(resnet.ResNetConfig(widths=(4,), image_size=4), seed=0, device="cpu")
+        synthetic = ddp_synthetic.SyntheticModel(n_params=2, param_bytes=64, device="cpu")
+        fn, args = dryrun.entry(device="cpu")
+        assert fn(*args).shape == (2, 16, 64)
         assert not BLOCKED & set(m.split(".")[0] for m in set(sys.modules) - PRESENT)
         print("ok")
         """

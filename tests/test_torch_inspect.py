@@ -3,8 +3,8 @@ the cases of tests/test_inspect_cli.py and the CLI cases of
 test_integrity.py, test_copy_to.py and test_incremental.py: for the same
 snapshot, taken by either package, its lines are the JAX package's
 (listing, ``--raw``, ``--rank``, ``--verify``, ``--diff``, ``--steps``,
-``--reconcile``), and its exit codes too. The flags whose modules are not
-ported yet exit non-zero naming their ROADMAP item."""
+``--reconcile``, ``--convert-back``), and its exit codes too. The flags
+whose modules are not ported yet exit non-zero naming their ROADMAP item."""
 
 import os
 import subprocess
@@ -203,7 +203,7 @@ def test_modes_are_mutually_exclusive(tmp_path, flags):
 
 @pytest.mark.parametrize("flags, item", [
     (["--report"], "Queue 1 item 8"), (["--doctor"], "Queue 1 item 8"),
-    (["--timeline"], "Queue 1 item 8"), (["--convert-back", "dest"], "Queue 1 item 5"),
+    (["--timeline"], "Queue 1 item 8"),
 ])
 def test_flags_of_unported_modules_exit_nonzero_naming_their_item(tmp_path, capsys, flags, item):
     path = str(tmp_path / "snap")
@@ -212,6 +212,27 @@ def test_flags_of_unported_modules_exit_nonzero_naming_their_item(tmp_path, caps
     captured = capsys.readouterr()
     assert item in captured.err and "not yet ported" in captured.err and captured.out == ""
     assert not os.path.exists(os.path.join(path, "dest"))
+
+
+def test_convert_back_exports_a_snapshot_the_jax_reader_restores(tmp_path, capsys):
+    """--convert-back prints the JAX CLI's line and writes the reference
+    format: the JAX package's ReferenceSnapshotReader restores it."""
+    from torchsnapshot_tpu.interop import ReferenceSnapshotReader
+
+    path, dest = str(tmp_path / "snap"), str(tmp_path / "ref")
+    _take("port", path)
+    assert main([path, "--convert-back", dest]) == 0
+    assert capsys.readouterr().out == f"exported {path} -> {dest} (reference format)\n"
+    assert jax_main([path, "--convert-back", str(tmp_path / "jax_ref")]) == 0
+    assert capsys.readouterr().out == f"exported {path} -> {tmp_path / 'jax_ref'} (reference format)\n"
+    template = _Model({"w": np.zeros((8, 6), np.float32), "b": np.ones(6, np.float32),
+                       "meta": {"name": ""}, "tags": set()})
+    progress = jsnap.StateDict(step=0, done=True)
+    ReferenceSnapshotReader(dest).restore({"model": template, "progress": progress})
+    assert template.params["w"].tobytes() == np.arange(48, dtype=np.float32).tobytes()
+    assert template.params["b"].tobytes() == np.zeros(6, np.float32).tobytes()
+    assert template.params["meta"] == {"name": "golden"} and template.params["tags"] == {"x"}
+    assert progress["step"] == 7 and progress["done"] is False
 
 
 def test_runs_as_a_module(tmp_path):

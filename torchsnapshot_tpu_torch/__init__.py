@@ -10,9 +10,12 @@ incremental takes against a base, a content-chunk store shared by a run,
 with xs128 fingerprints computed by hand-written CUDA kernels); restores
 selected leaves (``paths=``), verifies, copies and diffs snapshots, on the
 local filesystem, in memory, on GCS or S3 (``python -m
-torchsnapshot_tpu_torch.inspect`` from the shell); and trains the flagship
-transformer with hand-written CUDA flash-attention kernels, forward and
-backward. Imports neither JAX nor the JAX package.
+torchsnapshot_tpu_torch.inspect`` from the shell); migrates snapshots to
+and from the reference torchsnapshot's format (``interop``); and trains
+the flagship transformer with hand-written CUDA flash-attention kernels,
+forward and backward, and the JAX package's other workloads (DLRM with
+row-sharded tables, a ResNet CNN, a synthetic DDP model). Imports
+neither JAX nor the JAX package.
 """
 
 from .coord import (

@@ -13,9 +13,10 @@ Other modes, one at a time: ``--verify`` (scrub every payload; exit 1 on
 a bad object), ``--copy-to DEST``, ``--diff OLDER`` (exit 1 when
 something changed, 3 when only inconclusive), ``--delete [--sweep]``,
 and, with PATH a ``CheckpointManager`` directory, ``--steps`` and
-``--reconcile {adopt,sweep}``. ``--report``, ``--doctor``, ``--timeline``
-and ``--convert-back`` wait for modules not yet ported and exit 2 naming
-them. Needs neither PyYAML nor a device.
+``--reconcile {adopt,sweep}``, and ``--convert-back DEST`` (export to the
+reference torchsnapshot format). ``--report``, ``--doctor`` and
+``--timeline`` wait for modules not yet ported and exit 2 naming them.
+Needs neither PyYAML nor a device.
 """
 
 import argparse
@@ -39,7 +40,6 @@ _NOT_YET_PORTED = {
     "report": "the flight reports of the telemetry (ROADMAP Queue 1 item 8)",
     "doctor": "the telemetry doctor (ROADMAP Queue 1 item 8)",
     "timeline": "the telemetry ledger (ROADMAP Queue 1 item 8)",
-    "convert_back": "the reference-format interop (ROADMAP Queue 1 item 5)",
 }
 
 
@@ -89,7 +89,7 @@ def main(argv=None) -> int:
                         help="scrub every payload against its checksum and size; "
                         "exit 1 if any object is bad")
     parser.add_argument("--convert-back", metavar="DEST",
-                        help="export to the reference torchsnapshot format (not yet ported)")
+                        help="export to a snapshot the reference torchsnapshot can restore")
     parser.add_argument("--steps", action="store_true",
                         help="treat PATH as a CheckpointManager directory and list its "
                         "committed steps")
@@ -179,6 +179,12 @@ def main(argv=None) -> int:
             return 1
         for step in steps:
             print(step)
+        return 0
+    if args.convert_back:
+        from .interop.reference_writer import convert_back
+
+        convert_back(args.path, args.convert_back)
+        print(f"exported {args.path} -> {args.convert_back} (reference format)")
         return 0
     if args.verify:
         problems = Snapshot(args.path).verify()

@@ -446,6 +446,42 @@ def param_leaves(params: Any) -> Iterator[torch.Tensor]:
         yield params
 
 
+def map_leaves(fn, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every leaf (dicts keep their key
+    order; lists and tuples come back as lists)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def copy_into(held: Any, restored: Any, path: str) -> None:
+    """Copy each tensor of ``restored`` into the matching tensor of
+    ``held`` (a DTensor's local tensor), matched by key, in place; a
+    tensor that already is the held one is skipped. Raises on a shape,
+    dtype or length that does not fit."""
+    if isinstance(held, dict):
+        for key in held:
+            copy_into(held[key], restored[key], f"{path}/{key}")
+    elif isinstance(held, (list, tuple)):
+        if len(held) != len(restored):
+            raise ValueError(f"{path}: {len(restored)} layers restored into a model of {len(held)}")
+        for i, (h, r) in enumerate(zip(held, restored)):
+            copy_into(h, r, f"{path}/{i}")
+    else:
+        dst, src = _local(held), _local(restored)
+        if src.data_ptr() == dst.data_ptr():
+            return
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(
+                f"{path}: restored {src.dtype}{list(src.shape)} "
+                f"does not fit parameter {dst.dtype}{list(dst.shape)}"
+            )
+        with torch.no_grad():
+            dst.copy_(src)
+
+
 def loss_fn(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -599,35 +635,7 @@ class TransformerState:
         self.model = model
 
     def state_dict(self) -> Dict[str, Any]:
-        def detach(tree):
-            if isinstance(tree, dict):
-                return {k: detach(v) for k, v in tree.items()}
-            if isinstance(tree, list):
-                return [detach(v) for v in tree]
-            return tree.detach()
-
-        return detach(self.model.params())
+        return map_leaves(lambda t: t.detach(), self.model.params())
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
-        def assign(params, restored, path):
-            if isinstance(params, dict):
-                for key in params:
-                    assign(params[key], restored[key], f"{path}/{key}")
-            elif isinstance(params, list):
-                if len(params) != len(restored):
-                    raise ValueError(
-                        f"{path}: {len(restored)} layers restored into a "
-                        f"model of {len(params)}"
-                    )
-                for i, p in enumerate(params):
-                    assign(p, restored[i], f"{path}/{i}")
-            elif restored.data_ptr() != params.data_ptr():
-                if restored.shape != params.shape or restored.dtype != params.dtype:
-                    raise ValueError(
-                        f"{path}: restored {restored.dtype}{list(restored.shape)} "
-                        f"does not fit parameter {params.dtype}{list(params.shape)}"
-                    )
-                with torch.no_grad():
-                    params.copy_(restored)
-
-        assign(self.model.params(), state_dict, "model")
+        copy_into(self.model.params(), state_dict, "model")
