@@ -90,6 +90,22 @@ Phases, each printing JSON lines to stdout:
    transfer fails, each restored into a CUDA template of other values:
    all raise and leave the template bit-equal to its old values; the
    retries are bit-exact.
+6d. faults — faultline at the same width, on the same model (after api):
+   the op boundaries of one fault-free cycle of a
+   ``CheckpointManager(max_to_keep=1, chunks=True)`` (one layer changed
+   in place, the next step saved, the step before pruned with chunk GC)
+   are counted, and a cycle crashes at 6 of them (the first, the last,
+   stride total//5 between); after each crash ``check_recovery_invariant``
+   holds every marked and adopted step to ``verify()`` and to a
+   ``verify_device`` restore into a CUDA template (K4 on every leaf),
+   byte-equal to that step's values, and the re-drive (the next save,
+   ``reconcile``, ``assert_reclaimed``) leaves only the new step. Then a
+   torn write (the save fails, the truncated object is on disk, the step
+   is invisible and reclaimed), a crash at the 8th chunk read of a
+   restore (the CUDA template keeps every byte), 503s on about every 10th
+   write of an unchunked take (completed through the retry policy,
+   restored byte-equal), and a world-2 gloo take with rank 1's publishes
+   muted (rank 0's TimeoutError names rank 1 within the 20 s deadline).
 7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
    tokens, every step through the three flash kernels (48 launches each
    per step), checkpointed as a training job does through
@@ -155,9 +171,13 @@ Phases, each printing JSON lines to stdout:
 14. ddp — the reference DDP benchmark's model (20 × 100 MiB) taken
     replicated by two ranks, each writing half, restored bit-exact.
 15. dryrun — ``dryrun.dryrun_multichip(2)``: K1–K3 as ring chunks, K4.
-16. kernels — one JSON line summarising every kernel of the paths (K4
-    and K5 with their launches on the dedup and dlrm paths, K1 and K4
-    with theirs on the api path, K1–K4 on the dry run's).
+16. examples — the six scripts of ``examples_torch/`` on the card, each a
+    subprocess that must exit 0 and print its lines; K1 launches from the
+    long-context script, K4 from the incremental one.
+17. kernels — one JSON line summarising every kernel of the paths (K4
+    and K5 with their launches on the dedup, dlrm and faults paths, K1
+    and K4 with theirs on the api and examples paths, K1–K4 on the dry
+    run's).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -169,9 +189,11 @@ passes over the same bytes give bit-identical logits. The train path
 claims no bit-identity and turns them off.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import glob
+import importlib.util
 import json
 import math
 import os
@@ -272,6 +294,11 @@ FLASH_SHAPES = [
     # zigzag halves, causal on the diagonal and full on the past.
     ("dryrun_chunk_causal", 2, 2, 2, 16, 16, torch.float32, True),
     ("dryrun_chunk_full", 2, 2, 2, 16, 16, torch.float32, False),
+    # The long-context example's ring chunks on a card (sp 2, 1024
+    # tokens, 4 heads of 32): 256-row zigzag halves, causal on the
+    # diagonal and full on the past.
+    ("examples_chunk_causal", 1, 4, 4, 256, 32, torch.float32, True),
+    ("examples_chunk_full", 1, 4, 4, 256, 32, torch.float32, False),
 ]
 
 
@@ -292,11 +319,18 @@ BWD_SHAPES = [
     ("dryrun_chunk_causal", 2, 2, 2, 16, 16, torch.float32, True),
     ("dryrun_chunk_full", 2, 2, 2, 16, 16, torch.float32, False),
     ("dryrun_chunk_dlse", 2, 2, 2, 16, 16, torch.float32, False),
+    # The long-context example's backward: both of its chunks get an lse
+    # cotangent from the merge.
+    ("examples_chunk_causal", 1, 4, 4, 256, 32, torch.float32, True),
+    ("examples_chunk_full", 1, 4, 4, 256, 32, torch.float32, False),
+    ("examples_chunk_dlse", 1, 4, 4, 256, 32, torch.float32, False),
+    ("examples_chunk_causal_dlse", 1, 4, 4, 256, 32, torch.float32, True),
 ]
 # Cases whose lse cotangent is not zero, as a ring chunk's is (the merge
 # differentiates through the lse): they go through flash_attention_backward
 # with a d_lse, whose delta' = rowsum(dO·O) − dlse the plain backward gets.
-DLSE_CASES = {"ring_chunk_dlse", "dryrun_chunk_dlse"}
+DLSE_CASES = {"ring_chunk_dlse", "dryrun_chunk_dlse", "examples_chunk_dlse",
+              "examples_chunk_causal_dlse"}
 
 # |kernel - plain| <= atol + rtol * |plain| for dq, dk and dv. The plain
 # version computes in f32 from the same inputs (bf16/f16 inputs are exact
@@ -2964,6 +2998,477 @@ def phase_dryrun():
     return record
 
 
+# The faults phase (faultline at full width) and the examples phase.
+FAULT_POINTS = 6  # crash points of the matrix: the first, the last, stride total//5 between
+FAULT_RANK_DEADLINE_S = 20.0
+FAULT_TRANSIENT_EVERY = 10
+FAULT_TORN_KEEP_BYTES = 100
+
+
+@contextlib.contextmanager
+def _patched(owner, name, value):
+    """Set ``owner.name`` for the block, then put it back."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then put them back."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class _Lineage:
+    """The values of the last two steps a manager saved of one model,
+    changed in place between them: step s changes layer ``s % n_layers``
+    by 1e-3, and the clones of that layer's old values give back the step
+    before. Every probe compares a restore with one of the two."""
+
+    def __init__(self, model):
+        self.params = model.params()
+        self.leaves = list(tf.param_leaves(self.params))
+        self.live_step = 0
+        self.prev = None  # (step, {leaf index: its old values})
+
+    def advance(self, step):
+        layer = self.params["layers"][step % len(self.params["layers"])]
+        ids = {id(t) for t in tf.param_leaves(layer)}
+        old = {i: t.clone() for i, t in enumerate(self.leaves) if id(t) in ids}
+        with torch.no_grad():
+            for i in old:
+                self.leaves[i].add_(1e-3)
+        self.prev = (self.live_step, old)
+        self.live_step = step
+
+    def expected(self, step):
+        if step == self.live_step:
+            return self.leaves
+        if self.prev is not None and step == self.prev[0]:
+            return [self.prev[1].get(i, t) for i, t in enumerate(self.leaves)]
+        raise AssertionError(f"step {step} is neither the live step {self.live_step} nor the one before")
+
+
+def faults_rank(rank, world, path, out_dir):
+    """A world-2 take over a coordinator whose store mutes rank 1's
+    publishes (``MuteRankStore``): the healthy rank's TimeoutError must
+    name rank 1 within the coordinator's deadline."""
+    from torch.distributed import distributed_c10d as c10d
+
+    from torchsnapshot_tpu_torch import faultline as fl
+    from torchsnapshot_tpu_torch.coord import StoreCoordinator, TorchStore
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    store = TorchStore(c10d._get_default_store(), prefix="chip_smoke_faults/")
+    if rank == 1:
+        store = fl.MuteRankStore(store, rank=1)
+    coord = StoreCoordinator(store, rank, world, timeout_s=FAULT_RANK_DEADLINE_S)
+    layer = tf.init_params(dataclasses.replace(GPT2_XL, n_layers=1), seed=rank)["layers"][0]
+    begin = time.perf_counter()
+    try:
+        Snapshot.take(path, {"model": PytreeStateful(layer)}, coord=coord)
+        outcome = "completed"
+    except TimeoutError as e:
+        outcome = f"TimeoutError: {e}"
+    record = {"rank": rank, "outcome": outcome, "seconds": time.perf_counter() - begin,
+              "state_bytes": sum(t.numel() * t.element_size() for t in tf.param_leaves(layer)),
+              "dropped_publishes": len(getattr(store, "dropped", []))}
+    with open(os.path.join(out_dir, f"faults_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_faults(model):
+    """Crash consistency at GPT-2 XL widths, full depth, f32 (387 leaves,
+    6.23 GB of CUDA tensors), on the fs backend, through the port's
+    faultline: a ``CheckpointManager(max_to_keep=1, chunks=True)`` with
+    both sweep age guards at 0, so each prune runs the chunk GC, K5
+    fingerprints every 4 MiB chunk, and ``TPUSNAPSHOT_FINGERPRINT=1``
+    records each leaf's K4 fingerprint for the probes' ``verify_device``. Each cycle changes one layer in place
+    and saves the next step, pruning the one before.
+
+    1. The crash matrix: the op boundaries of one fault-free cycle are
+       counted; at ``FAULT_POINTS`` of them (the first, the last, stride
+       total//5 between) a cycle crashes, then ``check_recovery_invariant``
+       holds every marked and adopted step to ``verify()`` and to a
+       ``verify_device`` restore into a CUDA template (K4) byte-equal to
+       that step's values; then the re-drive (the next save,
+       ``reconcile(adopt=True)``, ``assert_reclaimed``) leaves the clean
+       base the next point starts from.
+    2. A torn write of one small leaf, ``then="permanent"``: the save
+       fails, the truncated object is on disk, ``verify`` refuses the
+       uncommitted step, and ``reconcile`` reclaims it.
+    3. Crashes at reads of a restore of the latest step: one inside the
+       H2D pipeline's window (copies taken) before any leaf publishes,
+       where the CUDA template keeps every byte; one halfway through the
+       reads, where every leaf is wholly old or wholly new, and both kinds
+       are there (leaf-atomic publish).
+    4. A 503 on every 10th write of a whole (unchunked) take: it
+       completes through the retry policy, restores byte-equal, and the
+       faults show in ``fault_counts()``.
+    5. A world-2 gloo take with rank 1's publishes muted: rank 0's
+       ``TimeoutError`` names rank 1 within the deadline."""
+    from torchsnapshot_tpu_torch import faultline as fl
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    cfg = GPT2_XL
+    lineage = _Lineage(model)
+    app = {"model": tf.TransformerState(model)}
+    n = len(lineage.leaves)
+    state_bytes = sum(t.numel() * t.element_size() for t in lineage.leaves)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_faults-")
+    free = shutil.disk_usage(workdir).free
+    if free < 2.5 * state_bytes:
+        shutil.rmtree(workdir)
+        raise RuntimeError(f"{workdir} has {free} bytes free; the faults phase needs {2.5 * state_bytes:.0f}")
+    base = os.path.join(workdir, "run")
+    probe_model = tf.Transformer.init(cfg, seed=1)
+    probe_leaves = list(tf.param_leaves(probe_model.params()))
+    probe_app = {"model": tf.TransformerState(probe_model)}
+    record = {"phase": "faults", "model": "GPT-2 XL widths, f32", "leaves": n, "state_bytes": state_bytes,
+              "backend": "fs", "manager": "CheckpointManager(max_to_keep=1, chunks=True)"}
+    probes = {"restores": 0, "k4_launches": 0, "seconds": 0.0}
+
+    def manager(**kwargs):
+        return CheckpointManager(base, max_to_keep=1, chunks=True, **kwargs)
+
+    def probe(step):
+        """Restore ``step`` into the template with ``verify_device`` and
+        hold every leaf to that step's bytes."""
+        begin = time.perf_counter()
+        with torch.no_grad():
+            for t in probe_leaves:
+                t.fill_(0.5)
+        k4 = fops.fingerprint_box_launches
+        Snapshot(os.path.join(base, f"step-{step}")).restore(probe_app, verify_device=True)
+        torch.cuda.synchronize()
+        want = lineage.expected(step)
+        bad = [i for i, (got, exp) in enumerate(zip(probe_leaves, want)) if not torch.equal(got, exp)]
+        assert not bad, f"step {step}: {len(bad)} leaves differ from the step's values"
+        assert snapshot_mod._last_verify_stats == {"verified": n, "skipped": 0}, snapshot_mod._last_verify_stats
+        probes["restores"] += 1
+        probes["k4_launches"] += fops.fingerprint_box_launches - k4
+        probes["seconds"] += time.perf_counter() - begin
+
+    def redrive(step):
+        """The recovery after a fault: the next save and its prune, a
+        reconcile, and nothing left but the new step's objects."""
+        lineage.advance(step)
+        mgr = manager(reconcile_on_init="adopt")
+        mgr.save(step, app)
+        mgr.reconcile(adopt=True)
+        assert mgr.latest_step() == step, (mgr.latest_step(), step)
+        fl.assert_reclaimed(base, [step])
+
+    phase_begin = time.perf_counter()
+    try:
+        with _env(TPUSNAPSHOT_SWEEP_MIN_AGE_S=0, TPUSNAPSHOT_REFS_MIN_AGE_S=0,
+                  TPUSNAPSHOT_STORAGE_RETRY_CAP_S=0.01, TPUSNAPSHOT_FINGERPRINT=1):
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+            begin = time.perf_counter()
+            manager().save(0, app)
+            record["first_save_s"] = time.perf_counter() - begin
+            step = 1
+            lineage.advance(step)
+            begin = time.perf_counter()
+            total = fl.count_storage_ops(lambda: manager().save(step, app))
+            record["cycle"] = {"ops": total, "seconds": time.perf_counter() - begin}
+            stride = max(1, total // 5)
+            points = sorted(set(range(1, total + 1, stride)) | {1, total})
+            if len(points) > FAULT_POINTS:
+                points = points[:FAULT_POINTS - 1] + [total]
+            outcomes = []
+            for k in points:
+                begin = time.perf_counter()
+                step += 1
+                lineage.advance(step)
+                with fl.inject(fl.FaultSchedule().crash_at(k)) as ctl:
+                    try:
+                        manager().save(step, app)
+                        crashed = False
+                    except fl.SimulatedCrash:
+                        crashed = True
+                at = next((r for r in ctl.records if r.kind == "crash"), None)
+                inv = fl.check_recovery_invariant(base, probe)
+                checked = time.perf_counter() - begin
+                step += 1
+                redrive(step)
+                outcomes.append({
+                    "op_index": k, "crashed": crashed, "boundary": f"{at.op}({at.path})" if at else None,
+                    "marked_steps": inv.marked_steps, "adopted_steps": inv.adopted_steps,
+                    "saved_step": step - 1, "check_s": checked, "seconds": time.perf_counter() - begin,
+                })
+                print(f"faults: crash at op {k}/{total} {outcomes[-1]['boundary']}: marked "
+                      f"{inv.marked_steps}, adopted {inv.adopted_steps}, {outcomes[-1]['seconds']:.1f} s",
+                      flush=True)
+            probe(step)
+            record["crash_matrix"] = outcomes
+
+            # A torn write of one small leaf (plain, not chunked) in a save.
+            step += 1
+            lineage.advance(step)
+            torn_path = "0/model/layers/7/ln1"
+            sched = fl.FaultSchedule().torn_write(path=torn_path, keep_bytes=FAULT_TORN_KEEP_BYTES,
+                                                  then="permanent", times=None)
+            with fl.inject(sched) as ctl:
+                try:
+                    manager().save(step, app)
+                    torn_raised = False
+                except fl.InjectedPermanentError:
+                    torn_raised = True
+            torn_file = os.path.join(base, f"step-{step}", torn_path)
+            torn_size = os.path.getsize(torn_file) if os.path.exists(torn_file) else None
+            try:
+                Snapshot(os.path.join(base, f"step-{step}")).verify()
+                verify_refused = False
+            except FileNotFoundError:
+                verify_refused = True
+            marked_after_torn = CheckpointManager(base).all_steps()
+            reclaimed = CheckpointManager(base).reconcile(adopt=True)
+            fl.assert_reclaimed(base, marked_after_torn)
+            probe(marked_after_torn[-1])
+            record["torn_write"] = {
+                "step": step, "path": torn_path, "raised": torn_raised, "faults": ctl.fault_counts(),
+                "size_on_disk": torn_size, "verify_refused": verify_refused,
+                "marked_steps": marked_after_torn, "reconcile_handled": reclaimed,
+            }
+            step += 1
+            redrive(step)
+
+            # Crashes at reads of a restore of the latest step. A restore
+            # without faults first counts its content-chunk reads, and
+            # the reads it had made when the H2D pipeline took its first
+            # copy and when the first leaf published. The first crash is
+            # halfway between the two: copies have been taken and nothing
+            # is published, so the template keeps every byte. The second
+            # is halfway through the reads, where some leaves have
+            # published and others have not: each must be wholly old or
+            # wholly new.
+            snap_path = os.path.join(base, f"step-{step}")
+            want = lineage.expected(step)
+            submit, publish = transfer.H2DPipeline.submit, io_preparer.ArrayRestorePlan._publish
+            seen = {"submits": 0}
+
+            def noting_submit(self, *args, **kwargs):
+                seen["submits"] += 1
+                seen.setdefault("reads_at_first_submit", seen["reads"]())
+                return submit(self, *args, **kwargs)
+
+            def noting_publish(self):
+                seen.setdefault("reads_at_first_publish", seen["reads"]())
+                return publish(self)
+
+            counted = fl.FaultSchedule().latency(op="read", path="objects/*", seconds=0.0)
+            with fl.inject(counted) as ctl, _patched(transfer.H2DPipeline, "submit", noting_submit), \
+                    _patched(io_preparer.ArrayRestorePlan, "_publish", noting_publish):
+                seen["reads"] = lambda: len(ctl.records)
+                Snapshot(snap_path).restore(probe_app)
+            torch.cuda.synchronize()
+            chunk_reads = ctl.fault_counts().get("latency", 0)
+            counted_equal = all(torch.equal(t, w) for t, w in zip(probe_leaves, want))
+
+            def read_crash(nth):
+                """Restore with a crash at the nth content-chunk read; the
+                copies the H2D pipeline had taken when it struck, and what
+                it left in the template."""
+                with torch.no_grad():
+                    for t in probe_leaves:
+                        t.fill_(0.5)
+                torch.cuda.synchronize()
+                seen.update(submits=0, reads=lambda: 0)
+                at_crash = {}
+                sched = fl.FaultSchedule().crash_on(op="read", path="objects/*", nth=nth)
+                with fl.inject(sched) as ctl, _patched(transfer.H2DPipeline, "submit", noting_submit):
+                    on_op = ctl.on_op
+
+                    def noting_on_op(op, path):
+                        try:
+                            return on_op(op, path)
+                        except fl.SimulatedCrash:
+                            at_crash.setdefault("h2d_submitted", seen["submits"])
+                            raise
+
+                    ctl.on_op = noting_on_op
+                    try:
+                        Snapshot(snap_path).restore(probe_app)
+                        crashed = False
+                    except fl.SimulatedCrash:
+                        crashed = True
+                torch.cuda.synchronize()
+                old = sum(bool((t == 0.5).all()) for t in probe_leaves)
+                new = sum(torch.equal(t, w) for t, w in zip(probe_leaves, want))
+                return {"nth_read": nth, "crashed": crashed, "ops_before_crash": ctl.op_index,
+                        "h2d_submitted_before_crash": at_crash.get("h2d_submitted"),
+                        "h2d_submitted": seen["submits"], "leaves_old": old, "leaves_new": new}
+
+            window = (seen.get("reads_at_first_submit"), seen.get("reads_at_first_publish"))
+            record["read_crash"] = {
+                "chunk_reads": chunk_reads, "h2d_depth": transfer.h2d_depth(),
+                "reads_at_first_submit": window[0], "reads_at_first_publish": window[1],
+                "fault_free_byte_equal": counted_equal,
+            }
+            if None not in window and window[1] - window[0] >= 2:
+                record["read_crash"]["in_h2d_window"] = read_crash(sum(window) // 2)
+            record["read_crash"]["halfway"] = read_crash(chunk_reads // 2)
+            for name, point in record["read_crash"].items():
+                if isinstance(point, dict):
+                    print(f"faults: read crash {name} at read {point['nth_read']}/{chunk_reads}: "
+                          f"{point['h2d_submitted_before_crash']} H2D copies taken, leaves old "
+                          f"{point['leaves_old']}, new {point['leaves_new']} of {n}", flush=True)
+            record["launches"] = {"xs128_box": fops.fingerprint_box_launches,
+                                  "xs128_chunked": fops.fingerprint_chunked_launches}
+            record["probes"] = dict(probes)
+        shutil.rmtree(base, ignore_errors=True)
+
+        # A 503 on about every 10th write of a whole take, through the
+        # retry policy: one rule each for the 10th, 20th, ... write attempt
+        # it sees (a rule sees no attempt an earlier rule failed). The
+        # zero-second latency rule first counts every attempt.
+        sched = fl.FaultSchedule().latency(op="write", seconds=0.0)
+        for k in range(FAULT_TRANSIENT_EVERY, 10 * n, FAULT_TRANSIENT_EVERY):
+            sched.transient(op="write", nth=k, times=1)
+        path = os.path.join(workdir, "transient")
+        with _env(TPUSNAPSHOT_STORAGE_RETRY_CAP_S=0.01), fl.inject(sched) as ctl:
+            begin = time.perf_counter()
+            Snapshot.take(path, app)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - begin
+        objects = sum(len(files) for _, _, files in os.walk(path))
+        with torch.no_grad():
+            for t in probe_leaves:
+                t.fill_(0.5)
+        Snapshot(path).restore(probe_app)
+        torch.cuda.synchronize()
+        record["transient"] = {
+            "seconds": seconds, "gbps": state_bytes / seconds / 1e9, "faults": ctl.fault_counts(),
+            "objects": objects, "write_attempts": ctl.fault_counts().get("latency", 0),
+            "byte_equal": all(torch.equal(a, b) for a, b in zip(probe_leaves, lineage.leaves)),
+        }
+        shutil.rmtree(path, ignore_errors=True)
+        del probe_model, probe_leaves, probe_app
+        torch.cuda.empty_cache()
+
+        # Rank faults: world 2 sharing the card, rank 1 muted.
+        out_dir = os.path.join(workdir, "ranks")
+        os.makedirs(out_dir)
+        ranks, seconds = _spawn(faults_rank, 2, (os.path.join(workdir, "muted"), out_dir), out_dir,
+                                "faults", timeout_s=MODEL_RANK_TIMEOUT_S)
+        record["rank_fault"] = {"deadline_s": FAULT_RANK_DEADLINE_S, "ranks": ranks, "seconds": seconds}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - phase_begin
+    emit(record)
+    torn, crash, transient, rank0 = (record["torn_write"], record["read_crash"], record["transient"],
+                                      record["rank_fault"]["ranks"][0])
+    window, halfway = crash.get("in_h2d_window", {}), crash["halfway"]
+    gates = {
+        "the matrix crashed at every point": all(o["crashed"] for o in record["crash_matrix"])
+        and len(record["crash_matrix"]) >= 4,
+        "the matrix spans the commit": any(o["saved_step"] in o["marked_steps"] for o in record["crash_matrix"])
+        and any(o["saved_step"] not in o["marked_steps"] + o["adopted_steps"] for o in record["crash_matrix"]),
+        "every probe verified every leaf with K4": probes["k4_launches"] == n * probes["restores"],
+        "the torn save failed": torn["raised"] and torn["faults"].get("torn", 0) >= 1,
+        "the torn object landed truncated": torn["size_on_disk"] == FAULT_TORN_KEEP_BYTES,
+        "verify refuses the uncommitted step": torn["verify_refused"],
+        "the torn step is invisible and reclaimed": torn["step"] not in torn["marked_steps"]
+        and torn["step"] in torn["reconcile_handled"],
+        "a restore without faults is byte-equal": crash["fault_free_byte_equal"],
+        "the fault-free restore took H2D copies before its first publish": bool(window),
+        "both read crashes surfaced": window.get("crashed") and halfway["crashed"],
+        "the first read crash struck with H2D copies taken": (window.get("h2d_submitted_before_crash") or 0) >= 1,
+        "the CUDA template is untouched after the first read crash": window.get("leaves_old") == n,
+        "each leaf is wholly old or wholly new after the halfway read crash":
+            halfway["leaves_old"] + halfway["leaves_new"] == n,
+        "the halfway read crash left old and new leaves": halfway["leaves_old"] >= 1 and halfway["leaves_new"] >= 1,
+        "the transient take completed byte-equal": transient["byte_equal"],
+        "each injected 503 cost one retried attempt": transient["faults"].get("transient", 0) > 0
+        and transient["write_attempts"] == transient["objects"] + transient["faults"]["transient"],
+        "rank 0 names the muted rank within the deadline": "rank 1" in rank0["outcome"]
+        and rank0["outcome"].startswith("TimeoutError") and rank0["seconds"] <= FAULT_RANK_DEADLINE_S + 15,
+        "rank 1's publishes were dropped": record["rank_fault"]["ranks"][1]["dropped_publishes"] > 0,
+        "K4 and K5 ran on the path": all(record["launches"].values()),
+    }
+    _hold("faults", gates)
+    return record
+
+
+# The example scripts, each with the lines it must print: its
+# ``expected_lines`` (what its JAX counterpart in examples/ prints), which
+# the CPU tests read too.
+EXAMPLES = ("simple_example", "checkpoint_manager_example", "async_checkpoint_example",
+            "incremental_example", "embedding_example", "long_context_example")
+
+
+def _example_lines(name):
+    path = os.path.join(ROOT, "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.expected_lines("cuda")
+
+
+EXAMPLE_TIMEOUT_S = 600
+
+
+def phase_examples():
+    """The six scripts of ``examples_torch/`` on the card, each a
+    subprocess as a user runs it (cwd the checkout, its own work
+    directory): each must exit 0 and print its lines. The incremental
+    example's K4 launches and the long-context example's K1, K2 and K3
+    launches are read from what they print."""
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_examples-")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    runs = {}
+    try:
+        for name in EXAMPLES:
+            lines = _example_lines(name)
+            cmd = [sys.executable, os.path.join(ROOT, "examples_torch", f"{name}.py"),
+                   "--work-dir", os.path.join(workdir, name)]
+            begin = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
+                                  env=env, cwd=ROOT)
+            out = proc.stdout
+            runs[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - begin,
+                          "missing_lines": [line for line in lines if line not in out],
+                          "last_lines": out.strip().splitlines()[-3:]}
+            if proc.returncode != 0:
+                runs[name]["stderr_tail"] = proc.stderr[-3000:]
+            for line in out.splitlines():
+                if "K4 launch" in line:
+                    runs[name]["k4_launches"] = runs[name].get("k4_launches", 0) + int(
+                        line.rsplit(" bytes, ", 1)[1].split()[0])
+                for k in ("K1", "K2", "K3"):
+                    if f"{k} launches " in line:
+                        runs[name][f"{k.lower()}_launches"] = int(
+                            line.split(f"{k} launches ", 1)[1].split(",")[0].rstrip(")"))
+            print(f"examples: {name} rc {proc.returncode} in {runs[name]['seconds']:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record = {"phase": "examples", "runs": runs,
+              "launches": {"flash_fwd": runs["long_context_example"].get("k1_launches", 0),
+                           "flash_bwd_dq": runs["long_context_example"].get("k2_launches", 0),
+                           "flash_bwd_dkv": runs["long_context_example"].get("k3_launches", 0),
+                           "xs128_box": runs["incremental_example"].get("k4_launches", 0)}}
+    emit(record)
+    gates = {f"{name} exits 0 with its lines": r["rc"] == 0 and not r["missing_lines"] for name, r in runs.items()}
+    gates["K1, K2, K3 and K4 ran on the path"] = all(record["launches"].values())
+    _hold("examples", gates)
+    return record
+
+
 def _gpt2_xl_shapes(cfg):
     d, f = cfg.d_model, cfg.d_ff
     layer = [(d, d)] * 4 + [(d, f), (f, d), (d,), (d,)]
@@ -2984,6 +3489,7 @@ def main():
     dedup = phase_dedup(model, tokens)
     ceilings = {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")}
     api = phase_api(model, tokens, ceilings)
+    faults = phase_faults(model)
     del model, tokens
     torch.cuda.empty_cache()
     phase_torn_leaf()
@@ -2995,6 +3501,7 @@ def main():
     phase_resnet()
     phase_ddp()
     dryrun_ranks = phase_dryrun()["ranks"]
+    examples = phase_examples()
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
 
@@ -3020,8 +3527,10 @@ def main():
         "launches_multi_rank_path": multi_rank["flash_launches"],
         **sp_launches(0),
         "launches_dryrun_path": dryrun_ranks[0]["ring_launches"]["flash_fwd"],
+        "launches_examples_path": examples["launches"]["flash_fwd"],
         "ring_chunk": chunk_row(flash["ring_chunk_causal"], "kernel_ms", "bound_ms"),
         "dryrun_chunk": chunk_row(flash["dryrun_chunk_causal"], "kernel_ms", "bound_ms"),
+        "examples_chunk": chunk_row(flash["examples_chunk_causal"], "kernel_ms", "bound_ms"),
         "max_abs_err": fwd["max_abs_err"],
         "ms": fwd["kernel_ms"],
         "kernel_ms": fwd["kernel_ms"],
@@ -3041,9 +3550,14 @@ def main():
             "launches": train["launches"][name],
             **sp_launches(i),
             "launches_dryrun_path": dryrun_ranks[0]["ring_launches"][name],
+            "launches_examples_path": examples["launches"][name],
             "ring_chunk": chunk_row(flash_bwd["ring_chunk_causal"], f"{key}_kernel_ms", f"{key}_bound_ms"),
             "dryrun_chunk": chunk_row(flash_bwd["dryrun_chunk_causal"], f"{key}_kernel_ms", f"{key}_bound_ms"),
+            "examples_chunk": chunk_row(flash_bwd["examples_chunk_causal"], f"{key}_kernel_ms",
+                                        f"{key}_bound_ms"),
             "ring_chunk_dlse_max_abs_err": flash_bwd["ring_chunk_dlse"]["max_abs_err"],
+            "examples_chunk_dlse_max_abs_err": max(flash_bwd[c]["max_abs_err"] for c in (
+                "examples_chunk_dlse", "examples_chunk_causal_dlse")),
             "max_abs_err": bwd["max_abs_err"],
             "ms": bwd[f"{key}_kernel_ms"],
             "kernel_ms": bwd[f"{key}_kernel_ms"],
@@ -3065,6 +3579,8 @@ def main():
             "launches_dlrm_path": dlrm_record["launches"][name],
             "dlrm_max_abs_err": dlrm_record["kernels_against_plain"][f"{key}_max_abs_err"],
             "launches_dryrun_path": dryrun_ranks[0]["launches"][name],
+            "launches_faults_path": faults["launches"][name],
+            **({"launches_examples_path": examples["launches"][name]} if name in examples["launches"] else {}),
             "max_abs_err": fingerprint["max_abs_err"],
             # At the 40.96 MB w1; the embed and the whole state beside it.
             "ms": w1[f"{key}_ms"],

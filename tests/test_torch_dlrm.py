@@ -9,6 +9,7 @@ writing only the chunks a step changed.
 The spawned ranks run ``torch_model_workers.dlrm_ep``."""
 
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -147,6 +148,27 @@ def test_interaction_order_reaches_the_top_mlp_as_in_jax():
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL, err_msg=f"column {col}")
 
 
+def _with_deadline(step, fn, timeout_s):
+    """``fn()`` in a daemon thread; a TimeoutError naming ``step`` if it is
+    still running after ``timeout_s`` (the test fails instead of hanging)."""
+    done, error = [], []
+
+    def run():
+        try:
+            done.append(fn())
+        except BaseException as e:  # re-raised below, in the caller
+            error.append(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    thread.join(timeout_s)
+    if thread.is_alive():
+        raise TimeoutError(f"{step} still running after {timeout_s}s")
+    if error:
+        raise error[0]
+    return done[0]
+
+
 @pytest.fixture(scope="module")
 def ep_world(tmp_path_factory):
     """One spawned ep-2 world for the file: a 3-step trajectory on the
@@ -160,7 +182,13 @@ def ep_world(tmp_path_factory):
     jax_state = {"params": jd.shard_params(jp, mesh), "momentum": jd.shard_params(
         jax.tree.map(lambda x: x + 0.5, jp), mesh)}
     jax_snap = os.path.join(out, "jax_ep4")
-    jsnap.Snapshot.take(jax_snap, {"model": JaxPytree(jax_state)}, replicated=["**"])
+    # In this (xdist worker) process, so under a deadline of its own, as
+    # the spawned world below runs under run_multiprocess's.
+    _with_deadline(
+        "the JAX ep-4 take of the ep_world fixture",
+        lambda: jsnap.Snapshot.take(jax_snap, {"model": JaxPytree(jax_state)}, replicated=["**"]),
+        timeout_s=240,
+    )
     cases = [
         ("even", dict(table_rows=ROWS, **SIZES), params_np, _batches(ROWS, 3, seed=11)),
         ("uneven", dict(table_rows=UNEVEN_ROWS, **SIZES), _params(UNEVEN_ROWS, seed=5),

@@ -1,0 +1,582 @@
+"""The port's faultline against the JAX package's: the fault-injection
+plugin, scriptable schedules, the three storage seams (the plugin wrap
+hook under the retry layer, the storage-op hooks, the fs sub-steps),
+torn writes, latency, stale-tmp cleanup, and rank faults for the
+coordinator's collectives. 18 of the 19 tests of ``tests/test_faultline.py``;
+``test_injected_faults_emit_trace_instants`` waits on the port of tracing
+and telemetry (ROADMAP Queue 1 item 8).
+
+Added here: the same manager cycle gives the same storage-op stream in
+both packages, and every rule whose subsystem the port lacks raises
+``NotImplementedError`` naming its ROADMAP item."""
+
+import asyncio
+import collections
+import os
+import re
+import subprocess
+import threading
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchsnapshot_tpu as jsnap
+from torchsnapshot_tpu import faultline as jfl
+from torchsnapshot_tpu_torch import CheckpointManager, Snapshot, StateDict
+from torchsnapshot_tpu_torch import faultline as fl
+from torchsnapshot_tpu_torch import storage_plugin as sp
+from torchsnapshot_tpu_torch.coord import DictStore, StoreCoordinator, format_rank_list
+from torchsnapshot_tpu_torch.io_types import (
+    IOReq,
+    RetryingStoragePlugin,
+    add_storage_op_hook,
+    is_not_found_error,
+    is_range_not_satisfiable_error,
+    remove_storage_op_hook,
+)
+from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
+from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
+
+pytestmark = pytest.mark.faultline
+
+_BACKOFF = "torchsnapshot_tpu_torch.io_types._RETRY_BACKOFF_INITIAL_S"
+
+
+def _state(v):
+    return {"s": StateDict(w=torch.full((4,), float(v)))}
+
+
+def _target():
+    return {"s": StateDict(w=torch.zeros(4))}
+
+
+# ------------------------------------------------------------- plugin unit
+
+
+def test_transient_faults_absorbed_by_retry_layer(monkeypatch):
+    """Injected 503s sit UNDER the retry layer: a write under two
+    transient failures succeeds, and the controller logged both."""
+    monkeypatch.setenv("TPUSNAPSHOT_STORAGE_RETRIES", "3")
+    monkeypatch.setattr(_BACKOFF, 0.001)
+    sched = fl.FaultSchedule().transient(op="write", times=2)
+    with fl.inject(sched) as ctl:
+        store = MemoryStoragePlugin()
+        plugin = RetryingStoragePlugin(fl.FaultPlugin(store, ctl))
+        asyncio.run(plugin.write(IOReq(path="obj", data=b"payload")))
+    assert store.store["obj"] == b"payload"
+    assert ctl.fault_counts() == {"transient": 2}
+
+
+def test_permanent_fault_exhausts_retries(monkeypatch):
+    monkeypatch.setenv("TPUSNAPSHOT_STORAGE_RETRIES", "2")
+    monkeypatch.setattr(_BACKOFF, 0.001)
+    sched = fl.FaultSchedule().permanent(op="write", path="obj")
+    with fl.inject(sched) as ctl:
+        plugin = RetryingStoragePlugin(fl.FaultPlugin(MemoryStoragePlugin(), ctl))
+        with pytest.raises(fl.InjectedPermanentError):
+            asyncio.run(plugin.write(IOReq(path="obj", data=b"x")))
+    assert ctl.fault_counts()["permanent"] == 3  # initial + 2 retries
+
+
+def test_torn_write_retry_rewrites_whole_object(monkeypatch):
+    """A torn write leaves a truncated object visible; the retry layer's
+    rewrite must replace it whole (whole-object puts are idempotent)."""
+    monkeypatch.setattr(_BACKOFF, 0.001)
+    sched = fl.FaultSchedule().torn_write(path="obj", keep_bytes=3)
+    with fl.inject(sched) as ctl:
+        store = MemoryStoragePlugin()
+        plugin = RetryingStoragePlugin(fl.FaultPlugin(store, ctl))
+        asyncio.run(plugin.write(IOReq(path="obj", data=b"0123456789")))
+    assert store.store["obj"] == b"0123456789"
+    assert ctl.fault_counts()["torn"] == 1
+
+
+def test_torn_write_permanent_leaves_detectable_truncation(monkeypatch):
+    monkeypatch.setenv("TPUSNAPSHOT_STORAGE_RETRIES", "0")
+    sched = fl.FaultSchedule().torn_write(
+        path="obj", keep_bytes=3, then="permanent", times=None
+    )
+    with fl.inject(sched) as ctl:
+        store = MemoryStoragePlugin()
+        plugin = RetryingStoragePlugin(fl.FaultPlugin(store, ctl))
+        with pytest.raises(fl.InjectedPermanentError):
+            asyncio.run(plugin.write(IOReq(path="obj", data=b"0123456789")))
+    assert store.store["obj"] == b"012"  # torn, and verifiably short
+
+
+def test_latency_injection_delays_op():
+    sched = fl.FaultSchedule().latency(op="write", seconds=0.05, times=1)
+    with fl.inject(sched) as ctl:
+        plugin = fl.FaultPlugin(MemoryStoragePlugin(), ctl)
+        begin = time.monotonic()
+        asyncio.run(plugin.write(IOReq(path="obj", data=b"x")))
+        assert time.monotonic() - begin >= 0.05
+    assert ctl.fault_counts() == {"latency": 1}
+
+
+def test_crash_is_base_exception_and_latches():
+    """SimulatedCrash must not be absorbable by `except Exception`
+    recovery paths, and every op after the crash point dies too."""
+    assert not issubclass(fl.SimulatedCrash, Exception)
+    sched = fl.FaultSchedule().crash_at(2)
+    with fl.inject(sched) as ctl:
+        plugin = fl.FaultPlugin(MemoryStoragePlugin(), ctl)
+        asyncio.run(plugin.write(IOReq(path="a", data=b"1")))  # op 1: fine
+        with pytest.raises(fl.SimulatedCrash):
+            asyncio.run(plugin.write(IOReq(path="b", data=b"2")))
+        with pytest.raises(fl.SimulatedCrash):
+            asyncio.run(plugin.read(IOReq(path="a")))
+        plugin.close()  # post-crash close is a silent no-op
+    assert ctl.crashed
+
+
+def test_nth_and_path_glob_targeting():
+    sched = fl.FaultSchedule().transient(op="delete", path=".steps/*", nth=2)
+    with fl.inject(sched) as ctl:
+        plugin = fl.FaultPlugin(MemoryStoragePlugin(), ctl)
+        for p in (".steps/1", "payload/x", ".steps/2", ".steps/3"):
+            asyncio.run(plugin.write(IOReq(path=p, data=b"1")))
+        asyncio.run(plugin.delete(".steps/1"))  # 1st match: passes
+        asyncio.run(plugin.delete("payload/x"))  # not a match
+        with pytest.raises(fl.InjectedTransientError):
+            asyncio.run(plugin.delete(".steps/2"))  # 2nd match: fires
+        asyncio.run(plugin.delete(".steps/3"))  # times=1 spent: passes
+
+
+def test_injected_transient_error_is_cloud_shaped():
+    """The injected 429/503 must classify as retryable, NOT as the
+    deterministic not-found/range errors the retry layer propagates."""
+    for status in (429, 503):
+        e = fl.InjectedTransientError(status, "write", "x")
+        assert not is_not_found_error(e)
+        assert not is_range_not_satisfiable_error(e)
+
+
+# ----------------------------------------------------------- the seams
+
+
+def test_wrap_hook_sits_under_retry_layer(tmp_path, monkeypatch):
+    """Through ``url_to_storage_plugin``, as a take resolves it: a
+    transient fault is absorbed by the real retry policy, and a
+    ``SimulatedCrash`` passes straight through it (one attempt)."""
+    monkeypatch.setenv("TPUSNAPSHOT_STORAGE_RETRIES", "3")
+    monkeypatch.setattr(_BACKOFF, 0.001)
+    url = str(tmp_path / "snap")
+    with fl.inject(fl.FaultSchedule().transient(op="write", times=2)) as ctl:
+        plugin = sp.url_to_storage_plugin(url)
+        assert isinstance(plugin, RetryingStoragePlugin)
+        assert isinstance(plugin._inner, fl.FaultPlugin)
+        asyncio.run(plugin.write(IOReq(path="obj", data=b"payload")))
+        plugin.close()
+    assert ctl.fault_counts() == {"transient": 2}
+    with open(tmp_path / "snap" / "obj", "rb") as f:
+        assert f.read() == b"payload"
+    with fl.inject(fl.FaultSchedule().crash_on(op="write")) as ctl:
+        plugin = sp.url_to_storage_plugin(url)
+        with pytest.raises(fl.SimulatedCrash):
+            asyncio.run(plugin.write(IOReq(path="obj2", data=b"x")))
+        plugin.close()
+    assert ctl.fault_counts() == {"crash": 1}  # no retry of a crash
+    assert sp.set_plugin_wrap_hook(None) is None  # inject() restored it
+    assert not isinstance(sp.url_to_storage_plugin(url)._inner, fl.FaultPlugin)
+
+
+# --------------------------------------------------------- op-granular hooks
+
+
+def test_fs_write_emits_substep_boundaries(tmp_path):
+    seen = []
+
+    def hook(op, path):
+        if op.startswith("fs."):
+            seen.append((op, path))
+
+    add_storage_op_hook(hook)
+    try:
+        plugin = FSStoragePlugin(str(tmp_path))
+        asyncio.run(plugin.write(IOReq(path="dir/obj", data=b"x")))
+        plugin.close()
+    finally:
+        remove_storage_op_hook(hook)
+    assert [op for op, _ in seen] == [
+        "fs.write.tmp",
+        "fs.write.fsync",
+        "fs.write.rename",
+        "fs.write.dirsync",
+    ]
+    assert all(p == "dir/obj" for _, p in seen)
+
+
+def test_crash_between_fsync_and_rename_leaves_uncommitted(tmp_path):
+    """Crash after the tmp payload is durable but before the rename: the
+    final name never appears — a torn PROTOCOL, not a torn object."""
+    path = str(tmp_path / "snap")
+    sched = fl.FaultSchedule().crash_on(op="fs.write.rename", path="0/s/w")
+    with fl.inject(sched):
+        with pytest.raises(fl.SimulatedCrash):
+            Snapshot.take(path, {"s": StateDict(w=torch.arange(4.0))})
+    assert not os.path.exists(os.path.join(path, "0", "s", "w"))
+    assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+    with pytest.raises(FileNotFoundError):
+        Snapshot(path).restore({"s": StateDict(w=torch.zeros(4))})
+
+
+def test_crash_after_marker_rename_still_restorable(tmp_path, monkeypatch):
+    """Crash after the step marker's rename sub-step: the marker is
+    visible, so invariant arm (a) applies — the step it names restores."""
+    monkeypatch.setenv("TPUSNAPSHOT_SWEEP_MIN_AGE_S", "0")
+    base = str(tmp_path / "run")
+    sched = fl.FaultSchedule().crash_on(op="fs.write.dirsync", path=".steps/0")
+    with fl.inject(sched):
+        with pytest.raises(fl.SimulatedCrash):
+            CheckpointManager(base, max_to_keep=2).save(0, _state(0))
+    mgr = CheckpointManager(base)
+    assert mgr.all_steps() == [0]
+    target = _target()
+    assert mgr.restore(target) == 0
+    assert torch.equal(target["s"]["w"], torch.zeros(4))
+
+
+# ------------------------------------------------------- rank-fault injection
+
+
+def test_barrier_names_rank_that_never_published():
+    """A rank whose barrier arrival never becomes visible (process death
+    after the local call) must be NAMED by every healthy rank's shared-
+    deadline TimeoutError — not hang them, not blame a healthy peer."""
+    world = 3
+    store = fl.MuteRankStore(DictStore(), rank=1)
+    messages = [None] * world
+
+    def run(rank):
+        coord = StoreCoordinator(store, rank, world, timeout_s=0.5)
+        with pytest.raises(TimeoutError) as exc_info:
+            coord.barrier()
+        messages[rank] = str(exc_info.value)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30.0)
+    assert not any(t.is_alive() for t in threads)
+    for rank, msg in enumerate(messages):
+        assert msg is not None, f"rank {rank} did not time out"
+        assert "rank 1" in msg and "never arrived" in msg
+        assert "rank 0" not in msg.split("observed by")[0]
+    assert store.dropped  # the fault actually fired
+
+
+def test_all_gather_names_all_stalled_ranks():
+    """With TWO muted ranks the error must name both."""
+    world = 4
+    store = fl.MuteRankStore(
+        DictStore(),
+        rank=-1,
+        patterns=fl.mute_patterns_for_rank(1) + fl.mute_patterns_for_rank(3),
+    )
+    messages = {}
+    lock = threading.Lock()
+
+    def run(rank):
+        coord = StoreCoordinator(store, rank, world, timeout_s=0.5)
+        with pytest.raises(TimeoutError) as exc_info:
+            coord.all_gather_object(rank)
+        with lock:
+            messages[rank] = str(exc_info.value)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in (0, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30.0)
+    assert not any(t.is_alive() for t in threads)
+    for rank in (0, 2):
+        msg = messages[rank]
+        assert "ranks 1, 3" in msg and "never finished publishing" in msg
+
+
+def test_partial_chunked_publish_reads_as_never_finished():
+    """A rank that dies partway into a chunked publish (head visible,
+    parts missing) must read as "never finished publishing", never as
+    garbage handed to pickle."""
+    world = 2
+    big = b"x" * (3 << 20)  # > the coordinator's chunk: the chunked path
+    store = fl.MuteRankStore(DictStore(), rank=1, mute_after=1)
+    messages = {}
+
+    def run0():
+        coord = StoreCoordinator(store, 0, world, timeout_s=0.8)
+        with pytest.raises(TimeoutError) as exc_info:
+            coord.all_gather_object(b"small")
+        messages[0] = str(exc_info.value)
+
+    def run1():
+        coord = StoreCoordinator(store, 1, world, timeout_s=0.8)
+        with pytest.raises(TimeoutError):
+            coord.all_gather_object(big)
+
+    threads = [threading.Thread(target=run0), threading.Thread(target=run1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30.0)
+    assert not any(t.is_alive() for t in threads)
+    assert "rank 1" in messages[0]
+    assert "never finished publishing" in messages[0]
+
+
+def test_mute_patterns_match_the_coordinators_keys():
+    """The muted globs are the keys the port's StoreCoordinator publishes
+    through; a ``TorchStore`` namespaces them below the wrapper."""
+    seen = []
+
+    class _Recording(DictStore):
+        def set(self, key, value):
+            seen.append(key)
+            super().set(key, value)
+
+    store = _Recording()
+    coords = [StoreCoordinator(store, r, 2, timeout_s=5.0) for r in range(2)]
+
+    def run(rank):
+        c = coords[rank]
+        c.barrier()
+        c.all_gather_object(b"x" * ((3 << 20) if rank == 1 else 1))
+        c.broadcast_object("v" if rank == 0 else None, src=0)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30.0)
+    mute = fl.MuteRankStore(DictStore(), rank=1)
+    rank1 = [k for k in seen if mute._muted(k)]
+    assert {k.split("/")[0] for k in rank1} == {"b", "ag", "bcack"}
+    assert any("/part" in k for k in rank1)
+    assert not [k for k in seen if k.endswith("/0") and mute._muted(k)]
+
+
+# ------------------------------------------------------------- op counting
+
+
+def test_count_storage_ops_is_fault_free():
+    store_url = f"memory://countbkt-torch-{os.getpid()}"
+
+    def scenario():
+        Snapshot.take(store_url, {"s": StateDict(w=torch.arange(4.0))})
+
+    n = fl.count_storage_ops(scenario)
+    assert n > 0
+    target = _target()
+    Snapshot(store_url).restore(target)
+    assert torch.equal(target["s"]["w"], torch.arange(4.0))
+
+
+def test_fmt_ranks_compresses_contiguous_spans():
+    """Pod-scale stalls must read as spans ("ranks 17, 40-63")."""
+    assert format_rank_list([17]) == "rank 17"
+    assert format_rank_list([1, 3]) == "ranks 1, 3"
+    assert format_rank_list([1, 2, 3, 7]) == "ranks 1-3, 7"
+    assert format_rank_list([17] + list(range(40, 64))) == "ranks 17, 40-63"
+
+
+def test_stale_tmp_cleanup_spares_live_writer(tmp_path):
+    """Publish-point stale-tmp cleanup removes a DEAD writer's torn tmp
+    but never a live concurrent writer's in-flight tmp."""
+    proc = subprocess.Popen(["true"])
+    proc.wait()
+    dead = proc.pid
+
+    plugin = FSStoragePlugin(str(tmp_path))
+    os.makedirs(str(tmp_path / ".steps"), exist_ok=True)
+    # pid 1 always exists: a live concurrent writer of the same marker.
+    live_tmp = str(tmp_path / ".steps" / "5.tmp1")
+    dead_tmp = str(tmp_path / ".steps" / f"5.tmp{dead}")
+    for p in (live_tmp, dead_tmp):
+        with open(p, "wb") as f:
+            f.write(b"torn")
+    asyncio.run(plugin.write(IOReq(path=".steps/5", data=b"marker")))
+    plugin.close()
+    assert os.path.exists(live_tmp)
+    assert not os.path.exists(dead_tmp)
+    with open(str(tmp_path / ".steps" / "5"), "rb") as f:
+        assert f.read() == b"marker"
+
+
+def test_crash_on_close_boundary_skips_deferred_durability():
+    """close IS an op boundary: a crash scheduled there dies before the
+    inner plugin settles deferred work, and stays dead."""
+    sched = fl.FaultSchedule().crash_on(op="close")
+    with fl.inject(sched) as ctl:
+        plugin = fl.FaultPlugin(MemoryStoragePlugin(), ctl)
+        asyncio.run(plugin.write(IOReq(path="a", data=b"1")))
+        with pytest.raises(fl.SimulatedCrash):
+            plugin.close()
+        plugin.close()  # post-crash: silent no-op
+    assert ctl.crashed
+
+
+def test_crashed_fs_plugin_close_settles_no_deferred_fsync(tmp_path, monkeypatch):
+    """On the fs backend: after a crash, closing the plugin must not run
+    the inner plugin's deferred dirent fsyncs (a dead process never
+    settles them)."""
+    calls = []
+    monkeypatch.setattr(
+        "torchsnapshot_tpu_torch.storage_plugins.fs._fsync_dir", calls.append
+    )
+    sched = fl.FaultSchedule().crash_at(6)  # the 2nd write's first boundary
+    with fl.inject(sched) as ctl:
+        plugin = sp.url_to_storage_plugin(str(tmp_path))
+        asyncio.run(plugin.write(IOReq(path="d/a", data=b"1")))
+        with pytest.raises(fl.SimulatedCrash):
+            asyncio.run(plugin.write(IOReq(path="d/b", data=b"2")))
+        calls.clear()
+        plugin.close()
+    assert ctl.crashed and calls == []
+    assert plugin._inner._inner._dirty_dirs  # left unsettled
+
+
+# ------------------------------------------------ unported rules raise
+
+
+_UNPORTED = {
+    "slow_drain": ((), "item 9"),
+    "lose_host": ((0,), "item 9"),
+    "flap_host": ((0,), "item 9"),
+    "drop_conn": ((), "item 9"),
+    "torn_frame": ((), "item 9"),
+    "slow_wire": ((), "item 9"),
+    "kill_server": ((), "item 10"),
+    "kill_fleet_member": (("m1",), "item 10"),
+    "slow_fleet_member": (("m1",), "item 10"),
+    "slow_server": ((), "item 10"),
+    "mem_pressure": (("staging_pool", 1), "item 8"),
+}
+
+
+@pytest.mark.parametrize("builder", sorted(_UNPORTED))
+def test_unported_rule_raises_naming_its_item(builder):
+    """Each builder of the JAX package whose target the port lacks exists
+    and raises, naming the ROADMAP item; it never builds a rule that would
+    silently never fire."""
+    args, item = _UNPORTED[builder]
+    assert hasattr(jfl.FaultSchedule, builder)  # the JAX package has it
+    sched = fl.FaultSchedule()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        getattr(sched, builder)(*args)
+    assert sched.rules == []
+
+
+@pytest.mark.parametrize(
+    "kind", ["hostloss", "flap", "drop_conn", "torn_frame", "slow_wire",
+             "killserver", "killmember", "slowmember", "mem_pressure"]
+)
+def test_unported_rule_kind_cannot_be_constructed(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        fl.FaultRule(kind=kind)
+
+
+def test_public_api_matches_the_jax_package():
+    from torchsnapshot_tpu.telemetry.ledger import LEDGER_DIR
+
+    assert sorted(fl.__all__) == sorted(jfl.__all__)
+    assert fl.crashpoints.LEDGER_DIR == LEDGER_DIR
+
+
+# ------------------------------------------------------ op-stream parity
+
+
+def _op_stream(faultline, scenario):
+    """Every storage-op boundary of ``scenario`` as ``(op, path)``: a
+    zero-second latency rule on every op records each one."""
+    sched = faultline.FaultSchedule().latency(op="*", path="*", seconds=0.0)
+    with faultline.inject(sched) as ctl:
+        scenario()
+    assert len(ctl.records) == ctl.op_index
+    return [(r.op, r.path) for r in ctl.records]
+
+
+def _comparable(ops):
+    """The op multiset without the JAX package's telemetry: its flight
+    reports (``.report.json``) and ledger (``.telemetry/``), which the
+    port does not write yet (ROADMAP Queue 1 item 8). Each ledger append
+    opens a plugin of its own, so one ``close`` goes with it. A take's
+    completion markers carry its random nonce, which is masked."""
+    out = collections.Counter()
+    for op, path in ops:
+        if path.startswith(".telemetry") or path.endswith(".report.json"):
+            if (op, path) == ("write", ".telemetry/ledger.jsonl"):
+                out[("close", "")] -= 1
+            continue
+        out[(op, re.sub(r"^\.completed/[0-9a-f]{32}/", ".completed/<nonce>/", path))] += 1
+    return out
+
+
+def test_manager_cycle_op_stream_matches_jax(tmp_path, monkeypatch):
+    """The same cycle (three saves with ``max_to_keep=1``, each pruning
+    the step before) over the same shapes gives the same multiset of
+    storage ops, sub-steps included, in both packages once the JAX
+    package's telemetry is set aside (``_comparable``)."""
+    monkeypatch.setenv("TPUSNAPSHOT_SWEEP_MIN_AGE_S", "0")
+    w = np.arange(16, dtype=np.float32).reshape(4, 4)
+
+    def cycle(mgr_cls, make):
+        def run(base):
+            for step in (0, 1, 2):
+                mgr_cls(base, max_to_keep=1).save(step, make(step))
+        return run
+
+    port = _op_stream(fl, lambda: cycle(CheckpointManager, lambda s: {
+        "s": StateDict(w=torch.from_numpy(w + s), b=torch.zeros(3))
+    })(str(tmp_path / "port")))
+    jax_ops = _op_stream(jfl, lambda: cycle(jsnap.CheckpointManager, lambda s: {
+        "s": jsnap.StateDict(w=jnp.asarray(w + s), b=jnp.zeros(3))
+    })(str(tmp_path / "jax")))
+    got, want = _comparable(port), _comparable(jax_ops)
+    assert got == want, (
+        f"only in the port: {sorted((got - want).elements())}\n"
+        f"only in JAX: {sorted((want - got).elements())}"
+    )
+
+
+# ------------------------------------- a crash surfaces, never absorbed
+
+
+@pytest.mark.parametrize("nth", [1, 6, 16])
+def test_crash_at_nth_read_of_a_restore_leaves_the_template_untouched(
+    tmp_path, monkeypatch, nth
+):
+    """A crash at the nth read of a restore (a 1 MiB leaf in four 256 KiB
+    chunks, each in four ranged reads, placed through the H2D pipeline,
+    which the host path rides too; the first, a middle and the last) surfaces from ``restore`` as the
+    ``SimulatedCrash`` itself, and the template keeps every byte: the
+    leaf-atomic publish, through faultline."""
+    from torchsnapshot_tpu_torch import io_preparer
+
+    monkeypatch.setattr(io_preparer, "MAX_CHUNK_SIZE_BYTES", 256 << 10)
+    monkeypatch.setenv("TPUSNAPSHOT_PARALLEL_READ_THRESHOLD", str(64 << 10))
+    path = str(tmp_path / "snap")
+    w = torch.arange(1 << 18, dtype=torch.float32)
+    Snapshot.take(path, {"s": StateDict(w=w, b=torch.ones(3))})
+    target = StateDict(w=torch.full((1 << 18,), -1.0), b=torch.zeros(3))
+    before = target["w"].clone()
+    with fl.inject(fl.FaultSchedule().crash_on(op="read", path="chunked/0/s/w*", nth=nth)) as ctl:
+        with pytest.raises(fl.SimulatedCrash):
+            Snapshot(path).restore({"s": target})
+    assert ctl.fault_counts() == {"crash": 1}
+    assert torch.equal(target["w"], before)
+
+
+def test_crash_in_an_async_take_surfaces_from_wait(tmp_path):
+    """The drain thread stores the crash; ``wait()`` raises it, and the
+    snapshot never commits."""
+    path = str(tmp_path / "snap")
+    with fl.inject(fl.FaultSchedule().crash_on(op="fs.write.rename", path="0/s/w")):
+        pending = Snapshot.async_take(path, {"s": StateDict(w=torch.arange(8.0))})
+        with pytest.raises(fl.SimulatedCrash):
+            pending.wait()
+    assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))

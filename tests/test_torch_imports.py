@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it never imports JAX or the JAX package,
-and it runs where PyYAML, psutil, ml_dtypes, zstandard and the cloud SDKs
+"""The PyTorch port and its examples (``examples_torch/``) stand alone:
+they never import JAX, optax or the JAX package, and they run where PyYAML, psutil, ml_dtypes, zstandard and the cloud SDKs
 (boto3, aiobotocore, google-cloud-storage) are not installed (the machine
 with the card has none of them)."""
 
@@ -12,10 +12,12 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "torchsnapshot_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
-]
-FORBIDDEN_ANYWHERE = {"jax", "jaxlib", "torchsnapshot_tpu"}
+PORT_FILES = (
+    sorted((ROOT / "torchsnapshot_tpu_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples_torch").glob("*.py"))
+)
+FORBIDDEN_ANYWHERE = {"jax", "jaxlib", "optax", "torchsnapshot_tpu"}
 FORBIDDEN_AT_MODULE_LEVEL = {
     "yaml", "psutil", "ml_dtypes", "triton", "zstandard", "boto3", "aiobotocore", "google",
 }
@@ -59,8 +61,8 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         # by .pth files; only what is imported from here on counts.
         PRESENT = set(sys.modules)
 
-        BLOCKED = {{"yaml", "psutil", "ml_dtypes", "jax", "jaxlib", "torchsnapshot_tpu", "zstandard",
-                   "boto3", "aiobotocore", "google"}}
+        BLOCKED = {{"yaml", "psutil", "ml_dtypes", "jax", "jaxlib", "optax", "torchsnapshot_tpu",
+                   "zstandard", "boto3", "aiobotocore", "google"}}
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):
@@ -149,6 +151,31 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         synthetic = ddp_synthetic.SyntheticModel(n_params=2, param_bytes=64, device="cpu")
         fn, args = dryrun.entry(device="cpu")
         assert fn(*args).shape == (2, 16, 64)
+        # Fault injection: one crash point of a manager cycle, recovered.
+        from torchsnapshot_tpu_torch import faultline
+        os.environ["TPUSNAPSHOT_SWEEP_MIN_AGE_S"] = "0"
+        crash_base = run + "/crash"
+        CheckpointManager(crash_base, max_to_keep=1).save(0, {{"m": StateDict(w=w)}})
+        with faultline.inject(faultline.FaultSchedule().crash_at(3)) as ctl:
+            try:
+                CheckpointManager(crash_base, max_to_keep=1).save(1, {{"m": StateDict(w=w)}})
+            except faultline.SimulatedCrash:
+                pass
+        assert ctl.crashed
+
+        def probe(step):
+            t = StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16))
+            CheckpointManager(crash_base).restore({{"m": t}}, step=step)
+            assert torch.equal(t["w"].view(torch.int16), w.view(torch.int16))
+
+        faultline.check_recovery_invariant(crash_base, probe)
+        CheckpointManager(crash_base, max_to_keep=1).save(2, {{"m": StateDict(w=w)}})
+        CheckpointManager(crash_base).reconcile(adopt=True)
+        faultline.assert_reclaimed(crash_base, [2])
+        # An example script, with optax blocked too.
+        import runpy
+        sys.argv = ["simple_example.py", "--device", "cpu", "--work-dir", run + "/example"]
+        runpy.run_path({str(ROOT / "examples_torch" / "simple_example.py")!r}, run_name="__main__")
         assert not BLOCKED & set(m.split(".")[0] for m in set(sys.modules) - PRESENT)
         print("ok")
         """

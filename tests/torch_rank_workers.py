@@ -151,3 +151,24 @@ def restore_columns_unstreamed(rank, world, path, arr):
     report = snapshot._last_restore_report["scheduler"]
     assert report["streamed_bytes"] == 0, report
     assert report["private_bytes"] == want.numel() * want.element_size(), report
+
+
+def fail_on_rank(rank, world, bad_rank):
+    """``bad_rank`` raises; the others wait for it in a barrier."""
+    if rank == bad_rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.barrier()
+
+
+def hang_after_torn_report(rank, world, error_dir_glob):
+    """Leave half a failure report, as a rank killed while reporting
+    would, then hang until killed."""
+    import glob
+    import time
+
+    if rank == 1:
+        error_dir = glob.glob(error_dir_glob)[0] if glob.glob(error_dir_glob) else None
+        if error_dir is not None:
+            with open(os.path.join(error_dir, f".rank{rank}.tmp"), "w") as f:
+                f.write("Traceback (most recent call last):\n")
+    time.sleep(3600)

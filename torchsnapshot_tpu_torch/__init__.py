@@ -14,8 +14,9 @@ torchsnapshot_tpu_torch.inspect`` from the shell); migrates snapshots to
 and from the reference torchsnapshot's format (``interop``); and trains
 the flagship transformer with hand-written CUDA flash-attention kernels,
 forward and backward, and the JAX package's other workloads (DLRM with
-row-sharded tables, a ResNet CNN, a synthetic DDP model). Imports
-neither JAX nor the JAX package.
+row-sharded tables, a ResNet CNN, a synthetic DDP model). Its
+``faultline`` injects storage and rank faults and checks crash
+consistency. Imports neither JAX nor the JAX package.
 """
 
 from .coord import (

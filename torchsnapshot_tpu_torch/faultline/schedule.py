@@ -1,0 +1,417 @@
+"""Fault model and scriptable schedules for deterministic injection.
+
+A :class:`FaultSchedule` is an ordered list of :class:`FaultRule`\\ s plus
+an optional global crash point. Every storage-op boundary — plugin-level
+ops emitted by :class:`~torchsnapshot_tpu_torch.faultline.plugin.FaultPlugin`
+("write", "read", "delete", "list", "age", "size", "durable", "close")
+and backend sub-steps emitted through
+:func:`torchsnapshot_tpu_torch.io_types.emit_storage_op` ("fs.write.tmp",
+"fs.write.fsync", "fs.write.rename", "fs.write.dirsync") — consults the
+schedule through a shared :class:`FaultController`, which also assigns
+each boundary a monotonically increasing **op index**. The crash point is
+expressed against that index: op N *onward* raises
+:class:`SimulatedCrash`, modeling a process that stops executing.
+
+Fault kinds:
+
+- **transient** — a cloud-shaped retryable error (429/503 with a
+  structured ``.code``), fired a bounded number of times; the real retry
+  layer must absorb it.
+- **permanent** — an error that fires on every match; retries exhaust and
+  the failure propagates.
+- **torn write** — the payload is truncated at byte ``keep_bytes`` and
+  written through before the error raises: the backend now holds a
+  partial object, exactly what an interrupted upload leaves.
+- **latency** — a sleep before the op proceeds.
+- **crash** — :class:`SimulatedCrash` from this boundary onward, forever
+  (a dead process never comes back).
+
+The JAX package's schedule also drives the hot tier (host loss and flap,
+the wire faults, slow drains), the read plane (server and fleet-member
+kills, slow servers) and the memory plane (``mem_pressure``). Those
+subsystems are not ported yet, so their builders raise
+``NotImplementedError`` naming the ROADMAP item that brings them, and a
+:class:`FaultRule` of such a kind cannot be constructed: a rule whose
+boundary nothing emits would never fire, silently.
+
+The schedule is deterministic by construction: rules fire on the *n*-th
+match of their (op-glob, path-glob) pattern, and the crash point on a
+fixed op index — replaying the same pipeline replays the same faults.
+"""
+
+import fnmatch
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+_ITEM_8 = "telemetry's memory plane, memwatch (ROADMAP Queue 1 item 8)"
+_ITEM_9 = "the hot tier and its wire (ROADMAP Queue 1 item 9)"
+_ITEM_10 = "the snapserve read plane (ROADMAP Queue 1 item 10)"
+
+# Rule kinds of the JAX package whose subsystem the port lacks, with what
+# brings it.
+_UNPORTED_KINDS: Dict[str, str] = {
+    "hostloss": _ITEM_9,
+    "flap": _ITEM_9,
+    "drop_conn": _ITEM_9,
+    "torn_frame": _ITEM_9,
+    "slow_wire": _ITEM_9,
+    "killserver": _ITEM_10,
+    "killmember": _ITEM_10,
+    "slowmember": _ITEM_10,
+    "mem_pressure": _ITEM_8,
+}
+
+
+def _not_ported(what: str, needs: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"faultline {what} targets {needs}, which torchsnapshot_tpu_torch "
+        f"does not have yet"
+    )
+
+
+class SimulatedCrash(BaseException):
+    """Process death at a storage-op boundary.
+
+    Deliberately a ``BaseException``: a crash must rip through the retry
+    layer, schedulers, and ``except Exception`` recovery paths the way a
+    real ``SIGKILL`` would — nothing inside the pipeline may absorb it.
+    """
+
+
+class InjectedTransientError(Exception):
+    """Cloud-shaped retryable failure (429/503).
+
+    Carries a structured ``.code`` plus an ``errors`` attribute so the
+    structural classifiers in ``io_types`` read it exactly like a
+    google-api-core exception: NOT not-found, NOT range-not-satisfiable —
+    hence retryable.
+    """
+
+    errors: Tuple = ()
+
+    def __init__(self, status: int, op: str, path: str) -> None:
+        super().__init__(f"injected {status} on {op}({path})")
+        self.code = status
+
+
+class InjectedPermanentError(Exception):
+    """A failure that never goes away; retries must exhaust and surface it."""
+
+    def __init__(self, op: str, path: str) -> None:
+        super().__init__(f"injected permanent failure on {op}({path})")
+
+
+# Actions a matched rule hands back to the plugin. Raising faults raise
+# inside FaultController.on_op; the torn-write action must be APPLIED by
+# the write path (only it holds the payload), so it travels back as data.
+@dataclass
+class TornWrite:
+    keep_bytes: int
+    # What strikes after the partial payload landed: "transient" (the
+    # retry layer gets a chance to rewrite the object whole), "permanent",
+    # or "crash" (a power-cut mid-upload).
+    then: str = "transient"
+    status: int = 503
+
+
+@dataclass
+class FaultRule:
+    """One scheduled fault: fires on the ``nth`` .. ``nth+times-1``-th ops
+    matching ``(op, path)`` globs (1-based; ``times=None`` = forever)."""
+
+    kind: str  # "transient" | "permanent" | "error" | "torn" | "latency"
+    #          | "crash"
+    op: str = "*"
+    path: str = "*"
+    nth: int = 1
+    times: Optional[int] = 1
+    status: int = 503
+    seconds: float = 0.0
+    torn: Optional[TornWrite] = None
+    error_factory: Optional[Callable[[str, str], Exception]] = None
+    _hits: int = field(default=0, repr=False)
+    _fired: int = field(default=0, repr=False)
+
+    def __post_init__(self) -> None:
+        if self.kind in _UNPORTED_KINDS:
+            raise _not_ported(
+                f"rule kind {self.kind!r}", _UNPORTED_KINDS[self.kind]
+            )
+
+    def matches(self, op: str, path: str) -> bool:
+        return fnmatch.fnmatchcase(op, self.op) and fnmatch.fnmatchcase(
+            path, self.path
+        )
+
+    def should_fire(self) -> bool:
+        """Advance the match counter; report whether the rule fires now."""
+        self._hits += 1
+        if self._hits < self.nth:
+            return False
+        if self.times is not None and self._fired >= self.times:
+            return False
+        self._fired += 1
+        return True
+
+
+class FaultSchedule:
+    """Builder for a deterministic fault script.
+
+    ::
+
+        sched = (
+            FaultSchedule()
+            .transient(op="write", path=".steps/*", times=2)
+            .torn_write(path="0/model/*", keep_bytes=7)
+            .latency(op="read", seconds=0.01)
+            .crash_at(17)                 # op 17 onward: SimulatedCrash
+        )
+    """
+
+    def __init__(self) -> None:
+        self.rules: List[FaultRule] = []
+        self.crash_at_op: Optional[int] = None
+
+    # ------------------------------------------------------------ builders
+
+    def transient(
+        self,
+        op: str = "*",
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = 1,
+        status: int = 503,
+    ) -> "FaultSchedule":
+        self.rules.append(
+            FaultRule(
+                kind="transient", op=op, path=path, nth=nth, times=times,
+                status=status,
+            )
+        )
+        return self
+
+    def permanent(
+        self, op: str = "*", path: str = "*", nth: int = 1
+    ) -> "FaultSchedule":
+        self.rules.append(
+            FaultRule(kind="permanent", op=op, path=path, nth=nth, times=None)
+        )
+        return self
+
+    def error(
+        self,
+        factory: Callable[[str, str], Exception],
+        op: str = "*",
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = 1,
+    ) -> "FaultSchedule":
+        """Inject an arbitrary exception built by ``factory(op, path)`` —
+        for backend-specific shapes the named kinds do not cover."""
+        self.rules.append(
+            FaultRule(
+                kind="error", op=op, path=path, nth=nth, times=times,
+                error_factory=factory,
+            )
+        )
+        return self
+
+    def torn_write(
+        self,
+        path: str = "*",
+        keep_bytes: int = 0,
+        nth: int = 1,
+        times: Optional[int] = 1,
+        then: str = "transient",
+    ) -> "FaultSchedule":
+        self.rules.append(
+            FaultRule(
+                kind="torn", op="write", path=path, nth=nth, times=times,
+                torn=TornWrite(keep_bytes=keep_bytes, then=then),
+            )
+        )
+        return self
+
+    def latency(
+        self,
+        op: str = "*",
+        path: str = "*",
+        seconds: float = 0.01,
+        nth: int = 1,
+        times: Optional[int] = None,
+    ) -> "FaultSchedule":
+        self.rules.append(
+            FaultRule(
+                kind="latency", op=op, path=path, nth=nth, times=times,
+                seconds=seconds,
+            )
+        )
+        return self
+
+    def crash_at(self, op_index: int) -> "FaultSchedule":
+        """Crash at global op index ``op_index`` (1-based) and every
+        boundary after it — the crash-point enumerator's lever."""
+        self.crash_at_op = op_index
+        return self
+
+    def crash_on(
+        self, op: str = "*", path: str = "*", nth: int = 1
+    ) -> "FaultSchedule":
+        """Crash at the ``nth`` op matching the globs (and stay crashed)."""
+        self.rules.append(
+            FaultRule(kind="crash", op=op, path=path, nth=nth, times=None)
+        )
+        return self
+
+    # The JAX package's builders for subsystems the port lacks: each
+    # raises, naming the ROADMAP item that brings its target.
+
+    def slow_drain(self, *args, **kwargs) -> "FaultSchedule":
+        """Latency at the hot tier's ``hottier.drain`` boundaries."""
+        raise _not_ported("slow_drain", _ITEM_9)
+
+    def lose_host(self, *args, **kwargs) -> "FaultSchedule":
+        """Preempt a hot-tier peer host."""
+        raise _not_ported("lose_host", _ITEM_9)
+
+    def flap_host(self, *args, **kwargs) -> "FaultSchedule":
+        """Lose, then revive, a hot-tier peer host."""
+        raise _not_ported("flap_host", _ITEM_9)
+
+    def drop_conn(self, *args, **kwargs) -> "FaultSchedule":
+        """Abort the replication transport's next connection."""
+        raise _not_ported("drop_conn", _ITEM_9)
+
+    def torn_frame(self, *args, **kwargs) -> "FaultSchedule":
+        """Send half a replication frame, then abort."""
+        raise _not_ported("torn_frame", _ITEM_9)
+
+    def slow_wire(self, *args, **kwargs) -> "FaultSchedule":
+        """Delay a replication RPC past its deadline."""
+        raise _not_ported("slow_wire", _ITEM_9)
+
+    def kill_server(self, *args, **kwargs) -> "FaultSchedule":
+        """Kill every in-process read-plane server."""
+        raise _not_ported("kill_server", _ITEM_10)
+
+    def kill_fleet_member(self, *args, **kwargs) -> "FaultSchedule":
+        """Kill one named read-plane fleet member."""
+        raise _not_ported("kill_fleet_member", _ITEM_10)
+
+    def slow_fleet_member(self, *args, **kwargs) -> "FaultSchedule":
+        """Slow one named read-plane fleet member."""
+        raise _not_ported("slow_fleet_member", _ITEM_10)
+
+    def slow_server(self, *args, **kwargs) -> "FaultSchedule":
+        """Latency at the read-plane client's ``snapserve.request``."""
+        raise _not_ported("slow_server", _ITEM_10)
+
+    def mem_pressure(self, *args, **kwargs) -> "FaultSchedule":
+        """Shrink a memory domain's reported cap."""
+        raise _not_ported("mem_pressure", _ITEM_8)
+
+
+@dataclass
+class FaultRecord:
+    op_index: int
+    op: str
+    path: str
+    kind: str
+
+
+class FaultController:
+    """Shared state of one injection session: the op counter, the
+    schedule, the crash latch, and the injection log.
+
+    One controller observes EVERY plugin the pipeline resolves (take,
+    finalize, prune each open their own) plus backend sub-step hooks, so
+    op indices form a single global sequence. Thread-safe: fs sub-steps
+    fire from executor threads while plugin ops fire on the event loop.
+    """
+
+    def __init__(self, schedule: Optional[FaultSchedule] = None) -> None:
+        self.schedule = schedule if schedule is not None else FaultSchedule()
+        self.op_index = 0
+        self.crashed = False
+        self.records: List[FaultRecord] = []
+        self._lock = threading.Lock()
+
+    def _record(self, idx: int, op: str, path: str, kind: str) -> None:
+        # Lock held by caller. The JAX package also counts each fault in
+        # telemetry (FAULTS_INJECTED) and marks it with a trace instant;
+        # both wait on the telemetry and tracing port (ROADMAP Queue 1
+        # item 8). Until then the records and fault_counts() are the log.
+        self.records.append(FaultRecord(idx, op, path, kind))
+
+    def on_op(self, op: str, path: str) -> Optional[TornWrite]:
+        """Announce one op boundary. Raises the scheduled fault, if any;
+        returns a :class:`TornWrite` the caller must apply, or None."""
+        sleep_s = 0.0
+        torn: Optional[TornWrite] = None
+        with self._lock:
+            if self.crashed:
+                raise SimulatedCrash(f"(post-crash) {op}({path})")
+            self.op_index += 1
+            idx = self.op_index
+            crash_at = self.schedule.crash_at_op
+            if crash_at is not None and idx >= crash_at:
+                self.crashed = True
+                self._record(idx, op, path, "crash")
+                raise SimulatedCrash(f"op {idx}: {op}({path})")
+            for rule in self.schedule.rules:
+                if not rule.matches(op, path):
+                    continue
+                if not rule.should_fire():
+                    continue
+                if rule.kind == "latency":
+                    self._record(idx, op, path, "latency")
+                    sleep_s += rule.seconds
+                    continue
+                if rule.kind == "crash":
+                    self.crashed = True
+                    self._record(idx, op, path, "crash")
+                    raise SimulatedCrash(f"op {idx}: {op}({path})")
+                if rule.kind == "torn":
+                    self._record(idx, op, path, "torn")
+                    torn = rule.torn
+                    break
+                if rule.kind == "transient":
+                    self._record(idx, op, path, "transient")
+                    raise InjectedTransientError(rule.status, op, path)
+                if rule.kind == "permanent":
+                    self._record(idx, op, path, "permanent")
+                    raise InjectedPermanentError(op, path)
+                if rule.kind == "error":
+                    self._record(idx, op, path, "error")
+                    raise rule.error_factory(op, path)
+                raise ValueError(f"unknown fault rule kind {rule.kind!r}")
+        if sleep_s > 0.0:
+            # Outside the lock. time.sleep (not asyncio): this runs both
+            # on the event loop and inside executor threads; briefly
+            # blocking the loop is the injected latency, by design.
+            time.sleep(sleep_s)
+        return torn
+
+    def torn_followup(self, torn: TornWrite, op: str, path: str) -> None:
+        """Raise the failure that struck after a torn payload landed."""
+        if torn.then == "crash":
+            with self._lock:
+                self.crashed = True
+            raise SimulatedCrash(f"torn write crash: {op}({path})")
+        if torn.then == "permanent":
+            raise InjectedPermanentError(op, path)
+        raise InjectedTransientError(torn.status, op, path)
+
+    # Sub-step hook (registered via io_types.add_storage_op_hook). Torn
+    # actions make no sense at sub-step granularity; raising faults do.
+    def on_subop(self, op: str, path: str) -> None:
+        self.on_op(op, path)
+
+    def fault_counts(self) -> dict:
+        with self._lock:
+            out: dict = {}
+            for r in self.records:
+                out[r.kind] = out.get(r.kind, 0) + 1
+            return out

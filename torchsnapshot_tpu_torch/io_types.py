@@ -29,6 +29,39 @@ BufferType = Union[bytes, bytearray, memoryview]
 logger = logging.getLogger(__name__)
 
 
+# --------------------------------------------------------- storage-op hooks
+#
+# Observation seam for every storage-op boundary. Registered hooks receive
+# ``(op, path)`` right before the op executes: plugin-level ops are emitted
+# by wrappers (faultline's FaultPlugin emits "write"/"read"/"delete"/...),
+# and backends with multi-step durability protocols emit their SUB-step
+# boundaries too (fs.py emits "fs.write.tmp" → "fs.write.fsync" →
+# "fs.write.rename" → "fs.write.dirsync"), so a fault-injection harness can
+# place a crash BETWEEN the steps of a single logical write. A hook may
+# raise — the exception propagates into the op exactly where a real failure
+# (or process death) would strike. Zero cost when no hook is registered
+# (one truthiness check per boundary).
+
+_STORAGE_OP_HOOKS: List[Callable[[str, str], None]] = []
+
+
+def add_storage_op_hook(hook: Callable[[str, str], None]) -> None:
+    """Register ``hook(op, path)`` to observe every storage-op boundary."""
+    _STORAGE_OP_HOOKS.append(hook)
+
+
+def remove_storage_op_hook(hook: Callable[[str, str], None]) -> None:
+    """Unregister a hook added by :func:`add_storage_op_hook`."""
+    _STORAGE_OP_HOOKS.remove(hook)
+
+
+def emit_storage_op(op: str, path: str) -> None:
+    """Announce a storage-op boundary to registered hooks (may raise)."""
+    if _STORAGE_OP_HOOKS:
+        for hook in list(_STORAGE_OP_HOOKS):
+            hook(op, path)
+
+
 def _code_attr_http_status(exc: BaseException) -> Optional[int]:
     """The exception's ``.code`` as an int, but only when the exception
     looks like an HTTP client's: ``code`` is also a gRPC status or a

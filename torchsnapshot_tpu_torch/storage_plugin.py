@@ -5,6 +5,8 @@ Protocols: ``fs`` (the default when no ``://`` is present), ``memory``,
 any other resolves through the ``storage_plugins`` entry-point group, so
 third-party backends register themselves. ``snapserve`` (the JAX
 package's read plane) is not ported yet and raises.
+``set_plugin_wrap_hook`` wraps every resolved backend under the retry
+layer: fault injection's seam.
 
 :class:`RefRouterPlugin` is the storage side of incremental and
 content-chunked snapshots: a manifest entry whose payload lives in a base
@@ -17,7 +19,7 @@ resolves.
 
 import logging
 from importlib import metadata as importlib_metadata
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .io_types import IOReq, RetryingStoragePlugin, StoragePlugin
 from .storage_plugins.fs import FSStoragePlugin
@@ -29,10 +31,33 @@ logger = logging.getLogger(__name__)
 # to the same store across plugin instances within a process.
 _MEMORY_STORES: Dict[str, Dict[str, bytes]] = {}
 
+# Fault-injection seam (``faultline``): when set, every resolved backend
+# is passed through this wrapper BEFORE the retry layer, so injected
+# transient failures exercise the real retry policy while an injected
+# crash (a BaseException) goes straight through it, as a real backend
+# failure or process death would. Process-global on purpose: take,
+# finalize and prune each resolve their own plugin, and one controller
+# must observe them all as one op stream.
+_PLUGIN_WRAP_HOOK: Optional[Callable[[StoragePlugin, str], StoragePlugin]] = None
+
+
+def set_plugin_wrap_hook(hook):
+    """Install (or, with None, clear) the plugin wrapper applied to every
+    backend ``url_to_storage_plugin`` resolves; returns the previous hook
+    so callers can restore it."""
+    global _PLUGIN_WRAP_HOOK
+    prev = _PLUGIN_WRAP_HOOK
+    _PLUGIN_WRAP_HOOK = hook
+    return prev
+
 
 def url_to_storage_plugin(url_path: str) -> StoragePlugin:
-    """Resolve a URL to its backend, wrapped with the retry policy."""
-    return RetryingStoragePlugin(_resolve_plugin(url_path))
+    """Resolve a URL to its backend, wrapped with the retry policy (and,
+    under it, the wrap hook when one is set)."""
+    plugin = _resolve_plugin(url_path)
+    if _PLUGIN_WRAP_HOOK is not None:
+        plugin = _PLUGIN_WRAP_HOOK(plugin, url_path)
+    return RetryingStoragePlugin(plugin)
 
 
 def _resolve_plugin(url_path: str) -> StoragePlugin:

@@ -6,6 +6,10 @@ to a temporary name, fsynced and renamed into place; the renamed
 directory entries of data objects are made durable in one batch before
 the next publish point (a dot-prefixed name such as the snapshot
 metadata), so the metadata can never reference a file a crash could lose.
+Each write announces its sub-steps (``fs.write.tmp``, ``.fsync``,
+``.rename``, ``.dirsync``) to ``io_types``' storage-op hooks, where
+fault injection can crash between them, and a publish point first
+removes the torn temporaries a dead writer left for the same name.
 """
 
 import asyncio
@@ -15,7 +19,7 @@ import threading
 import time
 from typing import List, Optional, Set
 
-from ..io_types import IOReq, StoragePlugin
+from ..io_types import IOReq, StoragePlugin, emit_storage_op
 
 
 def _fsync_dir(path: str) -> None:
@@ -84,6 +88,48 @@ class FSStoragePlugin(StoragePlugin):
     def ensure_durable(self) -> None:
         self._flush_dirty_dirs()
 
+    @staticmethod
+    def _writer_alive(pid_str: str) -> bool:
+        """Whether the process that named a ``.tmp<pid>`` file still runs
+        on this host. EPERM means alive (another user's process); an
+        unparseable suffix reads as alive: fail toward keeping."""
+        if not (pid_str.isascii() and pid_str.isdigit()):
+            return True
+        try:
+            os.kill(int(pid_str), 0)
+        except ProcessLookupError:
+            return False
+        except Exception:  # EPERM, a suffix past C long: keep
+            return True
+        return True
+
+    @classmethod
+    def _clean_stale_tmp(cls, full: str, own_tmp: str) -> None:
+        """Remove the torn ``<name>.tmp<pid>`` siblings a crashed process
+        left for the object about to be (re)written. Only a dead writer's:
+        a live concurrent writer's tmp (a reconcile adopting the marker an
+        async finalize is writing now) must survive, or its rename fails.
+        Only publish points pay this: they are small directories, and the
+        paths re-driven after a crash; payload debris in step directories
+        is reclaimed by sweeps."""
+        d = os.path.dirname(full)
+        prefix = os.path.basename(full) + ".tmp"
+        own = os.path.basename(own_tmp)
+        try:
+            names = os.listdir(d)
+        except FileNotFoundError:
+            return
+        for name in names:
+            if (
+                name.startswith(prefix)
+                and name != own
+                and not cls._writer_alive(name[len(prefix):])
+            ):
+                try:
+                    os.remove(os.path.join(d, name))
+                except FileNotFoundError:
+                    pass  # a concurrent cleanup removed it first
+
     def _write_sync(self, io_req: IOReq) -> None:
         self._prepare_dir(io_req.path)
         full = os.path.join(self.root, io_req.path)
@@ -93,13 +139,24 @@ class FSStoragePlugin(StoragePlugin):
             # BEFORE the publishing rename can reach disk.
             self._flush_dirty_dirs()
         tmp = f"{full}.tmp{os.getpid()}"
+        if publish:
+            self._clean_stale_tmp(full, tmp)
         payload = io_req.data if io_req.data is not None else io_req.buf.getbuffer()
+        # Sub-step boundaries (faultline): a hook may raise here to model
+        # a crash between the steps of the durability protocol — after
+        # the tmp data landed but before its fsync, after the fsync but
+        # before the rename, after the rename but before the dirent is
+        # durable.
+        emit_storage_op("fs.write.tmp", io_req.path)
         with open(tmp, "wb") as f:
             f.write(payload)
+            emit_storage_op("fs.write.fsync", io_req.path)
             # Data must be durable BEFORE the rename publishes the name.
             f.flush()
             os.fsync(f.fileno())
+        emit_storage_op("fs.write.rename", io_req.path)
         os.replace(tmp, full)
+        emit_storage_op("fs.write.dirsync", io_req.path)
         if publish:
             _fsync_dir(os.path.dirname(full))
         else:

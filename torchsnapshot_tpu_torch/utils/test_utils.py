@@ -10,20 +10,28 @@
 - :func:`run_multiprocess` — ``nprocs`` spawned processes that join one
   gloo process group, so ``get_coordinator()`` and DeviceMesh work in
   them as in a real job.
+- :func:`record_taken_state` / :func:`read_taken_states` — a host copy of
+  every leaf an app state held when it was taken, by the logical path the
+  take stores it under, kept beside the snapshots: what a reader of a
+  snapshot is held to, independent of any reader.
 """
 
 import datetime
 import multiprocessing as mp
-import queue
+import os
+import pickle
+import shutil
+import tempfile
 import threading
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..coord import DictStore, Store, StoreCoordinator
+from ..flatten import flatten
 from ..io_preparer import is_dtensor
 from ..serialization import tensor_bytes
 
@@ -126,8 +134,18 @@ def run_thread_ranks(
 _FAILURE_GRACE_S = 10.0
 
 
+def _report_failure(error_dir: str, rank: int, text: str) -> None:
+    """Publish a rank's traceback as one file, whole or not at all (a
+    temporary name renamed into place): a rank killed while reporting
+    leaves nothing the parent could half-read."""
+    tmp = os.path.join(error_dir, f".rank{rank}.tmp")
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, os.path.join(error_dir, f"rank{rank}"))
+
+
 def _mp_worker(
-    fn: Callable, rank: int, nprocs: int, port: int, args: tuple, errors: Any
+    fn: Callable, rank: int, nprocs: int, port: int, args: tuple, error_dir: str
 ) -> None:
     import torch.distributed as dist
 
@@ -141,8 +159,20 @@ def _mp_worker(
         finally:
             dist.destroy_process_group()
     except BaseException:
-        errors.put((rank, traceback.format_exc()))
+        _report_failure(error_dir, rank, traceback.format_exc())
         raise
+
+
+def _reported_failures(error_dir: str, seen: Dict[int, str]) -> bool:
+    """Read the ranks' failure files not read yet into ``seen``; whether
+    any was new."""
+    new = False
+    for name in os.listdir(error_dir):
+        if name.startswith("rank") and int(name[4:]) not in seen:
+            with open(os.path.join(error_dir, name)) as f:
+                seen[int(name[4:])] = f.read()
+            new = True
+    return new
 
 
 def run_multiprocess(
@@ -155,48 +185,114 @@ def run_multiprocess(
     (port 0; never a fixed ``MASTER_PORT``, so launches side by side do
     not meet). ``fn`` and ``args`` must pickle (a module-level function).
     All ranks share one join deadline: a rank still running then is
-    killed and fails the call, without a wait of its own."""
+    killed and fails the call, without a wait of its own. A failing rank
+    reports its traceback through a file, never a pipe: no read here can
+    block on a message that a killed rank left half-written."""
     import torch.distributed as dist
+    from multiprocessing.connection import wait
 
     server = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
     ctx = mp.get_context("spawn")
-    errors = ctx.Queue()
-    procs = [
-        ctx.Process(target=_mp_worker, args=(fn, rank, nprocs, server.port, args, errors))
-        for rank in range(nprocs)
-    ]
-    for p in procs:
-        p.start()
-    failures = []
-    deadline = time.monotonic() + timeout_s
+    error_dir = tempfile.mkdtemp(prefix="run_multiprocess-")
+    failures: Dict[int, str] = {}
     try:
-        # Drain the error queue while waiting: joining a process whose
-        # queue writes are unread can deadlock.
-        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-            try:
-                failures.append(errors.get(timeout=0.1))
-            except queue.Empty:
-                continue
-            # The other ranks wait on the failed one in a collective: give
-            # them a grace to report their own failures, not the deadline.
-            deadline = min(deadline, time.monotonic() + _FAILURE_GRACE_S)
-    finally:
-        hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+        procs = [
+            ctx.Process(
+                target=_mp_worker, args=(fn, rank, nprocs, server.port, args, error_dir)
+            )
+            for rank in range(nprocs)
+        ]
         for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join(timeout=10)
-    while True:
+            p.start()
+        deadline = time.monotonic() + timeout_s
         try:
-            failures.append(errors.get(timeout=0.1))
-        except queue.Empty:
-            break
+            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                wait([p.sentinel for p in procs if p.is_alive()], timeout=0.1)
+                if _reported_failures(error_dir, failures):
+                    # The other ranks wait on the failed one in a
+                    # collective: give them a grace to report their own
+                    # failures, not the deadline.
+                    deadline = min(deadline, time.monotonic() + _FAILURE_GRACE_S)
+        finally:
+            hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=10)
+        _reported_failures(error_dir, failures)
+    finally:
+        shutil.rmtree(error_dir, ignore_errors=True)
+    report = sorted(failures.items())
     for rank, p in enumerate(procs):
-        if p.exitcode != 0 and rank not in [r for r, _ in failures] and rank not in hung:
-            failures.append((rank, f"exit code {p.exitcode}"))
+        if p.exitcode != 0 and rank not in failures and rank not in hung:
+            report.append((rank, f"exit code {p.exitcode}"))
     if hung:
-        failures.append((hung, f"still running after {timeout_s}s; killed"))
-    if failures:
+        report.append((hung, f"still running after {timeout_s}s; killed"))
+    if report:
         raise RuntimeError(
-            "Worker failures:\n" + "\n".join(f"rank {r}: {msg}" for r, msg in failures)
+            "Worker failures:\n" + "\n".join(f"rank {r}: {msg}" for r, msg in report)
         )
+
+
+TAKEN_STATE_DIR = "taken_state"
+
+
+def _gathered(dt: Any) -> torch.Tensor:
+    """A DTensor's global value on the host, assembled from every rank's
+    box. A collective over the default group, through host objects: gloo
+    gathers no CUDA tensor."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    _, offset = compute_local_shape_and_global_offset(dt.shape, dt.device_mesh, dt.placements)
+    boxes: List[Any] = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(boxes, (tuple(offset), dt.to_local().detach().cpu()))
+    out = torch.empty(dt.shape, dtype=dt.dtype)
+    for off, local in boxes:
+        out[tuple(slice(o, o + n) for o, n in zip(off, local.shape))] = local
+    return out
+
+
+def _host_copy(x: Any) -> Any:
+    if is_dtensor(x):
+        return _gathered(x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    return x
+
+
+def record_taken_state(work_dir: str, snapshot_path: str, app_state: Dict[str, Any]) -> None:
+    """Keep a host copy of every leaf of ``app_state`` (its statefuls'
+    ``state_dict()``, flattened as a take flattens them) in
+    ``<work_dir>/taken_state/``, filed under ``snapshot_path``. Call it
+    right after the take (or an async take's dispatch), before the state
+    changes. In a process group every rank calls it, every leaf in one
+    order, since a DTensor leaf is gathered whole; rank 0 writes."""
+    leaves: Dict[str, Any] = {}
+    for key, stateful in app_state.items():
+        _, flat = flatten(stateful.state_dict(), prefix=key)
+        leaves.update((path, _host_copy(value)) for path, value in flat.items())
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+        return
+    out_dir = os.path.join(work_dir, TAKEN_STATE_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    rel = os.path.relpath(snapshot_path, work_dir)
+    out = os.path.join(out_dir, rel.replace(os.sep, "__") + ".pkl")
+    with open(out + ".tmp", "wb") as f:
+        pickle.dump({"snapshot": rel, "leaves": leaves}, f)
+    os.replace(out + ".tmp", out)
+
+
+def read_taken_states(work_dir: str) -> Dict[str, Dict[str, Any]]:
+    """What :func:`record_taken_state` kept under ``work_dir``: each
+    snapshot's absolute path to its leaves by logical path."""
+    out_dir = os.path.join(work_dir, TAKEN_STATE_DIR)
+    states: Dict[str, Dict[str, Any]] = {}
+    for name in sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []:
+        if name.endswith(".pkl"):
+            with open(os.path.join(out_dir, name), "rb") as f:
+                record = pickle.load(f)
+            states[os.path.normpath(os.path.join(work_dir, record["snapshot"]))] = record["leaves"]
+    return states
