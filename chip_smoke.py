@@ -29,17 +29,22 @@ Phases, each printing JSON lines to stdout:
    plain backward with the same delta' = rowsum(dO·O) − dlse.
 5. transfer — pinned device→host and host→device copy rates over 1 GiB,
    and the rate at which fresh host memory is pinned.
-5b. kernel_fingerprint — the xs128 kernels K4 (one tensor, or a box of
-   it read as runs in place) and K5 (per chunk) against their plain
-   versions, run on the card, and the host fingerprint, bit for bit, at
-   177 cases (nine dtypes from bool to f64, empty and odd lengths, 1-byte
-   views at odd offsets, boxes along either dim, chunk sizes that do not
-   divide), each launched twice; then their times at the 40.96 MB w1,
-   the 321.6 MB embed and the 387 leaves of the state, beside the byte
-   bound, the integer bound (the busier pipe's SASS instructions of the
-   main loop, from ``cuobjdump``), the plain version's time and
-   ``x.view(torch.int32).sum()`` over the same bytes as an HBM yardstick
-   (no PyTorch call computes xs128).
+5b. kernel_fingerprint — the batched xs128 kernels K4 (tensors, or boxes
+   of them read as runs in place) and K5 (per chunk), one launch a
+   batch, against their plain versions, run on the card, and the host
+   fingerprint, bit for bit: nine dtypes from bool to f64, empty and odd
+   lengths, 1-byte views at odd offsets, boxes along either dim, chunk
+   sizes that do not divide, each a batch of one launched twice; one K4
+   batch of them all with a tensor given twice, K5 batches over leaves
+   of different chunk counts, a batch split between the fast and the
+   general path. Then their times at the 40.96 MB w1, the 321.6 MB embed
+   and the 387 leaves of the state, each one batch (the prepared launch
+   alone, and the wrapper called from a list of tensors), beside the
+   byte bound, the integer bound (the busier pipe's SASS instructions of
+   the accumulate loop, the weight block and the general loop, from
+   ``cuobjdump``, times the batch's words and weight indices), the plain
+   version's time and ``x.view(torch.int32).sum()`` over the same bytes
+   as an HBM yardstick (no PyTorch call computes xs128).
 6. main path — the flagship transformer at GPT-2 XL's widths (1.56 B
    float32 parameters, 6.23 GB): a forward pass on 4 requests of 1024
    tokens through the flash kernel; ``Snapshot.take`` of the model, a
@@ -60,8 +65,8 @@ Phases, each printing JSON lines to stdout:
    forward is held against the einsum forward on a short input.
 6a. dedup — on the main path's model (GPT-2 XL widths, 387 leaves,
    6.23 GB): a full take with fingerprints, an incremental take of the
-   unchanged state (0 array bytes written, 0 bytes device→host, one K4
-   launch a leaf), an in-place change to two whole layers and the first
+   unchanged state (0 array bytes written, 0 bytes device→host, K4 over
+   every leaf in one launch), an in-place change to two whole layers and the first
    1,000 rows of ``embed``, an incremental take writing exactly those 17
    leaves, a ``verify_device=True`` restore into a fresh model with
    bit-identical logits; three ``chunks=True`` takes (the state; the
@@ -77,8 +82,8 @@ Phases, each printing JSON lines to stdout:
    in-place change to layers 10 and 20 and an incremental take, ``diff``
    (exactly the 16 changed leaves, no payload byte read), a
    ``restore(paths=["model/layers/10/**"], verify_device=True)`` into a
-   fresh model (exactly the 8 selected leaves' bytes read, one K4 launch
-   each, every other leaf's storage and bytes as they were), a
+   fresh model (exactly the 8 selected leaves' bytes read, K4 over each
+   in one launch, every other leaf's storage and bytes as they were), a
    ``paths=["**"]`` restore of the copy with bit-identical K1 logits, one
    byte flipped in the copy (``verify()`` names that object alone;
    ``copy_to`` from it raises and leaves no metadata), and the inspect CLI
@@ -172,12 +177,13 @@ Phases, each printing JSON lines to stdout:
     replicated by two ranks, each writing half, restored bit-exact.
 15. dryrun — ``dryrun.dryrun_multichip(2)``: K1–K3 as ring chunks, K4.
 16. examples — the six scripts of ``examples_torch/`` on the card, each a
-    subprocess that must exit 0 and print its lines; K1 launches from the
-    long-context script, K4 from the incremental one.
-17. kernels — one JSON line summarising every kernel of the paths (K4
-    and K5 with their launches on the dedup, dlrm and faults paths, K1
-    and K4 with theirs on the api and examples paths, K1–K4 on the dry
-    run's).
+    subprocess (three at a time) that must exit 0 and print its lines; K1
+    launches from the long-context script, K4's launches and leaves from
+    the incremental one.
+17. phase seconds — one JSON line with each phase's wall seconds.
+18. kernels — one JSON line summarising every kernel of the paths (K4
+    and K5 with their launches and segments on the dedup, api, dlrm,
+    dryrun, faults and examples paths, K1 with its launches on each).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -581,28 +587,56 @@ def phase_kernel_bwd():
     return results
 
 
-# xs128 (K4, K5). The payload bytes are read once; each u32 word costs
-# about forty integer instructions for the four lanes (the SASS loop is
-# counted at run time). They issue on two pipes of 64 lanes an SM each
-# (132 SMs at the 1.98 GHz boost clock of the data sheet, whose 67
-# TFLOP/s f32 is 128 lanes × 2): IMAD, IMUL and VIADD on the FMA pipe,
-# the shifts, LOP3s, adds and the rest on the integer ALU pipe. The
-# integer bound is the busier pipe's instructions at 64 lanes × 132 SMs
-# × 1.98e9 a second.
+# xs128 (K4, K5). The payload bytes are read once. One launch covers a
+# batch of segments: the fast path computes the weights of a tile of
+# 2,048 word indices once and sums every segment of its group that
+# reaches the tile; the general path computes each word's weights
+# itself. Instructions issue on two pipes of 64 lanes an SM each (132 SMs
+# at the 1.98 GHz boost clock of the data sheet, whose 67 TFLOP/s f32 is
+# 128 lanes × 2): IMAD, IMUL and VIADD on the FMA pipe, the shifts, LOP3s,
+# adds and the rest on the integer ALU pipe. The integer bound counts the
+# operations the function needs, not the kernel's loops: the weights of
+# every distinct word index of the batch once (the weight block's SASS
+# counts an index, read at run time), and four multiply-adds a word (one
+# a lane) on the FMA pipe; the busier pipe at 64 lanes × 132 SMs ×
+# 1.98e9 a second.
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-FP_SOURCE_OPS_PER_WORD = 40
+# Without SASS: the source's count of a weight index (four mix32s and
+# the index's multiply), split evenly over the two pipes.
+FP_SOURCE_WEIGHT_OPS = {"fma_pipe": 40 / 2, "alu_pipe": 40 / 2}
+FP_PATHS = ("accumulate", "weights", "lone", "general")
 FP_FMA_PIPE = ("IMAD", "IMUL", "VIADD")
 FP_CHUNK_BYTES = 4 << 20  # the chunk store's default grid
 FP_DTYPES = [torch.bool, torch.int8, torch.uint8, torch.float16, torch.bfloat16,
              torch.float32, torch.int32, torch.int64, torch.float64]
+FP_SASS_DUMP = os.path.join(ROOT, "build", "fingerprint_sass.txt")
 
 
-def _sass_ops_per_word():
-    """Instructions in the main loop of the 16-byte-load K4/K5 kernel,
-    from ``cuobjdump -sass`` of the built library, per u32 word (the loop
-    handles four words). None where cuobjdump is missing or no loop is
-    found."""
+def _pipe_counts(instrs):
+    """(FMA-pipe, ALU-pipe, opcode counts) of SASS instruction texts;
+    branches and NOPs on neither."""
+    ops = {}
+    for x in instrs:
+        op = (x.split()[1] if x.startswith("@") else x.split()[0]).split(".")[0]
+        ops[op] = ops.get(op, 0) + 1
+    fma = sum(n for op, n in ops.items() if op in FP_FMA_PIPE)
+    alu = sum(n for op, n in ops.items() if op not in FP_FMA_PIPE and op not in ("BRA", "NOP"))
+    return fma, alu, ops
+
+
+def _sass_loops():
+    """The batched K4/K5 kernel's instruction counts from ``cuobjdump
+    -sass`` of the built library: the fast path's accumulate loop per word
+    (a tile's words a thread a trip), the straight-line block before it,
+    where the tile's weights are computed, per index (as many a thread),
+    the lone loop per word (as many a trip) and the general path's word
+    loop per word (its 4-byte loads a trip). Each
+    with the FMA and ALU pipes apart. None where cuobjdump is missing or
+    the loops are not found; the kernel's SASS is written to
+    ``build/fingerprint_sass.txt``."""
     import re
+
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lib = str(build._library_path("fingerprint"))
@@ -611,13 +645,14 @@ def _sass_ops_per_word():
                               timeout=120, check=True).stdout
     except (OSError, subprocess.SubprocessError):
         return None
-    best = None
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name = body.split("\n", 1)[0]
-        if "xs128_kernel" not in name or "ILi0E" not in name:
+        if "xs128_batch_kernel" not in name:
             continue
-        addr_of, labels, instrs = {}, {}, []
-        pending = []
+        os.makedirs(os.path.dirname(FP_SASS_DUMP), exist_ok=True)
+        with open(FP_SASS_DUMP, "w") as f:
+            f.write(body)
+        labels, instrs, pending = {}, [], []
         for line in body.splitlines():
             m = re.match(r"\s*(\.L_x_\d+):", line)
             if m:
@@ -631,35 +666,74 @@ def _sass_ops_per_word():
                 labels[label] = addr
             pending = []
             instrs.append((addr, m.group(2).strip()))
+        back = []  # (branch address, target address) of every backward branch
         for addr, text in instrs:
-            if "BRA" not in text:
-                continue
             t = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", text)
-            if not t:
-                continue
-            target = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
-            if target is None or target >= addr:
-                continue
-            loop = [x for a, x in instrs if target <= a <= addr and not x.startswith("NOP")]
-            if any("LDG" in x and ".128" in x for x in loop):
-                ops = {}
-                for x in loop:
-                    op = x.split()[0] if not x.startswith("@") else x.split()[1]
-                    ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
-                fma = sum(n for op, n in ops.items() if op in FP_FMA_PIPE)
-                alu = sum(n for op, n in ops.items() if op not in FP_FMA_PIPE and op != "BRA")
-                cand = {"kernel": name.strip(), "loop_instructions": len(loop),
-                        "ops_per_word": len(loop) / 4, "fma_pipe_per_word": fma / 4,
-                        "alu_pipe_per_word": alu / 4, "opcodes": ops}
-                if best is None or cand["loop_instructions"] > best["loop_instructions"]:
-                    best = cand
-    return best
+            if t:
+                target = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
+                if target is not None and target < addr:
+                    back.append((addr, target))
+
+        def body_of(lo, hi):
+            return [x for a, x in instrs if lo <= a <= hi and not x.startswith("NOP")]
+
+        def n_loads(loop, wide):
+            return sum(1 for x in loop if "LDG" in x and (".128" in x) == wide and ".U8" not in x)
+
+        # The accumulate loop: the innermost loop with 16-byte loads (the
+        # fast path's walk over a tile's segments; both of its load
+        # branches are counted, the masked one runs only in a segment's
+        # last tile). The weights: the straight-line block before it, from
+        # the tile loop's head. The lone loop: the longest other loop with
+        # 16-byte loads that does not hold it (a lone segment's tiles,
+        # each word's weights computed for it). The general loop: the longest loop with 4-byte
+        # loads and no 16-byte ones.
+        loops = [(t, a) for a, t in back]
+        wide = [(t, a) for t, a in loops if n_loads(body_of(t, a), True)]
+        narrow = [(t, a) for t, a in loops if n_loads(body_of(t, a), False) and not n_loads(body_of(t, a), True)]
+        if not wide or not narrow:
+            return None
+        acc_top, acc_end = min(wide, key=lambda ta: ta[1] - ta[0])
+        acc = body_of(acc_top, acc_end)
+        lone = max((body_of(t, a) for t, a in wide if a < acc_top or t > acc_end), key=len, default=None)
+        if lone is None:
+            return None
+        gen = max((body_of(t, a) for t, a in narrow), key=len)
+        marks = [a for t, a in loops if a < acc_top] + [t for t, a in loops if t < acc_top]
+        head = max(marks, default=instrs[0][0])
+        weights = [x for a, x in instrs if head <= a < acc_top and not x.startswith("NOP")]
+        out = {"kernel": name.strip()}
+        per_thread = fops.TILE_WORDS // 256  # words (and weight indices) a thread a tile
+        for key, loop, per in (("accumulate", acc, per_thread), ("weights", weights, per_thread),
+                               ("lone", lone, per_thread),
+                               ("general", gen, n_loads(gen, False))):
+            fma, alu, ops = _pipe_counts(loop)
+            out[key] = {"instructions": len(loop), "per": per, "fma_pipe": fma / per, "alu_pipe": alu / per,
+                        "opcodes": ops}
+        return out
+    return None
 
 
-def _fp_bound(nbytes, ops_per_word):
-    """(bound ms, "bytes" or "operations", byte ms, integer ms)."""
+def _fp_weight_ops(sass):
+    """{pipe: instructions a weight index}: the weight block's SASS where
+    it was read, else the source's count."""
+    if sass is None:
+        return dict(FP_SOURCE_WEIGHT_OPS)
+    return {pipe: sass["weights"][pipe] for pipe in ("fma_pipe", "alu_pipe")}
+
+
+def _fp_bound(nbytes, plan, weight_ops):
+    """(bound ms, "bytes" or "operations", byte ms, integer ms) of one
+    batch: the bytes once at HBM rate; the busier pipe's operations for
+    the weights of the batch's distinct word indices (the longest
+    segment's words: indices restart at each segment) and four
+    multiply-adds a word."""
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = math.ceil(nbytes / 4) * ops_per_word / PEAK_INT32_OPS_PER_S * 1e3
+    sec = plan.sections()
+    distinct = max(4 * int(sec["fast_vecs"].max(initial=0)), int(sec["gen_w1"].max(initial=0)))
+    words = plan.fast_words + plan.general_words
+    ops = max(weight_ops["alu_pipe"] * distinct, weight_ops["fma_pipe"] * distinct + 4 * words)
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
     return (max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes", bytes_ms, ops_ms)
 
 
@@ -670,14 +744,28 @@ def _lanes_err(a, b):
     return int(abs(ua - ub).max()) if ua.size else 0
 
 
+def _fp_input(gen, dtype, n):
+    if dtype == torch.bool:
+        return torch.rand(n, generator=gen, device="cuda") > 0.5
+    if dtype.is_floating_point:
+        return torch.randn(n, generator=gen, device="cuda").to(dtype)
+    return torch.randint(-100, 100, (n,), generator=gen, device="cuda").to(dtype)
+
+
 def phase_kernel_fingerprint():
-    """K4 and K5 against their plain versions (run on the card) and the
-    host twins, bit for bit, at every dtype of the tests and their edges
-    (empty, odd lengths, 1-byte views at odd offsets, one-dim boxes, a
-    chunk size that does not divide), each launched twice; then their
-    times at the dedup path's shapes beside both bounds, the plain
-    version's time and the int32-sum HBM reference, the wrappers' results
-    there held bit for bit against the plain versions too."""
+    """The batched K4 and K5 against their plain versions (run on the
+    card) and the host twins, bit for bit: every dtype of the tests at
+    their edges (empty, odd lengths, 1-byte views at odd offsets, one-dim
+    boxes, chunk sizes that do not divide), each a batch of one launched
+    twice; then one K4 batch of all of them with one tensor given twice,
+    one K5 batch over leaves whose chunk counts differ, and a batch split
+    between the fast and the general path. Then the times at the dedup
+    path's shapes (w1, embed, the 387 state leaves) as one batch each:
+    the prepared launch alone and the wrapper called from a list of
+    tensors (the host's table build and copy counted), beside the byte
+    bound and the integer bound, the plain version's time and the
+    int32-sum HBM reference; the wrappers' results there held bit for
+    bit against the plain versions too."""
     from torchsnapshot_tpu_torch import fingerprint as fp
     from torchsnapshot_tpu_torch.ops import fingerprint as fops
 
@@ -685,62 +773,94 @@ def phase_kernel_fingerprint():
     cases, worst = 0, 0
     failures = []
 
-    def check(name, x, box=None, chunk_bytes=None):
+    def box_host(x, box):
+        return (x if box is None else x[tuple(slice(a, b) for a, b in box)]).contiguous().cpu()
+
+    def check_boxes(name, items):
         nonlocal cases, worst
-        host = (x if box is None else x[tuple(slice(a, b) for a, b in box)]).contiguous().cpu()
-        if chunk_bytes is None:
-            outs = [fops.fingerprint_box(x, box) for _ in range(2)]
-            plain = fops.fingerprint_box_reference(x, box)
-            want = [fp.fingerprint_host(host)]
-            got = [fp.resolve_fingerprints([o])[0] for o in outs]
-        else:
-            outs = [fops.fingerprint_chunked(x, chunk_bytes) for _ in range(2)]
-            plain = fops.fingerprint_chunked_reference(x, chunk_bytes)
-            want = fp.fingerprint_host_chunked(host, chunk_bytes)
-            got = [fp.resolve_chunk_fingerprints([o])[0] for o in outs]
+        launches = fops.fingerprint_box_launches
+        outs = [fops.fingerprint_boxes(items) for _ in range(2)]
+        launched = fops.fingerprint_box_launches - launches
+        plain = torch.stack([fops.fingerprint_box_reference(x, box) for x, box in items])
+        want = [fp.fingerprint_host(box_host(x, box)) for x, box in items]
+        got = [fp.resolve_fingerprints(list(o)) for o in outs]
         torch.cuda.synchronize()
         err = max(_lanes_err(o, plain) for o in outs)
         worst = max(worst, err)
-        cases += 1
-        if err or got[0] != got[-1] or (got[0] != want[0] if chunk_bytes is None else got[0] != want):
+        cases += len(items)
+        nonempty = any(box_host(x, box).numel() for x, box in items)
+        if err or got[0] != got[-1] or got[0] != want or launched != (2 if nonempty else 0):
             failures.append(name)
 
+    def check_chunked(name, items, chunk_bytes):
+        nonlocal cases, worst
+        launches = fops.fingerprint_chunked_launches
+        outs = [fops.fingerprint_chunked_many(items, chunk_bytes) for _ in range(2)]
+        launched = fops.fingerprint_chunked_launches - launches
+        sizes = [chunk_bytes] * len(items) if isinstance(chunk_bytes, int) else chunk_bytes
+        plain = [fops.fingerprint_chunked_reference(x, cb) for x, cb in zip(items, sizes)]
+        want = [fp.fingerprint_host_chunked(x.cpu(), cb) for x, cb in zip(items, sizes)]
+        got = [fp.resolve_chunk_fingerprints(o) for o in outs]
+        torch.cuda.synchronize()
+        err = max(_lanes_err(o, p) for out in outs for o, p in zip(out, plain))
+        worst = max(worst, err)
+        cases += len(items)
+        nonempty = any(x.numel() for x in items)
+        if err or got[0] != got[-1] or got[0] != want or launched != (2 if nonempty else 0):
+            failures.append(name)
+
+    batch_items = []
     for dtype in FP_DTYPES:
         for n in (0, 1, 3, 13, 4097, (1 << 20) + 3):
-            if dtype == torch.bool:
-                x = torch.rand(n, generator=gen, device="cuda") > 0.5
-            elif dtype.is_floating_point:
-                x = torch.randn(n, generator=gen, device="cuda").to(dtype)
-            else:
-                x = torch.randint(-100, 100, (n,), generator=gen, device="cuda").to(dtype)
-            check(f"k4_{dtype}_{n}", x)
+            x = _fp_input(gen, dtype, n)
+            batch_items.append((x, None))
+            check_boxes(f"k4_{dtype}_{n}", [(x, None)])
             for cb in (12, 4096):
-                check(f"k5_{dtype}_{n}_{cb}", x, chunk_bytes=cb)
+                check_chunked(f"k5_{dtype}_{n}_{cb}", [x], cb)
     base = torch.randint(-100, 100, (100003,), generator=gen, device="cuda").to(torch.int8)
     for offset in (1, 2, 3):
-        check(f"k4_offset_{offset}", base[offset:])
-        check(f"k5_offset_{offset}", base[offset:], chunk_bytes=4096)
+        batch_items.append((base[offset:], None))
+        check_boxes(f"k4_offset_{offset}", [(base[offset:], None)])
+        check_chunked(f"k5_offset_{offset}", [base[offset:]], 4096)
     for dtype in (torch.float32, torch.float16, torch.int8):
         m = torch.randn(64, 129, generator=gen, device="cuda").to(dtype)
         for box in ([(3, 40), (0, 129)], [(0, 64), (5, 77)], [(0, 64), (1, 2)]):
-            check(f"k4_box_{dtype}_{box}", m, box=box)
+            batch_items.append((m, box))
+            check_boxes(f"k4_box_{dtype}_{box}", [(m, box)])
+    # One batch of every case above, one tensor given twice.
+    batch_items.append(batch_items[len(batch_items) // 2])
+    check_boxes("k4_mixed_batch", batch_items)
+    chunk_leaves = [_fp_input(gen, torch.float32, n) for n in (3 << 20, 5 << 18, 1 << 20, 777, 0)]
+    chunk_leaves += [base[1:], _fp_input(gen, torch.bfloat16, (1 << 21) + 1)]
+    check_chunked("k5_mixed_batch", chunk_leaves, 1 << 20)
+    check_chunked("k5_mixed_batch_per_leaf_sizes", chunk_leaves, [4096, 1 << 20, 4100, 12, 4096, 4096, 1 << 16])
+    # Fast and general segments in one launch: aligned leaves with and
+    # without 16-byte tails, offset views, runs of a box.
+    m = torch.randn(300, 1001, generator=gen, device="cuda")
+    split_items = [(_fp_input(gen, torch.float32, (1 << 20) + 3), None), (m, None), (m, [(0, 300), (7, 500)]),
+                   (base[3:], None), (m, [(10, 290), (0, 1001)])]
+    split_plan = fops.prepare_boxes(split_items).plan
+    check_boxes("k4_fast_and_general", split_items)
+    split = {"n_fast": split_plan.n_fast, "n_general": split_plan.n_general,
+             "fast_words": split_plan.fast_words, "general_words": split_plan.general_words}
+    if not (split_plan.n_fast and split_plan.n_general):
+        failures.append("k4_fast_and_general did not split")
 
-    sass = _sass_ops_per_word()
-    # The busier pipe's instructions a word; without SASS, the source's
-    # forty split evenly over the two pipes.
-    ops_per_word = (max(sass["fma_pipe_per_word"], sass["alu_pipe_per_word"]) if sass
-                    else FP_SOURCE_OPS_PER_WORD / 2)
-    shapes = {"w1": [(GPT2_XL.d_model, GPT2_XL.d_ff)], "embed": [(GPT2_XL.vocab_size, GPT2_XL.d_model)],
-              "state": _gpt2_xl_shapes(GPT2_XL)}
+    sass = _sass_loops()
+    weight_ops = _fp_weight_ops(sass)
+    shapes = {"state": _gpt2_xl_shapes(GPT2_XL), "w1": [(GPT2_XL.d_model, GPT2_XL.d_ff)],
+              "embed": [(GPT2_XL.vocab_size, GPT2_XL.d_model)]}
     timings = {}
     for name, leaf_shapes in shapes.items():
         leaves = [torch.randn(s, generator=gen, device="cuda") for s in leaf_shapes]
         nbytes = sum(t.numel() * 4 for t in leaves)
-        k4 = [fops.box_kernel_call(t)[0] for t in leaves]
-        k5 = [fops.chunked_kernel_call(t, FP_CHUNK_BYTES)[0] for t in leaves]
+        k4 = fops.prepare_boxes([(t, None) for t in leaves])
+        k5 = fops.prepare_chunked(leaves, FP_CHUNK_BYTES)[0]
         row = {"leaves": len(leaves), "bytes": nbytes,
-               "k4_ms": cuda_ms(lambda: [_checked(c()) for c in k4], 10),
-               "k5_ms": cuda_ms(lambda: [_checked(c()) for c in k5], 10),
+               "k4_ms": cuda_ms(lambda: _checked(k4.launch()), 10),
+               "k5_ms": cuda_ms(lambda: _checked(k5.launch()), 10),
+               "k4_call_ms": cuda_ms(lambda: fops.fingerprint_boxes([(t, None) for t in leaves]), 10),
+               "k5_call_ms": cuda_ms(lambda: fops.fingerprint_chunked_many(leaves, FP_CHUNK_BYTES), 10),
                "int32_sum_ms": cuda_ms(lambda: [t.view(torch.int32).sum() for t in leaves], 10)}
         # The wrappers at the path's shapes, held bit for bit against the
         # plain versions on the same leaves (whose time is taken on the way).
@@ -751,8 +871,8 @@ def phase_kernel_fingerprint():
         row["k5_plain_ms"] = cuda_ms(
             lambda: plain.update(k5=[fops.fingerprint_chunked_reference(t, FP_CHUNK_BYTES) for t in leaves]),
             iters, warmup)
-        got4 = [fops.fingerprint_box(t) for t in leaves]
-        got5 = [fops.fingerprint_chunked(t, FP_CHUNK_BYTES) for t in leaves]
+        got4 = fops.fingerprint_boxes([(t, None) for t in leaves])
+        got5 = fops.fingerprint_chunked_many(leaves, FP_CHUNK_BYTES)
         torch.cuda.synchronize()
         row["k4_max_abs_err"] = max(_lanes_err(g, w) for g, w in zip(got4, plain["k4"]))
         row["k5_max_abs_err"] = max(_lanes_err(g, w) for g, w in zip(got5, plain["k5"]))
@@ -760,15 +880,25 @@ def phase_kernel_fingerprint():
         worst = max(worst, row["k4_max_abs_err"], row["k5_max_abs_err"])
         if row["k4_max_abs_err"] or row["k5_max_abs_err"]:
             failures.append(f"path_shapes_{name}")
-        row["bound_ms"], row["bound_by"], row["bytes_bound_ms"], row["integer_bound_ms"] = _fp_bound(
-            nbytes, ops_per_word)
-        row["k4_gbps"] = nbytes / 1e6 / row["k4_ms"]
+        for key, batch in (("k4", k4), ("k5", k5)):
+            p = batch.plan
+            row[f"{key}_plan"] = {"segments": p.n_fast + p.n_general, "n_fast": p.n_fast, "groups": p.n_groups,
+                                  "n_general": p.n_general, "blocks": p.fast_blocks + p.general_blocks,
+                                  "fast_words": p.fast_words, "weight_indices": p.weight_indices,
+                                  "lone_words": p.lone_words, "general_words": p.general_words}
+            (row[f"{key}_bound_ms"], row[f"{key}_bound_by"], row["bytes_bound_ms"],
+             row[f"{key}_integer_bound_ms"]) = _fp_bound(nbytes, p, weight_ops)
+            row[f"{key}_gbps"] = nbytes / 1e6 / row[f"{key}_ms"]
+        print(f"kernel_fingerprint: {name}: K4 {row['k4_ms']:.4f} ms ({row['k4_call_ms']:.4f} called), "
+              f"K5 {row['k5_ms']:.4f} ms ({row['k5_call_ms']:.4f} called), bytes bound "
+              f"{row['bytes_bound_ms']:.4f}, integer bound K4 {row['k4_integer_bound_ms']:.4f} "
+              f"K5 {row['k5_integer_bound_ms']:.4f}", flush=True)
         timings[name] = row
         del leaves, k4, k5, plain, got4, got5
         torch.cuda.empty_cache()
     record = {"phase": "kernel_fingerprint", "cases": cases, "max_abs_err": worst,
-              "failures": failures, "sass": sass, "pipe_ops_per_word": ops_per_word,
-              "ops_per_word_source": "sass" if sass else "source count",
+              "failures": failures, "fast_and_general_batch": split,
+              "sass": sass, "ops_source": "sass" if sass else "source count",
               "peak_int32_ops_per_s": PEAK_INT32_OPS_PER_S, "timings": timings}
     emit(record)
     if failures or worst:
@@ -778,8 +908,9 @@ def phase_kernel_fingerprint():
 
 class _TakeMeter:
     """What one take moved: payload bytes written and objects stored
-    (chunk objects apart), bytes copied device→host, and the device time
-    of the fingerprint kernels it launched (CUDA events around each)."""
+    (chunk objects apart), bytes copied device→host, the device time of
+    the fingerprint kernels it launched (CUDA events around each batched
+    launch), their launches and the leaves they fingerprinted."""
 
     def __init__(self):
         from torchsnapshot_tpu_torch import chunkstore
@@ -792,6 +923,7 @@ class _TakeMeter:
             (fops, "_run"),
         ]
         self._orig = [getattr(o, n) for o, n in self._patches]
+        self._fops = fops
         self.reset()
         meter = self
         write, d2h_a, d2h_b, run = self._orig
@@ -837,6 +969,8 @@ class _TakeMeter:
 
     def take(self, record, key, fn):
         self.reset()
+        fops = self._fops
+        segments = (fops.fingerprint_box_segments, fops.fingerprint_chunked_segments)
         torch.cuda.synchronize()
         begin = time.perf_counter()
         result = fn()
@@ -852,6 +986,8 @@ class _TakeMeter:
             "k4_ms": kernel_ms["xs128_box"], "k5_ms": kernel_ms["xs128_chunked"],
             "k4_launches": sum(n == "xs128_box" for n, _, _ in self.events),
             "k5_launches": sum(n == "xs128_chunked" for n, _, _ in self.events),
+            "k4_segments": fops.fingerprint_box_segments - segments[0],
+            "k5_segments": fops.fingerprint_chunked_segments - segments[1],
         }
         return result
 
@@ -888,7 +1024,7 @@ def phase_dedup(model, tokens):
     """Deduplication at GPT-2 XL widths, full depth, f32 (387 leaves,
     6.23 GB), on the main path's model: a full take with fingerprints; an
     incremental take of the unchanged state (0 array bytes written, 0
-    bytes copied to the host, one K4 launch a leaf); an in-place change
+    bytes copied to the host, K4 over every leaf in one launch); an in-place change
     to two whole layers and the first 1,000 rows of ``embed``; an
     incremental take that writes exactly the changed leaves; a restore of
     it into a fresh model with ``verify_device=True`` and bit-identical
@@ -955,17 +1091,16 @@ def phase_dedup(model, tokens):
             record["incremental_changed"]["predicted_bytes"] = predicted
             record["incremental_changed"]["changed_leaves"] = len(changed)
             begin = time.perf_counter()
-            k4_before = fops.fingerprint_box_launches
+            counts = _fp_counts()
             restored = fresh_restore(os.path.join(inc, "changed"), verify_device=True)
             record["verify_device_restore_s"] = time.perf_counter() - begin
-            record["verify_device"] = {**snapshot_mod._last_verify_stats,
-                                       "k4_launches": fops.fingerprint_box_launches - k4_before}
+            record["verify_device"] = {**snapshot_mod._last_verify_stats, **_fp_delta(counts, "k4")}
             record["verify_device_restore_profile"] = _dedup_profile()
             record["verify_device_logits_bit_identical"] = bool(torch.equal(restored, logits_changed))
             del restored
 
-            # Each chunk take launches K5 once a leaf above the store's size
-            # floor; the first also probes K5 once a dtype.
+            # Each chunk take runs K5 over every leaf above the store's size
+            # floor in one launch; the first also probes K5 once a dtype.
             chunkstore._FP_AGREEMENT.clear()
             eligible = [t for t in leaves if _touched_chunks(t, None)]
             probes = len({t.dtype for t in eligible})
@@ -987,6 +1122,8 @@ def phase_dedup(model, tokens):
             del restored
         record["launches"] = {"xs128_box": fops.fingerprint_box_launches,
                               "xs128_chunked": fops.fingerprint_chunked_launches}
+        record["segments"] = {"xs128_box": fops.fingerprint_box_segments,
+                              "xs128_chunked": fops.fingerprint_chunked_segments}
 
         def store_keys():
             return {os.path.basename(p) for p in glob.glob(os.path.join(ck, ".chunkstore", "objects", "*", "*"))}
@@ -1011,21 +1148,26 @@ def phase_dedup(model, tokens):
     emit(record)
     n = len(leaves)
     unchanged, changed_take = record["incremental_unchanged"], record["incremental_changed"]
+    takes = ("full_take", "incremental_unchanged", "incremental_changed")
     gates = {
-        "full take fingerprints every leaf": record["full_take"]["k4_launches"] == n,
+        "full take fingerprints every leaf": record["full_take"]["k4_segments"] == n,
         "unchanged take writes no array byte": unchanged["payload_bytes_written"] == 0,
         "unchanged take copies no byte to the host": unchanged["d2h_bytes"] == 0,
-        "unchanged take launches K4 once a leaf": unchanged["k4_launches"] == n,
+        "unchanged take fingerprints every leaf with K4": unchanged["k4_segments"] == n,
+        "each incremental take and the verify_device restore launch K4 once": [
+            record[k]["k4_launches"] for k in takes] + [record["verify_device"]["k4_launches"]] == [1] * 4,
         "changed take writes exactly the changed leaves": changed_take["payload_bytes_written"] == predicted
         and changed_take["payload_objects_written"] == len(changed),
         "verify_device restore is bit-identical": record["verify_device_logits_bit_identical"],
         "verify_device verifies every leaf with K4": record["verify_device"]
-        == {"verified": n, "skipped": 0, "k4_launches": n},
+        == {"verified": n, "skipped": 0, "k4_launches": 1, "k4_segments": n},
         "every chunk take chunks every eligible leaf": all(
             c == len(eligible) for c in record["chunked_leaves"].values()),
-        "chunk takes launch K5 once an eligible leaf": [
-            record[f"chunk_take_{s}"]["k5_launches"] for s in (1, 2, 3)]
+        "chunk takes run K5 over every eligible leaf": [
+            record[f"chunk_take_{s}"]["k5_segments"] for s in (1, 2, 3)]
         == [len(eligible) + probes, len(eligible), len(eligible)],
+        "each chunk take launches K5 once, beside the first take's dtype probes": [
+            record[f"chunk_take_{s}"]["k5_launches"] for s in (1, 2, 3)] == [1 + probes, 1, 1],
         "first chunk take stores the state": record["chunk_take_1"]["chunk_bytes_stored"] > 0.99 * state_bytes,
         "unchanged chunk take stores no chunk": record["chunk_take_2"]["chunk_objects_stored"] == 0,
         "changed chunk take stores the touched chunks": record["chunk_take_3"]["chunk_objects_stored"] == touched,
@@ -1087,7 +1229,7 @@ def phase_api(model, tokens, ceilings):
     incremental take; ``diff`` of the two (exactly the changed leaves,
     and no payload byte read); a ``restore(paths=[layer 10],
     verify_device=True)`` into a fresh model on the card, reading exactly
-    the selected leaves' bytes with one K4 launch each and leaving every
+    the selected leaves' bytes, K4 over each in one launch, and leaving every
     other leaf as it was; a ``paths=["**"]`` restore of the copy with a
     K1 forward bit-identical to the original model's; one byte flipped
     in the copy: ``verify()`` names that object alone, and ``copy_to``
@@ -1165,7 +1307,7 @@ def phase_api(model, tokens, ceilings):
             ptrs = {p: t.data_ptr() for p, t in fresh_flat.items()}
             kept = {p: t.clone() for p, t in fresh_flat.items() if p not in selected}
             reads.reset()
-            k4_before = fops.fingerprint_box_launches
+            counts = _fp_counts()
             _, seconds = timed(lambda: Snapshot(paths["changed"]).restore(
                 {"model": tf.TransformerState(fresh)}, paths=[selected_prefix + "**"], verify_device=True))
             model_flat = flat_of(model)
@@ -1174,7 +1316,7 @@ def phase_api(model, tokens, ceilings):
                 "seconds": seconds, "selected_leaves": len(selected),
                 "bytes_read": reads.payload_bytes, "reads": reads.payload_reads,
                 "selected_bytes": sum(after[p].numel() * after[p].element_size() for p in selected),
-                "k4_launches": fops.fingerprint_box_launches - k4_before,
+                **_fp_delta(counts, "k4"),
                 "verify_stats": dict(snapshot_mod._last_verify_stats),
                 "selected_equal": all(torch.equal(after[p], model_flat[p]) for p in selected),
                 "others_untouched": all(after[p].data_ptr() == ptrs[p] and torch.equal(after[p], t)
@@ -1219,6 +1361,8 @@ def phase_api(model, tokens, ceilings):
         record["launches"] = {"flash_fwd": attention.flash_forward_launches,
                               "xs128_box": fops.fingerprint_box_launches,
                               "xs128_chunked": fops.fingerprint_chunked_launches}
+        record["segments"] = {"xs128_box": fops.fingerprint_box_segments,
+                              "xs128_chunked": fops.fingerprint_chunked_segments}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     emit(record)
@@ -1232,8 +1376,9 @@ def phase_api(model, tokens, ceilings):
         "diff reads no payload byte": record["diff"]["payload_bytes_read"] == 0,
         "partial restore reads exactly the selected leaves' bytes": partial["bytes_read"] == partial["selected_bytes"]
         and partial["selected_leaves"] == 8,
-        "partial restore launches K4 once a selected leaf": partial["k4_launches"] == partial["selected_leaves"]
+        "partial restore fingerprints every selected leaf with K4": partial["k4_segments"] == partial["selected_leaves"]
         and partial["verify_stats"] == {"verified": 8, "skipped": 0},
+        "the partial verify_device restore launches K4 once": partial["k4_launches"] == 1,
         "partial restore lands the selected leaves": partial["selected_equal"],
         "partial restore leaves every other leaf as it was": partial["others_untouched"],
         "the copy restores to bit-identical K1 logits": record["copy_logits_bit_identical"],
@@ -1246,7 +1391,9 @@ def phase_api(model, tokens, ceilings):
         and record["cli_diff"]["summary"] == [
             f"0 added, 0 removed, {len(changed_paths)} changed, {n - len(changed_paths)} unchanged, 0 unknown"],
         "K1 and K4 ran on the path": record["launches"]["flash_fwd"] == 2 * cfg.n_layers
-        and record["launches"]["xs128_box"] == 2 * n + 8,
+        and record["segments"]["xs128_box"] == 2 * n + 8,
+        "the two fingerprinted takes and the partial restore launched K4 once each":
+            record["launches"]["xs128_box"] == 3,
     }
     _hold("api", gates)
     return record
@@ -1671,6 +1818,23 @@ def _launch_counts():
             attention.flash_bwd_dkv_launches)
 
 
+def _fp_counts():
+    """K4 launches and segments, K5 launches and segments, and the K5
+    dtype probes (the chunk store's proven dtypes), so far."""
+    from torchsnapshot_tpu_torch import chunkstore
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    return (fops.fingerprint_box_launches, fops.fingerprint_box_segments, fops.fingerprint_chunked_launches,
+            fops.fingerprint_chunked_segments, len(chunkstore._FP_AGREEMENT))
+
+
+def _fp_delta(before, prefix=""):
+    """What :func:`_fp_counts` gained since ``before``, by name (those
+    starting with ``prefix``)."""
+    names = ("k4_launches", "k4_segments", "k5_launches", "k5_segments", "k5_probes")
+    return {k: a - b for k, a, b in zip(names, _fp_counts(), before) if k.startswith(prefix)}
+
+
 def _reset_launch_counts():
     from torchsnapshot_tpu_torch.ops import fingerprint as fops
 
@@ -1679,6 +1843,8 @@ def _reset_launch_counts():
     attention.flash_bwd_dkv_launches = 0
     fops.fingerprint_box_launches = 0
     fops.fingerprint_chunked_launches = 0
+    fops.fingerprint_box_segments = 0
+    fops.fingerprint_chunked_segments = 0
 
 
 def _peak_gb():
@@ -2549,7 +2715,7 @@ def phase_dlrm(ceilings):
             len(e.shards) if isinstance(e, ShardedArrayEntry) else 1
             for e in manifest.values() if isinstance(e, (ArrayEntry, ShardedArrayEntry)))
 
-        k4_before = fops.fingerprint_box_launches
+        counts = _fp_counts()
         fresh = _fresh_dlrm(3)
         begin = time.perf_counter()
         Snapshot(path).restore({"model": fresh, "progress": StateDict(step=0)}, verify_device=True)
@@ -2557,16 +2723,19 @@ def phase_dlrm(ceilings):
         record["verify_device_restore"] = {
             "seconds": time.perf_counter() - begin,
             **snapshot_mod._last_verify_stats,
-            "k4_launches": fops.fingerprint_box_launches - k4_before,
+            **_fp_delta(counts, "k4"),
             "leaves_byte_equal": _trees_bit_equal(fresh.state_dict(), saved.state_dict()),
         }
         record["launches"] = {"xs128_box": fops.fingerprint_box_launches,
                               "xs128_chunked": fops.fingerprint_chunked_launches}
+        record["segments"] = {"xs128_box": fops.fingerprint_box_segments,
+                              "xs128_chunked": fops.fingerprint_chunked_segments}
 
         # K4 and K5 at this path's shapes against their plain versions,
-        # bit for bit (after the path's counts were read): K4 on every
-        # leaf and on each stored box of the leaves above the cap (what the
-        # verify_device restore hashed), K5 on every leaf's 4 MiB grid.
+        # bit for bit (after the path's counts were read), each as one
+        # batch: K4 on every leaf and on each stored box of the leaves
+        # above the cap (what the verify_device restore hashed), K5 on
+        # every leaf's 4 MiB grid.
         tree = state.state_dict()
         k4_cases = [(t, None) for t in leaves]
         for key, entry in manifest.items():
@@ -2576,10 +2745,10 @@ def phase_dlrm(ceilings):
                     leaf = leaf[part]
                 k4_cases += [(leaf, [(o, o + n) for o, n in zip(sh.offsets, sh.sizes)])
                              for sh in entry.shards]
-        k4_err = max(_lanes_err(fops.fingerprint_box(t, box), fops.fingerprint_box_reference(t, box))
-                     for t, box in k4_cases)
-        k5_err = max(_lanes_err(fops.fingerprint_chunked(t, FP_CHUNK_BYTES),
-                                fops.fingerprint_chunked_reference(t, FP_CHUNK_BYTES)) for t in leaves)
+        k4_err = max(_lanes_err(got, fops.fingerprint_box_reference(t, box))
+                     for got, (t, box) in zip(fops.fingerprint_boxes(k4_cases), k4_cases))
+        k5_err = max(_lanes_err(got, fops.fingerprint_chunked_reference(t, FP_CHUNK_BYTES))
+                     for got, t in zip(fops.fingerprint_chunked_many(leaves, FP_CHUNK_BYTES), leaves))
         record["kernels_against_plain"] = {
             "k4_cases": len(k4_cases), "k4_boxes": len(k4_cases) - len(leaves), "k4_max_abs_err": k4_err,
             "k5_cases": len(leaves), "k5_max_abs_err": k5_err}
@@ -2600,14 +2769,17 @@ def phase_dlrm(ceilings):
         and ref_fmt["logits_bit_identical"] and ref_fmt["progress"] == DLRM_STEPS,
         "the reference reader reads the largest table": ref_fmt["read_table_rows"] == [10131227, 16]
         and ref_fmt["read_table_byte_equal"],
-        "chunk takes launch K5 once an eligible leaf": [
-            record[f"chunk_take_{s}"]["k5_launches"] for s in (1, 2)] == [len(eligible) + probes, len(eligible)],
+        "chunk takes run K5 over every eligible leaf": [
+            record[f"chunk_take_{s}"]["k5_segments"] for s in (1, 2)] == [len(eligible) + probes, len(eligible)],
+        "each chunk take launches K5 once, beside the first take's dtype probes": [
+            record[f"chunk_take_{s}"]["k5_launches"] for s in (1, 2)] == [1 + probes, 1],
         "the second chunk take writes exactly the changed chunks":
             record["chunk_take_2"]["chunk_objects_stored"] == changed,
         "verify_device checks every stored array with K4":
-            (verify["verified"], verify["skipped"], verify["k4_launches"])
+            (verify["verified"], verify["skipped"], verify["k4_segments"])
             == (record["stored_array_objects"], 0, record["stored_array_objects"])
             and verify["leaves_byte_equal"] == (n, n),
+        "the verify_device restore launches K4 once": verify["k4_launches"] == 1,
         "K4 and K5 ran on the path": all(record["launches"].values()),
         "K4 and K5 agree with their plain versions on every leaf and box, bit for bit":
             record["kernels_against_plain"]["k4_max_abs_err"] == 0
@@ -2993,6 +3165,9 @@ def phase_dryrun():
         "K1-K3 ran on the ring": all(r["ring_launches"][k] > 0 for r in ranks
                                      for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
         "K4 ran on the fingerprinted takes": all(r["launches"]["xs128_box"] > 0 for r in ranks),
+        "each fingerprinting take and restore launched K4 once on each rank's device": all(
+            step["launches"] == (1 if step["segments"] else 0) for r in ranks for step in r["k4_by_step"].values())
+        and all(r["k4_by_step"]["verify_device_restore"]["segments"] > 0 for r in ranks),
     }
     _hold("dryrun", gates)
     return record
@@ -3138,7 +3313,7 @@ def phase_faults(model):
     probe_app = {"model": tf.TransformerState(probe_model)}
     record = {"phase": "faults", "model": "GPT-2 XL widths, f32", "leaves": n, "state_bytes": state_bytes,
               "backend": "fs", "manager": "CheckpointManager(max_to_keep=1, chunks=True)"}
-    probes = {"restores": 0, "k4_launches": 0, "seconds": 0.0}
+    probes = {"restores": 0, "k4_launches": 0, "k4_segments": 0, "seconds": 0.0}
 
     def manager(**kwargs):
         return CheckpointManager(base, max_to_keep=1, chunks=True, **kwargs)
@@ -3150,7 +3325,7 @@ def phase_faults(model):
         with torch.no_grad():
             for t in probe_leaves:
                 t.fill_(0.5)
-        k4 = fops.fingerprint_box_launches
+        counts = _fp_counts()
         Snapshot(os.path.join(base, f"step-{step}")).restore(probe_app, verify_device=True)
         torch.cuda.synchronize()
         want = lineage.expected(step)
@@ -3158,7 +3333,8 @@ def phase_faults(model):
         assert not bad, f"step {step}: {len(bad)} leaves differ from the step's values"
         assert snapshot_mod._last_verify_stats == {"verified": n, "skipped": 0}, snapshot_mod._last_verify_stats
         probes["restores"] += 1
-        probes["k4_launches"] += fops.fingerprint_box_launches - k4
+        for k, v in _fp_delta(counts, "k4").items():
+            probes[k] += v
         probes["seconds"] += time.perf_counter() - begin
 
     def redrive(step):
@@ -3177,14 +3353,16 @@ def phase_faults(model):
                   TPUSNAPSHOT_STORAGE_RETRY_CAP_S=0.01, TPUSNAPSHOT_FINGERPRINT=1):
             torch.cuda.synchronize()
             _reset_launch_counts()
-            begin = time.perf_counter()
+            begin, counts = time.perf_counter(), _fp_counts()
             manager().save(0, app)
             record["first_save_s"] = time.perf_counter() - begin
+            record["first_save_fingerprints"] = _fp_delta(counts)
             step = 1
             lineage.advance(step)
-            begin = time.perf_counter()
+            begin, counts = time.perf_counter(), _fp_counts()
             total = fl.count_storage_ops(lambda: manager().save(step, app))
-            record["cycle"] = {"ops": total, "seconds": time.perf_counter() - begin}
+            record["cycle"] = {"ops": total, "seconds": time.perf_counter() - begin,
+                               "fingerprints": _fp_delta(counts)}
             stride = max(1, total // 5)
             points = sorted(set(range(1, total + 1, stride)) | {1, total})
             if len(points) > FAULT_POINTS:
@@ -3329,6 +3507,8 @@ def phase_faults(model):
                           f"{point['leaves_old']}, new {point['leaves_new']} of {n}", flush=True)
             record["launches"] = {"xs128_box": fops.fingerprint_box_launches,
                                   "xs128_chunked": fops.fingerprint_chunked_launches}
+            record["segments"] = {"xs128_box": fops.fingerprint_box_segments,
+                                  "xs128_chunked": fops.fingerprint_chunked_segments}
             record["probes"] = dict(probes)
         shutil.rmtree(base, ignore_errors=True)
 
@@ -3378,7 +3558,11 @@ def phase_faults(model):
         and len(record["crash_matrix"]) >= 4,
         "the matrix spans the commit": any(o["saved_step"] in o["marked_steps"] for o in record["crash_matrix"])
         and any(o["saved_step"] not in o["marked_steps"] + o["adopted_steps"] for o in record["crash_matrix"]),
-        "every probe verified every leaf with K4": probes["k4_launches"] == n * probes["restores"],
+        "every probe verified every leaf with K4": probes["k4_segments"] == n * probes["restores"],
+        "each probe's verify_device restore launched K4 once": probes["k4_launches"] == probes["restores"],
+        "the first and the counted save each launched K4 and K5 once": all(
+            (c["k4_launches"], c["k4_segments"], c["k5_launches"] - c["k5_probes"]) == (1, n, 1)
+            for c in (record["first_save_fingerprints"], record["cycle"]["fingerprints"])),
         "the torn save failed": torn["raised"] and torn["faults"].get("torn", 0) >= 1,
         "the torn object landed truncated": torn["size_on_disk"] == FAULT_TORN_KEEP_BYTES,
         "verify refuses the uncommitted step": torn["verify_refused"],
@@ -3425,38 +3609,54 @@ EXAMPLE_TIMEOUT_S = 600
 def phase_examples():
     """The six scripts of ``examples_torch/`` on the card, each a
     subprocess as a user runs it (cwd the checkout, its own work
-    directory): each must exit 0 and print its lines. The incremental
-    example's K4 launches and the long-context example's K1, K2 and K3
-    launches are read from what they print."""
+    directory), three at a time, the two that spawn worlds first (each
+    world meets on a free port), then async_checkpoint_example alone, so
+    that the stall it measures shares the card with no other script:
+    each must exit 0 and print its lines.
+    The incremental example's K4 launches and leaves and the long-context
+    example's K1, K2 and K3 launches are read from what they print."""
+    from concurrent.futures import ThreadPoolExecutor
+
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_examples-")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    runs = {}
+
+    def run(name):
+        lines = _example_lines(name)
+        cmd = [sys.executable, os.path.join(ROOT, "examples_torch", f"{name}.py"),
+               "--work-dir", os.path.join(workdir, name)]
+        begin = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
+                              env=env, cwd=ROOT)
+        out = proc.stdout
+        run = {"rc": proc.returncode, "seconds": time.perf_counter() - begin,
+               "missing_lines": [line for line in lines if line not in out],
+               "last_lines": out.strip().splitlines()[-3:]}
+        if proc.returncode != 0:
+            run["stderr_tail"] = proc.stderr[-3000:]
+        for line in out.splitlines():
+            if "K4 launch" in line:
+                # "step N: ..., B bytes, L K4 launch(es) over S leaves"
+                launched, leaves = line.rsplit(" bytes, ", 1)[1].split(" K4 launch(es) over ")
+                run.setdefault("k4_launches_a_save", []).append(int(launched))
+                run.setdefault("k4_segments_a_save", []).append(int(leaves.split()[0]))
+                run["k4_launches"] = sum(run["k4_launches_a_save"])
+            for k in ("K1", "K2", "K3"):
+                if f"{k} launches " in line:
+                    run[f"{k.lower()}_launches"] = int(line.split(f"{k} launches ", 1)[1].split(",")[0].rstrip(")"))
+        print(f"examples: {name} rc {proc.returncode} in {run['seconds']:.1f} s", flush=True)
+        return run
+
+    alone = "async_checkpoint_example"
+    order = ["embedding_example", "long_context_example"]
+    order += [name for name in EXAMPLES if name not in order and name != alone]
     try:
-        for name in EXAMPLES:
-            lines = _example_lines(name)
-            cmd = [sys.executable, os.path.join(ROOT, "examples_torch", f"{name}.py"),
-                   "--work-dir", os.path.join(workdir, name)]
-            begin = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
-                                  env=env, cwd=ROOT)
-            out = proc.stdout
-            runs[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - begin,
-                          "missing_lines": [line for line in lines if line not in out],
-                          "last_lines": out.strip().splitlines()[-3:]}
-            if proc.returncode != 0:
-                runs[name]["stderr_tail"] = proc.stderr[-3000:]
-            for line in out.splitlines():
-                if "K4 launch" in line:
-                    runs[name]["k4_launches"] = runs[name].get("k4_launches", 0) + int(
-                        line.rsplit(" bytes, ", 1)[1].split()[0])
-                for k in ("K1", "K2", "K3"):
-                    if f"{k} launches " in line:
-                        runs[name][f"{k.lower()}_launches"] = int(
-                            line.split(f"{k} launches ", 1)[1].split(",")[0].rstrip(")"))
-            print(f"examples: {name} rc {proc.returncode} in {runs[name]['seconds']:.1f} s", flush=True)
+        with ThreadPoolExecutor(3) as pool:
+            done = dict(zip(order, pool.map(run, order)))
+        done[alone] = run(alone)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    runs = {name: done[name] for name in EXAMPLES}
     record = {"phase": "examples", "runs": runs,
               "launches": {"flash_fwd": runs["long_context_example"].get("k1_launches", 0),
                            "flash_bwd_dq": runs["long_context_example"].get("k2_launches", 0),
@@ -3465,6 +3665,9 @@ def phase_examples():
     emit(record)
     gates = {f"{name} exits 0 with its lines": r["rc"] == 0 and not r["missing_lines"] for name, r in runs.items()}
     gates["K1, K2, K3 and K4 ran on the path"] = all(record["launches"].values())
+    inc = runs["incremental_example"]
+    gates["each incremental_example save launched K4 once over its 3 leaves"] = (
+        inc.get("k4_launches_a_save") == [1] * 4 and inc.get("k4_segments_a_save") == [3] * 4)
     _hold("examples", gates)
     return record
 
@@ -3479,29 +3682,38 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.", file=sys.stderr)
         return 2
-    smi, device = phase_device()
-    phase_build()
-    flash = phase_kernel()
-    flash_bwd = phase_kernel_bwd()
-    transfer_record = phase_transfer()
-    fingerprint = phase_kernel_fingerprint()
-    main_path, model, tokens = phase_main_path(transfer_record["h2d_pinned_gbps"])
-    dedup = phase_dedup(model, tokens)
+    seconds = {}
+
+    def timed_phase(name, fn, *args):
+        begin = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - begin
+        return result
+
+    smi, device = timed_phase("device", phase_device)
+    timed_phase("build", phase_build)
+    flash = timed_phase("kernel", phase_kernel)
+    flash_bwd = timed_phase("kernel_bwd", phase_kernel_bwd)
+    transfer_record = timed_phase("transfer", phase_transfer)
+    fingerprint = timed_phase("kernel_fingerprint", phase_kernel_fingerprint)
+    main_path, model, tokens = timed_phase("main_path", phase_main_path, transfer_record["h2d_pinned_gbps"])
+    dedup = timed_phase("dedup", phase_dedup, model, tokens)
     ceilings = {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")}
-    api = phase_api(model, tokens, ceilings)
-    faults = phase_faults(model)
+    api = timed_phase("api", phase_api, model, tokens, ceilings)
+    faults = timed_phase("faults", phase_faults, model)
     del model, tokens
     torch.cuda.empty_cache()
-    phase_torn_leaf()
-    train = phase_train()
-    multi_rank = phase_multi_rank()
-    sp_paths = {phase: phase_seq_parallel(phase) for phase in SP_PHASES}
-    dlrm_record = phase_dlrm(ceilings)
-    phase_dlrm_ep(dlrm_record["losses"][0])
-    phase_resnet()
-    phase_ddp()
-    dryrun_ranks = phase_dryrun()["ranks"]
-    examples = phase_examples()
+    timed_phase("torn_leaf", phase_torn_leaf)
+    train = timed_phase("train", phase_train)
+    multi_rank = timed_phase("multi_rank", phase_multi_rank)
+    sp_paths = {phase: timed_phase(phase, phase_seq_parallel, phase) for phase in SP_PHASES}
+    dlrm_record = timed_phase("dlrm", phase_dlrm, ceilings)
+    timed_phase("dlrm_ep", phase_dlrm_ep, dlrm_record["losses"][0])
+    timed_phase("resnet", phase_resnet)
+    timed_phase("ddp", phase_ddp)
+    dryrun_ranks = timed_phase("dryrun", phase_dryrun)["ranks"]
+    examples = timed_phase("examples", phase_examples)
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
 
@@ -3568,37 +3780,49 @@ def main():
             "library_ms": bwd["library_ms"],
         })
     for name, key, line in (("xs128_box", "k4", 123), ("xs128_chunked", "k5", 219)):
-        w1, embed, state = (fingerprint["timings"][k] for k in ("w1", "embed", "state"))
+        timings = fingerprint["timings"]
+        state = timings["state"]
+
+        def fp_row(row):
+            return {"ms": row[f"{key}_ms"], "call_ms": row[f"{key}_call_ms"], "plain_ms": row[f"{key}_plain_ms"],
+                    "bound_ms": row[f"{key}_bound_ms"], "bound_by": row[f"{key}_bound_by"],
+                    "bytes_bound_ms": row["bytes_bound_ms"], "integer_bound_ms": row[f"{key}_integer_bound_ms"],
+                    "int32_sum_ms": row["int32_sum_ms"]}
+
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "torchsnapshot_tpu_torch/csrc/fingerprint.cu",
             "replaces": f"torchsnapshot_tpu/fingerprint.py:{line}",
+            # Launches (one a batch on a device) and the leaves or boxes
+            # fingerprinted, by path.
             "launches": dedup["launches"][name],
+            "segments": dedup["segments"][name],
             "launches_api_path": api["launches"][name],
+            "segments_api_path": api["segments"][name],
             "launches_dlrm_path": dlrm_record["launches"][name],
+            "segments_dlrm_path": dlrm_record["segments"][name],
             "dlrm_max_abs_err": dlrm_record["kernels_against_plain"][f"{key}_max_abs_err"],
             "launches_dryrun_path": dryrun_ranks[0]["launches"][name],
+            "segments_dryrun_path": sum(s["segments"] for s in dryrun_ranks[0]["k4_by_step"].values())
+            if key == "k4" else 0,
             "launches_faults_path": faults["launches"][name],
-            **({"launches_examples_path": examples["launches"][name]} if name in examples["launches"] else {}),
+            "segments_faults_path": faults["segments"][name],
+            **({"launches_examples_path": examples["launches"][name],
+                "segments_examples_path": sum(examples["runs"]["incremental_example"]["k4_segments_a_save"])}
+               if name in examples["launches"] else {}),
             "max_abs_err": fingerprint["max_abs_err"],
-            # At the 40.96 MB w1; the embed and the whole state beside it.
-            "ms": w1[f"{key}_ms"],
-            "plain_ms": w1[f"{key}_plain_ms"],
-            "bound_ms": w1["bound_ms"],
-            "bound_by": w1["bound_by"],
-            "bytes_bound_ms": w1["bytes_bound_ms"],
-            "integer_bound_ms": w1["integer_bound_ms"],
+            # One batch of the 387 state leaves (the prepared launch; the
+            # wrapper's call from a list of tensors as call_ms); w1 and the
+            # embed alone beside it.
+            **fp_row(state),
             "library_ms": None,
-            "hbm_reference_int32_sum_ms": w1["int32_sum_ms"],
-            "embed": {"ms": embed[f"{key}_ms"], "plain_ms": embed[f"{key}_plain_ms"],
-                      "bound_ms": embed["bound_ms"], "int32_sum_ms": embed["int32_sum_ms"]},
-            "state": {"ms": state[f"{key}_ms"], "plain_ms": state[f"{key}_plain_ms"],
-                      "bound_ms": state["bound_ms"],
-                      "bytes_bound_ms": state["bytes_bound_ms"],
-                      "integer_bound_ms": state["integer_bound_ms"],
-                      "int32_sum_ms": state["int32_sum_ms"]},
-            "pipe_ops_per_word": fingerprint["pipe_ops_per_word"],
+            "hbm_reference_int32_sum_ms": state["int32_sum_ms"],
+            "plan": state[f"{key}_plan"],
+            "w1": fp_row(timings["w1"]),
+            "embed": fp_row(timings["embed"]),
+            "sass": {k: {p: fingerprint["sass"][k][p] for p in ("fma_pipe", "alu_pipe")}
+                     for k in FP_PATHS} if fingerprint["sass"] else None,
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

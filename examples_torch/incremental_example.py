@@ -7,7 +7,8 @@ backbone is fingerprinted on the device at each save (on a card by the
 xs128 kernel K4) and never re-transferred or re-written; each step's
 snapshot references the first writer's objects, restores bit-exactly,
 and retention understands the references. Each save prints the payload
-bytes it wrote and the K4 launches it made. Beside the steps,
+bytes it wrote, the K4 launches it made and the leaves they
+fingerprinted. Beside the steps,
 ``taken_state/`` keeps a host copy of the state each save saw.
 
 Run:  PYTHONPATH=. python examples_torch/incremental_example.py [--work-dir DIR] [--device cpu]
@@ -80,7 +81,7 @@ def main() -> None:
             state = {
                 "model": StateDict(backbone=backbone, lora_a=adapter_a, lora_b=adapter_b)
             }
-            k4_before = fops.fingerprint_box_launches
+            k4_before = (fops.fingerprint_box_launches, fops.fingerprint_box_segments)
             begin = time.monotonic()
             mgr.save(step, state)
             times.append(time.monotonic() - begin)
@@ -89,7 +90,8 @@ def main() -> None:
             print(
                 f"step {step}: save {times[-1]:.3f}s, {n} payload object(s) "
                 f"written, {nbytes} bytes, "
-                f"{fops.fingerprint_box_launches - k4_before} K4 launch(es)"
+                f"{fops.fingerprint_box_launches - k4_before[0]} K4 launch(es) over "
+                f"{fops.fingerprint_box_segments - k4_before[1]} leaves"
             )
 
         print(f"steps on disk: {mgr.all_steps()}")

@@ -509,14 +509,115 @@ def test_fingerprint_kernels_match_plain_and_host(cuda, dtype, n):
 
     x = _fp_input(cuda, dtype, n, seed=n)
     host = x.cpu()
-    before = ops.fingerprint_box_launches
+    before = (ops.fingerprint_box_launches, ops.fingerprint_box_segments)
     got = fp.resolve_fingerprints([fp.fingerprint_device_async(x)])[0]
-    assert ops.fingerprint_box_launches == before + (1 if n else 0)
+    assert (ops.fingerprint_box_launches, ops.fingerprint_box_segments) == (
+        before[0] + (1 if n else 0), before[1] + (1 if n else 0))
     assert got == fp.resolve_fingerprints([ops.fingerprint_box_reference(x)])[0] == fp.fingerprint_host(host)
     for chunk_bytes in (12, 4096):
         want = fp.fingerprint_host_chunked(host, chunk_bytes)
         assert fp.resolve_chunk_fingerprints([fp.fingerprint_device_chunked_async(x, chunk_bytes)])[0] == want
         assert fp.resolve_chunk_fingerprints([ops.fingerprint_chunked_reference(x, chunk_bytes)])[0] == want
+
+
+def test_batched_fingerprint_kernels_match_plain_and_host(cuda):
+    """One K4 batch and one K5 batch over every dtype, empty and odd
+    lengths, 1-byte views at odd offsets, boxes and a tensor given twice
+    (fast and general segments in one launch), bit-equal to the plain
+    versions and the host twins item by item."""
+    from torchsnapshot_tpu_torch import fingerprint as fp
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    items = [(_fp_input(cuda, dtype, n, seed=n), None) for dtype in _FP_DTYPES for n in (0, 3, 4097, 70001)]
+    base = _fp_input(cuda, torch.int8, 100003)
+    items += [(base[offset:], None) for offset in (1, 2, 3)]
+    m = _fp_input(cuda, torch.float32, 64 * 129).reshape(64, 129)
+    items += [(m, [(3, 40), (0, 129)]), (m, [(0, 64), (5, 77)]), (m, [(0, 64), (1, 2)]), items[6]]
+    plan = ops.prepare_boxes(items).plan
+    assert plan.n_fast and plan.n_general
+    rows = ops.fingerprint_boxes(items)
+    for (x, box), row in zip(items, rows):
+        assert torch.equal(row.cpu(), ops.fingerprint_box_reference(x, box).cpu())
+        host = x if box is None else x[tuple(slice(a, b) for a, b in box)]
+        assert fp.resolve_fingerprints([row])[0] == fp.fingerprint_host(host.contiguous().cpu())
+    tensors = [x for x, box in items if box is None]
+    sizes = [4096 + 4 * (i % 3) for i in range(len(tensors))]
+    for chunk_bytes in (12, 4096, sizes):
+        per = [chunk_bytes] * len(tensors) if isinstance(chunk_bytes, int) else chunk_bytes
+        got = ops.fingerprint_chunked_many(tensors, chunk_bytes)
+        for x, cb, rows in zip(tensors, per, got):
+            assert torch.equal(rows.cpu(), ops.fingerprint_chunked_reference(x, cb).cpu())
+            assert fp.resolve_chunk_fingerprints([rows])[0] == fp.fingerprint_host_chunked(x.cpu(), cb)
+
+
+def test_each_fingerprint_batch_is_one_launch_and_counts_its_leaves(cuda, tmp_path, monkeypatch):
+    """A fingerprinted take, an incremental take, a verify_device restore
+    and a chunk take each launch K4 or K5 once on the card; the segment
+    counters count the leaves."""
+    from torchsnapshot_tpu_torch import chunkstore
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    monkeypatch.setenv("TPUSNAPSHOT_CHUNK_BYTES", str(64 << 10))
+    monkeypatch.setenv("TPUSNAPSHOT_CHUNK_MIN_BYTES", "0")
+    # Both dtypes proven already: no probe launch in the chunk take.
+    monkeypatch.setattr(chunkstore, "_FP_AGREEMENT", {"torch.float32@cuda": True, "torch.bfloat16@cuda": True})
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = {f"w{i}": torch.randn(1000 * (i + 1) + 3, generator=gen, device=cuda) for i in range(5)}
+    state["h"] = torch.randn(300, 7, generator=gen, device=cuda).to(torch.bfloat16)
+    app = {"m": StateDict(**state)}
+
+    def counted(fn):
+        before = (ops.fingerprint_box_launches, ops.fingerprint_box_segments,
+                  ops.fingerprint_chunked_launches, ops.fingerprint_chunked_segments)
+        result = fn()
+        torch.cuda.synchronize()
+        now = (ops.fingerprint_box_launches, ops.fingerprint_box_segments,
+               ops.fingerprint_chunked_launches, ops.fingerprint_chunked_segments)
+        return result, tuple(a - b for a, b in zip(now, before))
+
+    base, counts = counted(lambda: Snapshot.take(str(tmp_path / "base"), app, fingerprint=True))
+    assert counts == (1, 6, 0, 0)
+    _, counts = counted(lambda: Snapshot.take(str(tmp_path / "inc"), app, base=base))
+    assert counts == (1, 6, 0, 0)
+    target = {"m": StateDict(**{k: torch.zeros_like(v) for k, v in state.items()})}
+    _, counts = counted(lambda: base.restore(target, verify_device=True))
+    assert counts == (1, 6, 0, 0)
+    _, counts = counted(lambda: Snapshot.take(str(tmp_path / "chunks"), app, chunks=True))
+    assert counts == (0, 0, 1, 6)
+
+
+@pytest.mark.parametrize("kind", ["boxes", "chunked"])
+def test_a_batch_of_non_contiguous_leaves_holds_its_copies_under_the_cap(cuda, monkeypatch, kind):
+    """Eight transposed 4 MiB leaves, each copied before its launch: with
+    the cap at two copies the batch launches every two, and the device's
+    peak stays within the cap plus one copy (not all eight copies)."""
+    from torchsnapshot_tpu_torch import fingerprint as fp
+    from torchsnapshot_tpu_torch.ops import fingerprint as ops
+
+    leaves = [_fp_input(cuda, torch.float32, 1 << 20, seed=i).reshape(1024, 1024).t() for i in range(8)]
+    copy_bytes = 4 << 20
+    monkeypatch.setattr(fp, "COPY_BYTES_PER_LAUNCH", 2 * copy_bytes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    if kind == "boxes":
+        launches, segments = ops.fingerprint_box_launches, ops.fingerprint_box_segments
+        got = fp.resolve_fingerprints(fp.fingerprint_device_many_async([(x, None) for x in leaves]))
+        launches, segments = ops.fingerprint_box_launches - launches, ops.fingerprint_box_segments - segments
+    else:
+        launches, segments = ops.fingerprint_chunked_launches, ops.fingerprint_chunked_segments
+        got = fp.resolve_chunk_fingerprints(fp.fingerprint_device_chunked_many_async(leaves, 1 << 20))
+        launches, segments = (ops.fingerprint_chunked_launches - launches,
+                              ops.fingerprint_chunked_segments - segments)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    if kind == "boxes":
+        want = [fp.fingerprint_host(x.contiguous().cpu()) for x in leaves]
+    else:
+        want = [fp.fingerprint_host_chunked(x.contiguous().cpu(), 1 << 20) for x in leaves]
+    assert got == want
+    assert (launches, segments) == (4, 8)
+    assert peak <= 3 * copy_bytes + (1 << 20), peak
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -562,9 +663,9 @@ def test_chunk_stager_slices_on_the_device(cuda, tmp_path, monkeypatch):
     copied.clear()
     w[5] += 1.0
     w[(1 << 20) - 1] += 1.0
-    before = ops.fingerprint_chunked_launches
+    before = (ops.fingerprint_chunked_launches, ops.fingerprint_chunked_segments)
     Snapshot.take(str(tmp_path / "step-2"), {"m": StateDict(w=w)}, chunks=True)
-    assert ops.fingerprint_chunked_launches == before + 1
+    assert (ops.fingerprint_chunked_launches, ops.fingerprint_chunked_segments) == (before[0] + 1, before[1] + 1)
     assert copied == [64 << 10, 64 << 10]  # only the two touched chunks crossed
     target = StateDict(w=torch.zeros_like(w))
     Snapshot(str(tmp_path / "step-2")).restore({"m": target})
@@ -578,9 +679,9 @@ def test_verify_device_catches_a_byte_flipped_in_hbm(cuda, tmp_path, monkeypatch
     w = torch.randn(4096, device=cuda)
     Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(w=w)}, fingerprint=True)
     target = StateDict(w=torch.zeros_like(w))
-    before = ops.fingerprint_box_launches
+    before = (ops.fingerprint_box_launches, ops.fingerprint_box_segments)
     Snapshot(str(tmp_path / "snap")).restore({"m": target}, verify_device=True)
-    assert ops.fingerprint_box_launches == before + 1
+    assert (ops.fingerprint_box_launches, ops.fingerprint_box_segments) == (before[0] + 1, before[1] + 1)
     real = snapshot_mod._load_stateful
 
     def flip_after_landing(*args, **kwargs):
@@ -633,9 +734,9 @@ def test_complex_leaf_on_the_card_is_chunked_by_k5_on_its_bytes(cuda, tmp_path):
     from torchsnapshot_tpu_torch.ops import fingerprint as ops
 
     z = torch.randn(1 << 17, dtype=torch.complex64, device=cuda)
-    before = ops.fingerprint_chunked_launches
+    before = (ops.fingerprint_chunked_launches, ops.fingerprint_chunked_segments)
     s = Snapshot.take(str(tmp_path / "step-1"), {"m": StateDict(z=z)}, chunks=True)
-    assert ops.fingerprint_chunked_launches > before
+    assert ops.fingerprint_chunked_launches > before[0] and ops.fingerprint_chunked_segments > before[1]
     records = s.get_manifest()["0/m/z"].chunks
     want = fp.fingerprint_host_chunked(z.cpu(), records[0]["n"])
     assert [r["k"].split("-")[0] for r in records] == want
@@ -675,11 +776,11 @@ def test_verify_device_with_paths_launches_k4_once_a_selected_leaf(cuda, tmp_pat
     app = {"m": StateDict(layers={k.split("/")[0]: {"w": v} for k, v in saved.items()})}
     Snapshot.take(str(tmp_path / "snap"), app, fingerprint=True)
     target = {"m": StateDict(layers={k.split("/")[0]: {"w": torch.zeros_like(v)} for k, v in saved.items()})}
-    before = ops.fingerprint_box_launches
+    before = (ops.fingerprint_box_launches, ops.fingerprint_box_segments)
     Snapshot(str(tmp_path / "snap")).restore(target, paths=["m/layers/l2/**", "m/layers/l4/**"],
                                             verify_device=True)
     torch.cuda.synchronize()
-    assert ops.fingerprint_box_launches - before == 2
+    assert (ops.fingerprint_box_launches - before[0], ops.fingerprint_box_segments - before[1]) == (1, 2)
     assert snapshot_mod._last_verify_stats == {"verified": 2, "skipped": 0}
     layers = target["m"]["layers"]
     assert torch.equal(layers["l2"]["w"], saved["l2/w"]) and not layers["l3"]["w"].any()

@@ -2,6 +2,7 @@
 """Restore of the GPT-2-XL-width state by two checkouts, in turns, on one card.
 
     python3 tools/restore_ab.py --other build/parent [--order other,this,this,other] [--repeat N]
+                                [--verify-device]
     python3 tools/restore_ab.py --summarize LOG
 
 Takes the flagship transformer at GPT-2 XL widths (6.23 GB, seed 0) once
@@ -11,7 +12,9 @@ each turn importing ``torchsnapshot_tpu_torch`` from this checkout or
 from ``--other`` (an unpacked ``git archive`` of another commit). Each
 turn prints one JSON line: the checkout, the restore's seconds and GB/s
 (until the last byte has landed) and whether every leaf is byte-equal.
-``--repeat N`` runs the order N times over. Then, for each checkout, the
+``--repeat N`` runs the order N times over. ``--verify-device`` takes
+with fingerprints and restores with ``verify_device=True`` (K4 over
+every restored leaf). Then, for each checkout, the
 median, quartiles, least and most of its seconds and its median GB/s,
 and the pairs (turns 2k and 2k+1) the checkout won; the filesystem's
 read rate of the same run and the card's name and power limit.
@@ -43,7 +46,7 @@ want = list(tf.param_leaves(tf.init_params(cfg, seed=0)))
 model = tf.Transformer.init(cfg, seed=1)
 torch.cuda.synchronize()
 begin = time.perf_counter()
-Snapshot(sys.argv[2]).restore({"model": tf.TransformerState(model)})
+Snapshot(sys.argv[2]).restore({"model": tf.TransformerState(model)}, verify_device=sys.argv[3] == "1")
 torch.cuda.synchronize()
 seconds = time.perf_counter() - begin
 equal = all(torch.equal(a.view(torch.uint8), b.detach().view(torch.uint8))
@@ -79,6 +82,7 @@ def main():
     group.add_argument("--summarize", metavar="LOG")
     parser.add_argument("--order", default="other,this,this,other")
     parser.add_argument("--repeat", type=int, default=1)
+    parser.add_argument("--verify-device", action="store_true")
     args = parser.parse_args()
     if args.summarize:
         with open(args.summarize) as f:
@@ -101,12 +105,13 @@ def main():
                                    d_ff=6400, max_seq_len=1024, dtype=torch.float32)
         path = os.path.join(workdir, "snap")
         model = tf.Transformer.init(cfg, seed=0)
-        Snapshot.take(path, {"model": tf.TransformerState(model)})
+        Snapshot.take(path, {"model": tf.TransformerState(model)}, fingerprint=args.verify_device)
         del model
         torch.cuda.empty_cache()
         results = []
         for name in args.order.split(",") * args.repeat:
-            proc = subprocess.run([sys.executable, "-c", TURN, checkouts[name], path],
+            proc = subprocess.run([sys.executable, "-c", TURN, checkouts[name], path,
+                                   "1" if args.verify_device else "0"],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 print(proc.stderr, file=sys.stderr)

@@ -429,13 +429,20 @@ def _apply_chunkstore_body(
     plan: codecs.CodecPlan,
     stats: ChunkStats,
 ) -> None:
-    from .fingerprint import fingerprint_device_chunked_async, fingerprint_host_chunked, resolve_chunk_fingerprints
+    from .fingerprint import (
+        fingerprint_device_chunked_async,
+        fingerprint_device_chunked_many_async,
+        fingerprint_host_chunked,
+        resolve_chunk_fingerprints,
+    )
 
     paths_by_entry = _manifest_logical_paths(manifest)
     target = chunk_bytes()
     min_bytes = chunk_min_bytes()
-    # Pass 1: pick the eligible requests and dispatch every fingerprint.
+    # Pass 1: pick the eligible requests and dispatch every fingerprint;
+    # the leaves on the card go in one K5 batch, one launch per device.
     selected = []
+    on_card: List[Tuple[int, torch.Tensor, int]] = []  # (index in selected, words, chunk bytes)
     for wr in write_reqs:
         stager = wr.buffer_stager
         if not isinstance(stager, ArrayBufferStager) or isinstance(stager, ChunkStager):
@@ -468,8 +475,8 @@ def _apply_chunkstore_body(
             # view. A failed build, launch or probe fails the take.
             words = torch.view_as_real(data) if data.dtype.is_complex else data
             _device_fp_matches_host(words.dtype, words.device)
-            fp_dev = fingerprint_device_chunked_async(words, cbytes)
-            selected.append((wr, entry, data, ready, lpath, itemsize, elems, n_chunks, fp_dev))
+            on_card.append((len(selected), words, cbytes))
+            selected.append((wr, entry, data, ready, lpath, itemsize, elems, n_chunks, None))
             continue
         try:
             if isinstance(data, torch.Tensor) and _device_fp_matches_host(data.dtype, data.device):
@@ -483,6 +490,10 @@ def _apply_chunkstore_body(
             )
             continue
         selected.append((wr, entry, data, ready, lpath, itemsize, elems, n_chunks, fp))
+    if on_card:
+        results = fingerprint_device_chunked_many_async([w for _, w, _ in on_card], [cb for _, _, cb in on_card])
+        for (i, _, _), r in zip(on_card, results):
+            selected[i] = selected[i][:-1] + (r,)
     handles = [s[-1] for s in selected if not isinstance(s[-1], list)]
     resolved = iter(resolve_chunk_fingerprints(handles))
 

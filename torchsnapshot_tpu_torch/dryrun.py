@@ -205,22 +205,31 @@ def _dryrun_rank(rank: int, world: int, device_type: str, workdir: str, record_d
     # 3. Incremental take over the same mesh: one leaf changes, the rest
     # borrow from the base; the restore is fingerprint-verified on the
     # device.
+    k4 = _k4_counts()
     base = Snapshot.take(
         os.path.join(workdir, "snap-fp"), {"m": PytreeStateful(state)},
         replicated=["**"], fingerprint=True,
     )
+    k4_ops = {"fingerprinted_take": _k4_since(k4)}
     stepped = map_leaves(_clone, state)
     with torch.no_grad():
         stepped["embed"].to_local().add_(1)
+    k4 = _k4_counts()
     inc = Snapshot.take(
         os.path.join(workdir, "snap-inc"), {"m": PytreeStateful(stepped)},
         replicated=["**"], base=base,
     )
+    k4_ops["incremental_take"] = _k4_since(k4)
     record["incremental_refs"] = _count_base_refs(inc)
     if record["incremental_refs"] == 0:
         raise AssertionError("incremental take deduplicated nothing")
     inc_holder = PytreeStateful(replicate_pytree(map_leaves(_zeros_like_global, stepped), mesh))
+    k4 = _k4_counts()
     inc.restore({"m": inc_holder}, verify_device=True)
+    k4_ops["verify_device_restore"] = _k4_since(k4)
+    # K4 launches and leaves (or boxes) of each fingerprinting step: one
+    # launch a step on a card, none on the CPU.
+    record["k4_by_step"] = k4_ops
     stepped_whole = map_leaves(lambda t: t.to_local(), inc_holder.tree)
     _check_boxes(stepped, stepped_whole, "incremental restore")
     if torch.equal(stepped_whole["embed"], whole["embed"]):
@@ -294,6 +303,15 @@ def _dryrun_rank(rank: int, world: int, device_type: str, workdir: str, record_d
     if record_dir is not None:
         with open(os.path.join(record_dir, f"dryrun_{rank}.json"), "w") as f:
             json.dump(record, f)
+
+
+def _k4_counts() -> Tuple[int, int]:
+    return fingerprint_ops.fingerprint_box_launches, fingerprint_ops.fingerprint_box_segments
+
+
+def _k4_since(before: Tuple[int, int]) -> Dict[str, int]:
+    launches, segments = _k4_counts()
+    return {"launches": launches - before[0], "segments": segments - before[1]}
 
 
 def _launches() -> Dict[str, int]:

@@ -9,10 +9,10 @@ four lanes ``k``::
 
 with ``mix`` the murmur3 finalizer. A fingerprint is
 ``"xs128:<32 hex>"``. The word view is defined on the stored bytes, so a
-fingerprint computed on the card (:func:`fingerprint_device_async`, the
-kernels of ``ops/fingerprint.py``), by their plain versions on the CPU,
-or on the host (:func:`fingerprint_host`) agree bit for bit for every
-dtype, and equal the JAX package's (whose device path equals its host
+fingerprint computed on the card (:func:`fingerprint_device_many_async`,
+one launch of the kernels of ``ops/fingerprint.py`` for a whole batch),
+by their plain versions on the CPU, or on the host
+(:func:`fingerprint_host`) agree bit for bit for every dtype, and equal the JAX package's (whose device path equals its host
 path on the CPU). Complex payloads have no word view and raise; callers
 then write the leaf in full, unfingerprinted, as the JAX package does.
 
@@ -21,7 +21,7 @@ defence against an adversary. A mismatch only ever costs a full write.
 """
 
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,14 +57,10 @@ def _static_box(x: torch.Tensor, slices: Optional[Sequence[slice]]) -> Optional[
     ]
 
 
-def fingerprint_device_async(x: torch.Tensor, slices: Optional[Sequence[slice]] = None) -> torch.Tensor:
-    """Dispatch the fingerprint of tensor ``x`` (or of its sub-box
-    ``slices``) on ``x``'s device and return the (4,) int32 result
-    without waiting; resolve with :func:`resolve_fingerprints`.
-
-    On a card this launches K4 on the tensor itself: a box cut along one
-    dimension is read in place, as runs. A non-contiguous tensor, or a
-    box of another shape, is first copied on the device."""
+def _box_item(x: torch.Tensor, slices: Optional[Sequence[slice]]) -> Tuple[torch.Tensor, Optional[List[Tuple[int, int]]]]:
+    """``(x, box)`` as K4 reads it: a box cut along one dimension is read
+    in place, as runs; a non-contiguous tensor, or a box of another
+    shape, is first copied on its device."""
     _ops._check_dtype(x)
     box = _static_box(x, slices)
     if not x.is_contiguous() or (
@@ -74,26 +70,99 @@ def fingerprint_device_async(x: torch.Tensor, slices: Optional[Sequence[slice]] 
             x = x[tuple(slice(a, b) for a, b in box)]
             box = None
         x = x.contiguous()
-    return _ops.fingerprint_box(x, box)
+    return x, box
+
+
+def _by_device(tensors: Sequence[torch.Tensor]) -> Dict[torch.device, List[int]]:
+    groups: Dict[torch.device, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return groups
+
+
+# Bytes of copies (of non-contiguous tensors, and of boxes that are not
+# runs) a batch holds on a device until its launch. A copy that would
+# pass it first launches what the device's batch holds so far, which
+# releases its copies: a batch holds at most this plus one copy, never a
+# second copy of a whole state, and leaves read in place still share one
+# launch.
+COPY_BYTES_PER_LAUNCH = 256 << 20
+
+
+def _batched(items: Sequence[Tuple[Any, Any]], prepare, launch) -> List[Any]:
+    """``launch`` over ``items`` prepared one by one (``prepare(item)``
+    -> (tensor, arg), the tensor a copy when it lies in another storage
+    than the item's), one batch per device, the batch launched early
+    where its copies would pass ``COPY_BYTES_PER_LAUNCH``."""
+    out: List[Any] = [None] * len(items)
+    pending: Dict[torch.device, List[Tuple[int, torch.Tensor, Any]]] = {}
+    held: Dict[torch.device, int] = {}
+
+    def flush(device: torch.device) -> None:
+        batch = pending.pop(device, [])
+        held[device] = 0
+        if batch:
+            for (i, _, _), r in zip(batch, launch([(t, arg) for _, t, arg in batch])):
+                out[i] = r
+
+    for i, item in enumerate(items):
+        t, arg = prepare(item)
+        device = t.device
+        if t.numel() and t.untyped_storage().data_ptr() != item[0].untyped_storage().data_ptr():
+            nbytes = t.numel() * t.element_size()
+            if held.get(device, 0) and held[device] + nbytes > COPY_BYTES_PER_LAUNCH:
+                flush(device)
+            held[device] = held.get(device, 0) + nbytes
+        pending.setdefault(device, []).append((i, t, arg))
+    for device in list(pending):
+        flush(device)
+    return out
+
+
+def fingerprint_device_many_async(items: Sequence[Tuple[torch.Tensor, Optional[Sequence[slice]]]]) -> List[torch.Tensor]:
+    """Dispatch the fingerprints of ``items`` (``(tensor, slices)``,
+    slices None for the whole tensor) and return their (4,) int32 results
+    without waiting; resolve with :func:`resolve_fingerprints`. On a card
+    the batch is one K4 launch per device (more where copies pass
+    ``COPY_BYTES_PER_LAUNCH``)."""
+    return _batched(list(items), lambda item: _box_item(*item), lambda batch: list(_ops.fingerprint_boxes(batch)))
+
+
+def fingerprint_device_async(x: torch.Tensor, slices: Optional[Sequence[slice]] = None) -> torch.Tensor:
+    """:func:`fingerprint_device_many_async` of one tensor (or of its
+    sub-box ``slices``): its (4,) int32 result, without waiting."""
+    return fingerprint_device_many_async([(x, slices)])[0]
+
+
+def fingerprint_device_chunked_many_async(items: Sequence[torch.Tensor], chunk_bytes: Union[int, Sequence[int]]) -> List[torch.Tensor]:
+    """Dispatch per-chunk fingerprints over each tensor's payload,
+    ``chunk_bytes`` (a positive multiple of 4; one size, or one a tensor)
+    a chunk, and return the (n_chunks, 4) int32 results without waiting;
+    resolve with :func:`resolve_chunk_fingerprints`. On a card the batch
+    is one K5 launch per device (more where copies of non-contiguous
+    tensors pass ``COPY_BYTES_PER_LAUNCH``)."""
+    items = list(items)
+    sizes = [int(cb) for cb in _ops._chunk_sizes(len(items), chunk_bytes)]
+    for x in items:
+        _ops._check_dtype(x)
+
+    def launch(batch):
+        return _ops.fingerprint_chunked_many([x for x, _ in batch], [cb for _, cb in batch])
+
+    return _batched(list(zip(items, sizes)), lambda item: (item[0].contiguous(), item[1]), launch)
 
 
 def fingerprint_device_chunked_async(x: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
-    """Dispatch per-chunk fingerprints over ``x``'s payload, ``chunk_bytes``
-    (a positive multiple of 4) a chunk; returns the (n_chunks, 4) int32
-    result without waiting. Resolve with :func:`resolve_chunk_fingerprints`."""
-    _ops._check_dtype(x)
-    _ops._check_chunk_bytes(chunk_bytes)
-    return _ops.fingerprint_chunked(x if x.is_contiguous() else x.contiguous(), chunk_bytes)
+    """:func:`fingerprint_device_chunked_many_async` of one tensor: its
+    (n_chunks, 4) int32 result, without waiting."""
+    return fingerprint_device_chunked_many_async([x], chunk_bytes)[0]
 
 
 def _fetch_by_device(results: List[torch.Tensor]) -> Dict[int, np.ndarray]:
     """Each result as a u32 numpy array, fetched with one device→host copy
     per device (every 16-byte fetch alone would pay a link round trip)."""
     out: Dict[int, np.ndarray] = {}
-    by_device: Dict[torch.device, List[int]] = {}
-    for i, r in enumerate(results):
-        by_device.setdefault(r.device, []).append(i)
-    for idxs in by_device.values():
+    for idxs in _by_device(results).values():
         flat = torch.cat([results[i].reshape(-1) for i in idxs]).cpu().numpy().view(np.uint32)
         pos = 0
         for i in idxs:

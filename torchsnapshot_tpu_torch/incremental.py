@@ -98,11 +98,18 @@ def load_base_context(
 
 def _compute_fingerprints(write_reqs: List[WriteReq], stats: IncrementalStats) -> Dict[int, str]:
     """``{id(entry): fingerprint}`` of every array write request's
-    payload. Every tensor's kernel is dispatched first and all results
-    are resolved afterwards, with one device→host copy per device."""
-    from .fingerprint import fingerprint_device_async, fingerprint_host, resolve_fingerprints
+    payload. The tensors on the card are fingerprinted together, one K4
+    launch per device; all results are resolved afterwards, with one
+    device→host copy per device."""
+    from .fingerprint import (
+        fingerprint_device_async,
+        fingerprint_device_many_async,
+        fingerprint_host,
+        resolve_fingerprints,
+    )
 
     pending: List[Tuple[ArrayEntry, Any]] = []
+    on_card: List[Tuple[ArrayEntry, torch.Tensor, Any]] = []
     fingerprints: Dict[int, str] = {}
     failed: Set[str] = set()
 
@@ -123,8 +130,7 @@ def _compute_fingerprints(write_reqs: List[WriteReq], stats: IncrementalStats) -
         if not isinstance(entry, ArrayEntry) or data is None:
             continue
         if isinstance(data, torch.Tensor) and data.is_cuda and not data.dtype.is_complex:
-            # On the card a kernel that fails to build or launch fails the take.
-            pending.append((entry, fingerprint_device_async(data, stager._chunk_slices)))
+            on_card.append((entry, data, stager._chunk_slices))
             continue
         try:
             if isinstance(data, torch.Tensor):
@@ -139,6 +145,10 @@ def _compute_fingerprints(write_reqs: List[WriteReq], stats: IncrementalStats) -
             stats.fingerprinted += 1
         except Exception as e:
             note_failure(getattr(data, "dtype", type(data)), e)
+    if on_card:
+        # On the card a kernel that fails to build or launch fails the take.
+        results = fingerprint_device_many_async([(data, slices) for _, data, slices in on_card])
+        pending.extend((entry, r) for (entry, _, _), r in zip(on_card, results))
     for (entry, r), res in zip(pending, resolve_fingerprints([r for _, r in pending])):
         if isinstance(res, str):
             fingerprints[id(entry)] = res

@@ -2052,9 +2052,10 @@ def _prepare_take(
 
 def _verify_restored_fingerprints(jobs: List[Tuple[str, Entry, Any]]) -> Tuple[int, int]:
     """``restore(verify_device=True)``: recompute each restored array's
-    (or shard box's) fingerprint where the manifest recorded one — every
-    kernel dispatched first, then one fetch per device — and compare. The
-    storage checksum guards storage → host; this closes host → device.
+    (or shard box's) fingerprint where the manifest recorded one — one K4
+    launch per device for the batch, then one fetch per device — and
+    compare. The storage checksum guards storage → host; this closes
+    host → device.
 
     A mismatch of a 4-byte dtype raises. For other widths it only warns:
     a fingerprint the JAX package recorded on another platform may pack
@@ -2063,10 +2064,16 @@ def _verify_restored_fingerprints(jobs: List[Tuple[str, Entry, Any]]) -> Tuple[i
     ``_last_verify_stats``."""
     global _last_verify_stats
     from .chunkstore import entry_is_lossy
-    from .fingerprint import fingerprint_device_async, fingerprint_host, resolve_fingerprints
+    from .fingerprint import (
+        fingerprint_device_async,
+        fingerprint_device_many_async,
+        fingerprint_host,
+        resolve_fingerprints,
+    )
     from .serialization import dtype_itemsize
 
     pending: List[Tuple[str, str, Any]] = []
+    on_card: List[Tuple[int, torch.Tensor, Any]] = []  # (index in pending, tensor, slices)
     skipped = 0
     dtypes: Dict[str, str] = {}
     for path, entry, value in jobs:
@@ -2087,8 +2094,8 @@ def _verify_restored_fingerprints(jobs: List[Tuple[str, Entry, Any]]) -> Tuple[i
                 skipped += 1
                 continue
             if isinstance(data, torch.Tensor) and data.is_cuda:
-                # On the card a kernel that fails to build or launch fails the restore.
-                pending.append((path, expected, fingerprint_device_async(data, slices)))
+                on_card.append((len(pending), data, slices))
+                pending.append((path, expected, None))
                 continue
             try:
                 if isinstance(data, torch.Tensor):
@@ -2099,6 +2106,12 @@ def _verify_restored_fingerprints(jobs: List[Tuple[str, Entry, Any]]) -> Tuple[i
             except Exception as e:
                 logger.warning(f"verify_device: cannot fingerprint {path}: {e!r}; skipping")
                 skipped += 1
+    if on_card:
+        # One K4 launch per device; a kernel that fails to build or launch
+        # fails the restore.
+        results = fingerprint_device_many_async([(data, slices) for _, data, slices in on_card])
+        for (i, _, _), r in zip(on_card, results):
+            pending[i] = pending[i][:2] + (r,)
     device_idxs = [i for i, (_, _, r) in enumerate(pending) if not isinstance(r, str)]
     actuals = dict(zip(device_idxs, resolve_fingerprints([pending[i][2] for i in device_idxs])))
     verified = 0
