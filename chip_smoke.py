@@ -89,13 +89,29 @@ Phases, each printing JSON lines to stdout:
    ``copy_to`` from it raises and leaves no metadata), and the inspect CLI
    in a subprocess (``--verify``: exit 1 naming the object; ``--diff``:
    exit 1 with the changed leaves).
+6e. telemetry — on the same model (after api): a K1 forward, four takes
+   with fingerprints in turns untraced, traced, traced, untraced (the
+   first traced one with a restore in place, also traced), a bit-identical
+   forward, an unchanged incremental take (K4 once, no payload), and a
+   one-layer restore of it under ``mem_pressure("staging_pool", 1 MiB)``.
+   Gates: ``.report.json``, whose rank bytes sum to the payload on disk
+   and whose storage writes equal the objects the take left; the trace
+   (one take root, one restore root, every span under its root's trace
+   id, a write span per payload object); ``summarize``, ``inspect
+   --report`` and ``--doctor`` (their ``main`` in-process; the doctor's findings
+   printed); the restore report's pool high-water within its cap; and
+   ``--doctor`` exiting 1 with ``host-memory-overcommit`` under the
+   fault. It prints each side's take seconds, their median and spread,
+   the trace's bytes and spans, and the report and ledger write
+   seconds, beside ``nvidia-smi``'s name and power limit.
 6b. torn leaf — a copy of a small chunked snapshot with one corrupt
    chunk, then an injected failure of an H2D pipeline transfer, then a
    20 MiB single-object leaf (two staging-slot transfers) whose second
    transfer fails, each restored into a CUDA template of other values:
    all raise and leave the template bit-equal to its old values; the
    retries are bit-exact.
-6d. faults — faultline at the same width, on the same model (after api):
+6d. faults — faultline at the same width, on the same model (after
+   telemetry):
    the op boundaries of one fault-free cycle of a
    ``CheckpointManager(max_to_keep=1, chunks=True)`` (one layer changed
    in place, the next step saved, the step before pruned with chunk GC)
@@ -111,6 +127,7 @@ Phases, each printing JSON lines to stdout:
    write of an unchunked take (completed through the retry policy,
    restored byte-equal), and a world-2 gloo take with rank 1's publishes
    muted (rank 0's TimeoutError names rank 1 within the 20 s deadline).
+   ``FAULTS_INJECTED`` moves by exactly the 503 take's ``fault_counts()``.
 7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
    tokens, every step through the three flash kernels (48 launches each
    per step), checkpointed as a training job does through
@@ -119,7 +136,9 @@ Phases, each printing JSON lines to stdout:
    step, retention, and the restore of the latest step into a second
    model, byte-equal to the state the async save captured (its GB/s,
    consume profile and pool), and a second device-staged drain of the
-   state; the pinned blocks each save and drain created. Then one
+   state; the pinned blocks each save and drain created; ``inspect
+   --timeline`` on the manager root exits 0 with one ledger record a
+   save and the restore's. Then one
    step's gradients through the flash kernels are held against plain
    autograd of the einsum attention on a short input.
 8. multi rank — the same model at full widths and depth across ranks
@@ -136,11 +155,12 @@ Phases, each printing JSON lines to stdout:
    model on the card, byte-equal, and a forward on 4 × 1024 tokens
    through the flash kernel with logits bit-identical to those of a
    model built from the seed with the same change.
-9. ring — the flagship at GPT-2 XL's widths and depth (48 layers), f32,
+9. ring — the flagship at GPT-2 XL's widths and half its depth (24 of
+   48 layers, a cut for the time limit), f32,
    4 × 1024 tokens, trained one step by two processes
    sharing the card over gloo on a ``{"sp": 2}`` DeviceMesh: zigzag ring
    attention with flash chunks, so K1–K3 run as chunk kernels (5 chunk
-   attentions a layer a rank: 240 launches of each kernel a step). The
+   attentions a layer a rank: 120 launches of each kernel a step). The
    reference is one process's flash step on the same weights and
    tokens, run first: the ranks' losses are equal and within rtol 1e-4 of it, and the gradients
    of ``embed``, ``layers/0/attn/wq``, the last layer's ``mlp/w2`` and
@@ -150,10 +170,10 @@ Phases, each printing JSON lines to stdout:
    helpers stage CUDA tensors on a gloo group), its peak card memory,
    and the step's transport alone: the gradient all-reduce, and the
    hops (or all-to-alls) on tensors of the same sizes.
-10. ulysses — the same at gpt2-large's widths and depth (n_embd 1280,
-    20 heads, 36 layers, n_inner 5120: GPT-2 XL's 25 heads do not divide
-    by sp 2), with Ulysses all-to-all attention through the flash kernels
-    (36 launches of each a step).
+10. ulysses — the same at gpt2-large's widths and half its depth
+    (n_embd 1280, 20 heads, 18 of 36 layers, n_inner 5120: GPT-2 XL's 25
+    heads do not divide by sp 2), with Ulysses all-to-all attention
+    through the flash kernels (18 launches of each a step).
 11. dlrm — DLRM at the Criteo Kaggle widths of facebookresearch/dlrm's
     bench/dlrm_s_criteo_kaggle.sh (embedding 16, bottom MLP
     13-512-256-64-16, top 367-512-256-1, batch 128, lr 0.1) with the 26
@@ -195,6 +215,7 @@ passes over the same bytes give bit-identical logits. The train path
 claims no bit-identity and turns them off.
 """
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -204,6 +225,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -223,6 +245,8 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
     StateDict,
 )
 from torchsnapshot_tpu_torch import dryrun, io_preparer, staging_pool  # noqa: E402
+from torchsnapshot_tpu_torch import telemetry  # noqa: E402
+from torchsnapshot_tpu_torch.telemetry import metrics as metric_names  # noqa: E402
 from torchsnapshot_tpu_torch.io_types import io_payload  # noqa: E402
 from torchsnapshot_tpu_torch import snapshot as snapshot_mod  # noqa: E402
 from torchsnapshot_tpu_torch.manifest import ArrayEntry, ShardedArrayEntry  # noqa: E402
@@ -906,11 +930,17 @@ def phase_kernel_fingerprint():
     return record
 
 
+# The telemetry objects a take or restore writes and reads beside its
+# payloads: flight reports, progress records and the ledger.
+TELEMETRY_PREFIXES = (".report", ".progress", ".telemetry")
+
+
 class _TakeMeter:
     """What one take moved: payload bytes written and objects stored
-    (chunk objects apart), bytes copied device→host, the device time of
-    the fingerprint kernels it launched (CUDA events around each batched
-    launch), their launches and the leaves they fingerprinted."""
+    (chunk objects and telemetry objects apart), bytes copied
+    device→host, the device time of the fingerprint kernels it launched
+    (CUDA events around each batched launch), their launches and the
+    leaves they fingerprinted."""
 
     def __init__(self):
         from torchsnapshot_tpu_torch import chunkstore
@@ -933,6 +963,8 @@ class _TakeMeter:
             if "objects/" in io_req.path:
                 meter.chunk_objects += 1
                 meter.chunk_bytes += n
+            elif io_req.path.startswith(TELEMETRY_PREFIXES):
+                meter.telemetry_objects += 1
             elif not io_req.path.startswith((".snapshot_metadata", ".completed", "refs/", "intents/")):
                 meter.payload_bytes += n
                 meter.payload_objects += 1
@@ -955,7 +987,7 @@ class _TakeMeter:
 
     def reset(self):
         self.payload_bytes = self.payload_objects = self.chunk_objects = 0
-        self.chunk_bytes = self.d2h_bytes = 0
+        self.chunk_bytes = self.d2h_bytes = self.telemetry_objects = 0
         self.events = []
 
     def __enter__(self):
@@ -983,6 +1015,7 @@ class _TakeMeter:
             "seconds": seconds, "payload_bytes_written": self.payload_bytes,
             "payload_objects_written": self.payload_objects, "chunk_objects_stored": self.chunk_objects,
             "chunk_bytes_stored": self.chunk_bytes, "d2h_bytes": self.d2h_bytes,
+            "telemetry_objects_written": self.telemetry_objects,
             "k4_ms": kernel_ms["xs128_box"], "k5_ms": kernel_ms["xs128_chunked"],
             "k4_launches": sum(n == "xs128_box" for n, _, _ in self.events),
             "k5_launches": sum(n == "xs128_chunked" for n, _, _ in self.events),
@@ -1183,7 +1216,9 @@ def phase_dedup(model, tokens):
 
 class _ReadMeter:
     """What the fs plugin read, by the same wrapping as ``_TakeMeter``'s
-    of its write: the metadata documents apart, payload bytes and reads."""
+    of its write: payload bytes and reads, with the metadata documents
+    and the telemetry objects (a restore reads the ledger it appends to)
+    apart."""
 
     def __init__(self):
         self._orig = fs_plugin.FSStoragePlugin.read
@@ -1191,6 +1226,7 @@ class _ReadMeter:
 
     def reset(self):
         self.metadata_bytes = self.payload_bytes = self.payload_reads = 0
+        self.telemetry_bytes = 0
 
     def __enter__(self):
         meter, read = self, self._orig
@@ -1200,6 +1236,8 @@ class _ReadMeter:
             n = len(io_payload(io_req))
             if io_req.path == ".snapshot_metadata":
                 meter.metadata_bytes += n
+            elif io_req.path.startswith(TELEMETRY_PREFIXES):
+                meter.telemetry_bytes += n
             else:
                 meter.payload_bytes += n
                 meter.payload_reads += 1
@@ -2032,6 +2070,16 @@ def phase_train():
         Snapshot.async_take(os.path.join(workdir, "drain2"), app, stage="device").wait()
         record["second_drain_s"] = time.perf_counter() - begin
         record["pinned_blocks_created_drain2"] = _pinned_delta(pinned)
+        # The manager root's ledger: one record a save (and the restore's).
+        from torchsnapshot_tpu_torch.telemetry import ledger as runledger
+
+        rc, lines, err = _telemetry_cli("torchsnapshot_tpu_torch.inspect", os.path.join(workdir, "run"),
+                                        "--timeline")
+        ledger_records, _ = runledger.read_records(os.path.join(workdir, "run"))
+        record["timeline"] = {"rc": rc, "lines": lines, "stderr": err if rc else "",
+                              "records": [(r.get("kind"), r.get("step")) for r in ledger_records]}
+        if rc != 0 or record["timeline"]["records"] != [("take", 1), ("async_take", 2), ("restore", 2)]:
+            raise AssertionError(f"inspect --timeline on the manager root: {record['timeline']}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2319,9 +2367,11 @@ SP_RANK_TIMEOUT_S = 600.0
 # sp 2, as Ulysses needs; GPT-2 XL's 25 do not.
 GPT2_LARGE = dataclasses.replace(GPT2_XL, d_model=1280, n_heads=20, n_layers=36, d_ff=5120)
 # (phase, config, ring_attention mode, chunk attentions a layer a rank).
+# Published widths at half their depth (24 and 18 layers), so the whole
+# script keeps its time limit with the faults phase at full depth.
 SP_PHASES = {
-    "ring": (GPT2_XL, "zigzag", 5),
-    "ulysses": (GPT2_LARGE, "ulysses", 1),
+    "ring": (dataclasses.replace(GPT2_XL, n_layers=24), "zigzag", 5),
+    "ulysses": (dataclasses.replace(GPT2_LARGE, n_layers=18), "ulysses", 1),
 }
 
 
@@ -2423,7 +2473,7 @@ def sp_rank(rank, world, phase, workdir):
 
 
 def phase_seq_parallel(phase):
-    """The flagship at the phase's published widths and depth (SP_PHASES),
+    """The flagship at the phase's published widths and half depth (SP_PHASES),
     f32, 4 × 1024 tokens: the reference is one process's flash step on
     the same weights and tokens (run first and freed, so the ranks get
     the card to themselves); then two ranks train one step over
@@ -3173,6 +3223,260 @@ def phase_dryrun():
     return record
 
 
+def _telemetry_cli(module, *argv):
+    """A telemetry CLI's ``main(argv)`` in this process (the api phase
+    runs the inspect CLI as a subprocess already; a fresh interpreter
+    costs seconds): (exit code, stdout lines, stderr's tail)."""
+    import io
+
+    main = importlib.import_module(module).main
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(list(argv))
+    return rc, out.getvalue().splitlines(), err.getvalue()[-2000:]
+
+
+def phase_telemetry(model, tokens, smi):
+    """Tracing and the telemetry core at GPT-2 XL widths (387 leaves,
+    6.23 GB f32), on the main path's model: a K1 forward, four takes
+    with fingerprints in turns untraced, traced, traced, untraced (the
+    cost of tracing: each side's median and spread), the first traced
+    take with a traced restore in place, a bit-identical
+    forward, an unchanged incremental take (K4, no payload written), and
+    a partial restore of one layer of it under a ``mem_pressure`` fault
+    that shrinks the staging pool's reported cap. Gates: the committed
+    ``.report.json``, its per-rank bytes against the payload on disk and
+    its storage writes against the objects the take left; the trace (one
+    ``Snapshot.take`` and one ``Snapshot.restore`` root, every span under
+    its root's trace id, one write span a payload object); the summary,
+    ``inspect --report`` and ``--doctor`` CLIs (their ``main`` in this
+    process); the restore report's pool
+    high-water within its cap; the doctor naming
+    ``host-memory-overcommit`` under the fault."""
+    from torchsnapshot_tpu_torch import faultline as fl
+    from torchsnapshot_tpu_torch import tracing
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+    from torchsnapshot_tpu_torch.telemetry import ledger as runledger
+    from torchsnapshot_tpu_torch.telemetry import memwatch
+    from torchsnapshot_tpu_torch.telemetry import report as flight
+
+    phase_begin = time.perf_counter()
+    cfg = GPT2_XL
+    leaves = list(tf.param_leaves(model.params()))
+    n = len(leaves)
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_telemetry-")
+    app = {"model": tf.TransformerState(model)}
+    free = shutil.disk_usage(workdir).free
+    if free < 2.2 * state_bytes:
+        shutil.rmtree(workdir)
+        raise RuntimeError(f"{workdir} has {free} bytes free; the telemetry phase needs {2.2 * state_bytes:.0f}")
+    full, changed = os.path.join(workdir, "full"), os.path.join(workdir, "changed")
+    scratch = os.path.join(workdir, "scratch")
+    trace = os.path.join(workdir, "trace.json")
+    record = {"phase": "telemetry", "nvidia_smi": smi, "model": "GPT-2 XL widths, f32", "leaves": n,
+              "state_bytes": state_bytes}
+    writes = {"report_s": 0.0, "reports": 0, "ledger_s": 0.0, "ledger_appends": 0}
+    awrite_json, append = flight.awrite_json, runledger.append_for_snapshot
+
+    async def timed_awrite_json(storage, path, doc):
+        begin = time.perf_counter()
+        try:
+            return await awrite_json(storage, path, doc)
+        finally:
+            writes["report_s"] += time.perf_counter() - begin
+            writes["reports"] += 1
+
+    def timed_append(path, rec):
+        begin = time.perf_counter()
+        try:
+            return append(path, rec)
+        finally:
+            writes["ledger_s"] += time.perf_counter() - begin
+            writes["ledger_appends"] += 1
+
+    def logits():
+        with torch.no_grad():
+            out = model(tokens)
+        torch.cuda.synchronize()
+        return out
+
+    def take_seconds(path, trace_path=None):
+        """One take of the state with fingerprints, tracing on where
+        ``trace_path`` is given: (its snapshot, its seconds). The trace
+        stays enabled for the caller to flush."""
+        if trace_path is not None:
+            tracing.enable(trace_path)
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        snap = Snapshot.take(path, app, fingerprint=True)
+        torch.cuda.synchronize()
+        return snap, time.perf_counter() - begin
+
+    try:
+        _reset_launch_counts()  # the telemetry path's counts start here
+        before = logits()
+        # The cost of tracing: takes of the same state untraced (U) and
+        # traced (T) in turns U, T, T, U, so drift in the machine's
+        # write rate falls on both sides alike. The first T is the gated
+        # take, traced with its restore; the other takes go to a scratch
+        # directory removed after each.
+        takes = {"untraced_s": [], "traced_s": []}
+        _, seconds = take_seconds(scratch)
+        takes["untraced_s"].append(seconds)
+        shutil.rmtree(scratch)
+        with _patched(flight, "awrite_json", timed_awrite_json), \
+                _patched(runledger, "append_for_snapshot", timed_append):
+            try:
+                base, seconds = take_seconds(full, trace)
+                takes["traced_s"].append(seconds)
+                # What the take left, before the restore and the
+                # incremental take add their own objects.
+                files = [os.path.relpath(os.path.join(d, f), full) for d, _, fs in os.walk(full) for f in fs]
+                begin = time.perf_counter()
+                Snapshot(full).restore(app)
+                torch.cuda.synchronize()
+                record["restore_traced_s"] = time.perf_counter() - begin
+            finally:
+                begin = time.perf_counter()
+                tracing.flush()
+                record["trace_flush_s"] = time.perf_counter() - begin
+                tracing.disable()
+        record.update(writes)
+        try:
+            _, seconds = take_seconds(scratch, os.path.join(workdir, "trace_second.json"))
+            takes["traced_s"].append(seconds)
+        finally:
+            tracing.disable()
+        shutil.rmtree(scratch)
+        _, seconds = take_seconds(scratch)
+        takes["untraced_s"].append(seconds)
+        shutil.rmtree(scratch)
+        for side in ("untraced_s", "traced_s"):
+            times = takes[side]
+            takes[side.replace("_s", "_median_s")] = statistics.median(times)
+            takes[side.replace("_s", "_spread_s")] = max(times) - min(times)
+        takes["order"] = "untraced, traced, traced, untraced"
+        record["take_cost"] = takes
+        record["forward_bit_identical"] = bool(torch.equal(logits(), before))
+        counts = _fp_counts()
+        with _TakeMeter() as meter:
+            meter.take(record, "incremental_unchanged", lambda: Snapshot.take(changed, app, base=base))
+        record["incremental_unchanged"].update(_fp_delta(counts, "k4"))
+
+        payload = [f for f in files if not f.startswith(".")]
+        record["objects"] = sorted(f for f in files if f.startswith("."))
+        record["payload_objects"] = len(payload)
+        record["payload_bytes_on_disk"] = sum(os.path.getsize(os.path.join(full, f)) for f in payload)
+        with open(os.path.join(full, flight.REPORT_FNAME)) as f:
+            report = json.load(f)
+        with open(os.path.join(full, flight.RESTORE_REPORT_FNAME)) as f:
+            restore_report = json.load(f)
+        rank0 = report["ranks"][0]
+        record["report"] = {"kind": report["kind"], "world_size": report["world_size"],
+                            "rank_bytes": [r["bytes"] for r in report["ranks"]],
+                            "storage_ops": rank0["storage_ops"], "phases": rank0["phases"],
+                            "memory_domains": sorted((rank0.get("memory") or {}).get("domains", {}))}
+        pool = ((restore_report["ranks"][0].get("memory") or {}).get("domains") or {}).get("staging_pool")
+        record["restore_report"] = {"phases": restore_report["ranks"][0]["phases"], "staging_pool": pool,
+                                    "consume_profile": restore_report["ranks"][0].get("consume_profile")}
+
+        with open(trace) as f:
+            doc = json.load(f)
+        events = doc["traceEvents"]
+        spans = [e for e in events if e.get("ph") == "b"]
+        roots = {e["name"]: e["args"].get("trace") for e in spans
+                 if e["name"] in ("Snapshot.take", "Snapshot.restore")}
+        record["trace"] = {
+            "bytes": os.path.getsize(trace), "events": len(events), "spans": len(spans),
+            "roots": sorted(e["name"] for e in spans if e["name"].startswith("Snapshot.")
+                            and e["name"] in ("Snapshot.take", "Snapshot.restore")),
+            "spans_by_name": dict(collections.Counter(e["name"] for e in spans)),
+            "untraced_spans": sum(1 for e in spans if e["args"].get("trace") not in roots.values()),
+            "write_spans_of_take": sum(1 for e in spans if e["name"] == "write"
+                                       and e["args"].get("trace") == roots.get("Snapshot.take")),
+        }
+        rc, lines, err = _telemetry_cli("torchsnapshot_tpu_torch.telemetry.summarize", trace)
+        record["cli_summarize"] = {"rc": rc, "lines": lines[:12], "stderr": err if rc else ""}
+        rc, lines, err = _telemetry_cli("torchsnapshot_tpu_torch.inspect", full, "--report")
+        record["cli_report"] = {"rc": rc, "lines": len(lines), "stderr": err if rc else ""}
+        rc, lines, err = _telemetry_cli("torchsnapshot_tpu_torch.inspect", full, "--doctor")
+        record["cli_doctor"] = {"rc": rc, "findings": [ln for ln in lines if ln.startswith("[")],
+                                "stderr": err if rc not in (0, 1) else ""}
+
+        # The mem_pressure fault: a partial restore of one layer of the
+        # incremental snapshot, the pool's reported cap shrunk to 1 MiB at
+        # its first payload read.
+        fresh = tf.Transformer.init(cfg, seed=1)
+        sched = fl.FaultSchedule().mem_pressure("staging_pool", 1 << 20, op="read",
+                                                 path="*model/layers/0/*")
+        try:
+            with fl.inject(sched) as ctl:
+                Snapshot(changed).restore({"model": tf.TransformerState(fresh)},
+                                          paths=["model/layers/0/**"])
+            torch.cuda.synchronize()
+        finally:
+            memwatch.clear_cap_overrides()
+        record["mem_pressure_faults"] = ctl.fault_counts()
+        rc, lines, err = _telemetry_cli("torchsnapshot_tpu_torch.inspect", changed, "--doctor")
+        record["cli_doctor_mem_pressure"] = {"rc": rc, "findings": [ln for ln in lines if ln.startswith("[")],
+                                             "stderr": err if rc not in (0, 1) else ""}
+        del fresh
+        record["launches"] = {"flash_fwd": attention.flash_forward_launches,
+                              "xs128_box": fops.fingerprint_box_launches}
+        record["segments"] = {"xs128_box": fops.fingerprint_box_segments}
+    finally:
+        tracing.disable()
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - phase_begin
+    emit(record)
+    for finding in record["cli_doctor"]["findings"] + record["cli_doctor_mem_pressure"]["findings"]:
+        print(f"telemetry: doctor {finding}", flush=True)
+    cost = record["take_cost"]
+    print(f"telemetry: take untraced median {cost['untraced_median_s']:.3f} s "
+          f"({', '.join(f'{t:.3f}' for t in cost['untraced_s'])}), traced median "
+          f"{cost['traced_median_s']:.3f} s ({', '.join(f'{t:.3f}' for t in cost['traced_s'])}), "
+          f"in turns U, T, T, U; "
+          f"trace {record['trace']['bytes']} bytes, {record['trace']['spans']} spans; report writes "
+          f"{record['report_s']:.4f} s, ledger appends {record['ledger_s']:.4f} s ({smi})", flush=True)
+    fs_writes = record["report"]["storage_ops"].get("fs/write", {})
+    inc = record["incremental_unchanged"]
+    gates = {
+        ".report.json exists": ".report.json" in record["objects"],
+        "the rank reports' bytes sum to the payload on disk":
+            sum(record["report"]["rank_bytes"]) == record["payload_bytes_on_disk"] == state_bytes,
+        # The summaries are gathered after the metadata write and before
+        # the report and the ledger record are written.
+        "the report's storage writes equal the objects the take left":
+            fs_writes.get("count") == record["payload_objects"] + len(record["objects"]) - 2
+            and record["objects"] == [".report.json", ".snapshot_metadata", ".telemetry/ledger.jsonl"],
+        "the trace has one take root and one restore root":
+            record["trace"]["roots"] == ["Snapshot.restore", "Snapshot.take"],
+        "every span carries its root's trace id": record["trace"]["untraced_spans"] == 0
+        and len(set(roots.values())) == 2,
+        "the take's write spans equal the objects it wrote":
+            record["trace"]["write_spans_of_take"] == record["payload_objects"] == n,
+        "summarize reads the trace": record["cli_summarize"]["rc"] == 0,
+        "inspect --report exits 0": record["cli_report"]["rc"] == 0,
+        "inspect --doctor exits 0 or 1": record["cli_doctor"]["rc"] in (0, 1),
+        "the restore report shows the pool's high-water within its cap": pool is not None
+        and 0 < pool["high_water_bytes"] <= pool["cap_bytes"],
+        "mem_pressure makes --doctor exit 1 with host-memory-overcommit":
+            record["cli_doctor_mem_pressure"]["rc"] == 1
+            and any("host-memory-overcommit" in ln for ln in record["cli_doctor_mem_pressure"]["findings"])
+            and record["mem_pressure_faults"] == {"mem_pressure": 1},
+        "the traced restore keeps the forward bit-identical": record["forward_bit_identical"],
+        "the unchanged incremental take writes no payload and launches K4 once over every leaf":
+            inc["payload_bytes_written"] == 0 and inc["k4_launches"] == 1 and inc["k4_segments"] == n,
+        # K4 once a take: the four timed takes and the incremental one.
+        "K1 and K4 ran on the path": record["launches"]["flash_fwd"] == 2 * cfg.n_layers
+        and record["launches"]["xs128_box"] == 5 and record["segments"]["xs128_box"] == 5 * n,
+    }
+    _hold("telemetry", gates)
+    return record
+
+
 # The faults phase (faultline at full width) and the examples phase.
 FAULT_POINTS = 6  # crash points of the matrix: the first, the last, stride total//5 between
 FAULT_RANK_DEADLINE_S = 20.0
@@ -3520,11 +3824,15 @@ def phase_faults(model):
         for k in range(FAULT_TRANSIENT_EVERY, 10 * n, FAULT_TRANSIENT_EVERY):
             sched.transient(op="write", nth=k, times=1)
         path = os.path.join(workdir, "transient")
+        metrics_before = telemetry.snapshot()
         with _env(TPUSNAPSHOT_STORAGE_RETRY_CAP_S=0.01), fl.inject(sched) as ctl:
             begin = time.perf_counter()
             Snapshot.take(path, app)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - begin
+        counted = metric_names.samples_by_label(
+            metric_names.diff_snapshots(metrics_before, telemetry.snapshot()),
+            metric_names.FAULTS_INJECTED, "kind")
         objects = sum(len(files) for _, _, files in os.walk(path))
         with torch.no_grad():
             for t in probe_leaves:
@@ -3534,6 +3842,7 @@ def phase_faults(model):
         record["transient"] = {
             "seconds": seconds, "gbps": state_bytes / seconds / 1e9, "faults": ctl.fault_counts(),
             "objects": objects, "write_attempts": ctl.fault_counts().get("latency", 0),
+            "faults_injected_counter": {k: int(v) for k, v in counted.items()},
             "byte_equal": all(torch.equal(a, b) for a, b in zip(probe_leaves, lineage.leaves)),
         }
         shutil.rmtree(path, ignore_errors=True)
@@ -3579,6 +3888,7 @@ def phase_faults(model):
         "the transient take completed byte-equal": transient["byte_equal"],
         "each injected 503 cost one retried attempt": transient["faults"].get("transient", 0) > 0
         and transient["write_attempts"] == transient["objects"] + transient["faults"]["transient"],
+        "FAULTS_INJECTED equals fault_counts()": transient["faults_injected_counter"] == transient["faults"],
         "rank 0 names the muted rank within the deadline": "rank 1" in rank0["outcome"]
         and rank0["outcome"].startswith("TimeoutError") and rank0["seconds"] <= FAULT_RANK_DEADLINE_S + 15,
         "rank 1's publishes were dropped": record["rank_fault"]["ranks"][1]["dropped_publishes"] > 0,
@@ -3700,6 +4010,7 @@ def main():
     dedup = timed_phase("dedup", phase_dedup, model, tokens)
     ceilings = {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")}
     api = timed_phase("api", phase_api, model, tokens, ceilings)
+    telemetry_record = timed_phase("telemetry", phase_telemetry, model, tokens, smi)
     faults = timed_phase("faults", phase_faults, model)
     del model, tokens
     torch.cuda.empty_cache()
@@ -3736,6 +4047,7 @@ def main():
         "launches": train["launches"]["flash_fwd"],
         "launches_forward_path": main_path["flash_launches"],
         "launches_api_path": api["launches"]["flash_fwd"],
+        "launches_telemetry_path": telemetry_record["launches"]["flash_fwd"],
         "launches_multi_rank_path": multi_rank["flash_launches"],
         **sp_launches(0),
         "launches_dryrun_path": dryrun_ranks[0]["ring_launches"]["flash_fwd"],
@@ -3800,6 +4112,9 @@ def main():
             "segments": dedup["segments"][name],
             "launches_api_path": api["launches"][name],
             "segments_api_path": api["segments"][name],
+            **({"launches_telemetry_path": telemetry_record["launches"][name],
+                "segments_telemetry_path": telemetry_record["segments"][name]}
+               if name in telemetry_record["launches"] else {}),
             "launches_dlrm_path": dlrm_record["launches"][name],
             "segments_dlrm_path": dlrm_record["segments"][name],
             "dlrm_max_abs_err": dlrm_record["kernels_against_plain"][f"{key}_max_abs_err"],

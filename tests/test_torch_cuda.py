@@ -801,3 +801,85 @@ def test_verify_and_copy_to_of_a_cuda_snapshot_touch_no_device(cuda, tmp_path, m
     target = StateDict(w=torch.zeros_like(w))
     Snapshot(str(tmp_path / "copy")).restore({"m": target})
     assert torch.equal(target["w"], w)
+
+
+def test_traced_take_of_cuda_tensors_reports_the_manifest_bytes(cuda, tmp_path):
+    """A take and a restore of CUDA tensors with tracing on: the take's
+    report counts exactly the payload bytes on disk, the pinned pool's
+    high-water stays within its cap, and every span of each root carries
+    that root's trace id."""
+    import json
+    import os
+
+    from torchsnapshot_tpu_torch import tracing
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = {"m": StateDict(
+        w=torch.randn(1024, 1024, generator=gen, device=cuda),
+        b=torch.randn(4096, generator=gen, device=cuda).to(torch.bfloat16),
+    )}
+    path, trace = str(tmp_path / "snap"), str(tmp_path / "trace.json")
+    tracing.enable(trace)
+    try:
+        Snapshot.take(path, state)
+        target = {"m": StateDict(w=torch.zeros(1024, 1024, device=cuda),
+                                 b=torch.zeros(4096, device=cuda, dtype=torch.bfloat16))}
+        Snapshot(path).restore(target)
+    finally:
+        tracing.flush()
+        tracing.disable()
+    assert torch.equal(target["m"]["w"], state["m"]["w"])
+    payload = sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, files in os.walk(path) for f in files
+        if not os.path.relpath(os.path.join(d, f), path).startswith(".")
+    )
+    with open(os.path.join(path, ".report.json")) as f:
+        report = json.load(f)
+    assert report["totals"]["bytes"] == payload == 1024 * 1024 * 4 + 4096 * 2
+    with open(os.path.join(path, ".report.restore.json")) as f:
+        restore = json.load(f)
+    pool = restore["ranks"][0]["memory"]["domains"].get("staging_pool")
+    if pool is not None:
+        assert pool["high_water_bytes"] <= pool["cap_bytes"]
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "b"]
+    roots = [e for e in events if e["name"] in ("Snapshot.take", "Snapshot.restore")]
+    assert sorted(e["name"] for e in roots) == ["Snapshot.restore", "Snapshot.take"]
+    ids = {e["args"]["trace"] for e in roots}
+    assert len(ids) == 2 and {e["args"].get("trace") for e in events} == ids
+    assert sum(1 for e in events if e["name"] == "write") == 2
+
+
+def test_restore_report_probes_h2d_without_a_device_wide_synchronize(cuda, tmp_path, monkeypatch):
+    """The restore report's once-a-process H2D probe runs inside the
+    restore: it times its own copies and never synchronizes the whole
+    device, so a restore makes no ``torch.cuda.synchronize`` call."""
+    import json
+    import os
+
+    from torchsnapshot_tpu_torch.ops import transfer
+
+    monkeypatch.setenv("TPUSNAPSHOT_H2D_PROBE_MIN_BYTES", "0")
+    monkeypatch.setenv("TPUSNAPSHOT_H2D_PROBE_BYTES", str(40 << 20))
+    monkeypatch.setattr(transfer, "_report_probe", [])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn(2048, 1024, generator=gen, device=cuda)
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(w=w)})
+    target = {"m": StateDict(w=torch.zeros_like(w))}
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    Snapshot(path).restore(target)
+    monkeypatch.setattr(torch.cuda, "synchronize", real)
+    assert calls == []
+    assert torch.equal(target["m"]["w"], w)
+    with open(os.path.join(path, ".report.restore.json")) as f:
+        profile = json.load(f)["ranks"][0]["consume_profile"]
+    assert profile["h2d_probe_gbps"] > 0 and transfer._report_probe[0] > 0

@@ -2,13 +2,13 @@
 plugin, scriptable schedules, the three storage seams (the plugin wrap
 hook under the retry layer, the storage-op hooks, the fs sub-steps),
 torn writes, latency, stale-tmp cleanup, and rank faults for the
-coordinator's collectives. 18 of the 19 tests of ``tests/test_faultline.py``;
-``test_injected_faults_emit_trace_instants`` waits on the port of tracing
-and telemetry (ROADMAP Queue 1 item 8).
+coordinator's collectives: the 19 tests of ``tests/test_faultline.py``,
+and ``test_snapmem.py::test_mem_pressure_fault_trips_overcommit``.
 
 Added here: the same manager cycle gives the same storage-op stream in
-both packages, and every rule whose subsystem the port lacks raises
-``NotImplementedError`` naming its ROADMAP item."""
+both packages, telemetry objects included; ``FAULTS_INJECTED`` moves by
+exactly ``fault_counts()`` in both; and every rule whose subsystem the
+port lacks raises ``NotImplementedError`` naming its ROADMAP item."""
 
 import asyncio
 import collections
@@ -454,7 +454,6 @@ _UNPORTED = {
     "kill_fleet_member": (("m1",), "item 10"),
     "slow_fleet_member": (("m1",), "item 10"),
     "slow_server": ((), "item 10"),
-    "mem_pressure": (("staging_pool", 1), "item 8"),
 }
 
 
@@ -473,7 +472,7 @@ def test_unported_rule_raises_naming_its_item(builder):
 
 @pytest.mark.parametrize(
     "kind", ["hostloss", "flap", "drop_conn", "torn_frame", "slow_wire",
-             "killserver", "killmember", "slowmember", "mem_pressure"]
+             "killserver", "killmember", "slowmember"]
 )
 def test_unported_rule_kind_cannot_be_constructed(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
@@ -501,17 +500,11 @@ def _op_stream(faultline, scenario):
 
 
 def _comparable(ops):
-    """The op multiset without the JAX package's telemetry: its flight
-    reports (``.report.json``) and ledger (``.telemetry/``), which the
-    port does not write yet (ROADMAP Queue 1 item 8). Each ledger append
-    opens a plugin of its own, so one ``close`` goes with it. A take's
-    completion markers carry its random nonce, which is masked."""
+    """The op multiset, telemetry included (the flight reports and the
+    ledger's reads and appends). A take's completion markers carry its
+    random nonce, which is masked."""
     out = collections.Counter()
     for op, path in ops:
-        if path.startswith(".telemetry") or path.endswith(".report.json"):
-            if (op, path) == ("write", ".telemetry/ledger.jsonl"):
-                out[("close", "")] -= 1
-            continue
         out[(op, re.sub(r"^\.completed/[0-9a-f]{32}/", ".completed/<nonce>/", path))] += 1
     return out
 
@@ -519,8 +512,8 @@ def _comparable(ops):
 def test_manager_cycle_op_stream_matches_jax(tmp_path, monkeypatch):
     """The same cycle (three saves with ``max_to_keep=1``, each pruning
     the step before) over the same shapes gives the same multiset of
-    storage ops, sub-steps included, in both packages once the JAX
-    package's telemetry is set aside (``_comparable``)."""
+    storage ops, sub-steps and telemetry objects included, in both
+    packages (``_comparable``)."""
     monkeypatch.setenv("TPUSNAPSHOT_SWEEP_MIN_AGE_S", "0")
     w = np.arange(16, dtype=np.float32).reshape(4, 4)
 
@@ -580,3 +573,98 @@ def test_crash_in_an_async_take_surfaces_from_wait(tmp_path):
         with pytest.raises(fl.SimulatedCrash):
             pending.wait()
     assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+
+
+# ------------------------------------------------ fault telemetry
+
+
+def test_injected_faults_emit_trace_instants(tmp_path, monkeypatch):
+    """Every injected fault lands in the trace beside the retry layer's
+    storage_retry instants (the JAX package's case of the same name)."""
+    from torchsnapshot_tpu_torch import tracing
+    from torchsnapshot_tpu_torch.storage_plugin import RetryingStoragePlugin
+
+    monkeypatch.setenv("TPUSNAPSHOT_STORAGE_RETRIES", "3")
+    monkeypatch.setattr("torchsnapshot_tpu_torch.io_types._RETRY_BACKOFF_INITIAL_S", 0.001)
+    trace_path = str(tmp_path / "trace.json")
+    tracing.enable(trace_path)
+    try:
+        sched = fl.FaultSchedule().transient(op="write", path="obj", times=2)
+        with fl.inject(sched) as ctl:
+            plugin = RetryingStoragePlugin(fl.FaultPlugin(MemoryStoragePlugin(), ctl))
+            asyncio.run(plugin.write(IOReq(path="obj", data=b"x")))
+    finally:
+        tracing.flush()
+        tracing.disable()
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    faults = [e for e in events if e["name"] == "fault_injected"]
+    retries = [e for e in events if e["name"] == "storage_retry"]
+    assert len(faults) == 2
+    assert {f["args"]["kind"] for f in faults} == {"transient"}
+    assert {f["args"]["op"] for f in faults} == {"write"}
+    assert all("op_index" in f["args"] for f in faults)
+    assert len(retries) == 2
+    assert all(r["args"]["error"] == "InjectedTransientError" for r in retries)
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_faults_injected_counter_equals_fault_counts(tmp_path, monkeypatch, pkg):
+    """``FAULTS_INJECTED{kind}`` moves by exactly ``fault_counts()`` over a
+    save with transients, latency and a torn write, in both packages,
+    and a take's flight report carries the same counts."""
+    monkeypatch.setenv("TPUSNAPSHOT_STORAGE_RETRIES", "4")
+    if pkg == "port":
+        from torchsnapshot_tpu_torch import telemetry
+        from torchsnapshot_tpu_torch.telemetry import metrics as mn
+
+        monkeypatch.setattr("torchsnapshot_tpu_torch.io_types._RETRY_BACKOFF_INITIAL_S", 0.001)
+        faultline, snap, state = fl, Snapshot, {"s": StateDict(w=torch.arange(64.0))}
+    else:
+        from torchsnapshot_tpu import telemetry
+        from torchsnapshot_tpu.telemetry import metrics as mn
+
+        monkeypatch.setattr("torchsnapshot_tpu.io_types._RETRY_BACKOFF_INITIAL_S", 0.001)
+        faultline, snap = jfl, jsnap.Snapshot
+        state = {"s": jsnap.StateDict(w=jnp.arange(64.0))}
+    sched = (
+        faultline.FaultSchedule()
+        .transient(op="write", path="0/s/w", times=2)
+        .latency(op="fs.write.tmp", path="*", seconds=0.0, times=3)
+    )
+    before = telemetry.snapshot()
+    with faultline.inject(sched) as ctl:
+        snap.take(str(tmp_path / "snap"), state)
+    delta = mn.diff_snapshots(before, telemetry.snapshot())
+    counted = mn.samples_by_label(delta, mn.FAULTS_INJECTED, "kind")
+    assert ctl.fault_counts() == {"transient": 2, "latency": 3}
+    assert {k: int(v) for k, v in counted.items()} == ctl.fault_counts()
+
+
+def test_mem_pressure_fault_trips_overcommit():
+    """The JAX package's ``test_snapmem.py`` case of the same name: the
+    rule shrinks a domain's reported cap at its op, and the doctor's
+    ``host-memory-overcommit`` rule names the domain."""
+    from torchsnapshot_tpu_torch.faultline.schedule import FaultController, FaultSchedule
+    from torchsnapshot_tpu_torch.telemetry import doctor, memwatch
+
+    memwatch.reset()
+    d = memwatch.register("staging_pool", cap_bytes=1 << 20)
+    try:
+        d.set_used(4096, pinned_bytes=4096)
+        ctl = FaultController(FaultSchedule().mem_pressure("staging_pool", 100))
+        assert doctor.memory_pressure_finding(memwatch.sample_block()) is None
+        ctl.on_op("write", "some/object")
+        assert memwatch.snapshot()["domains"]["staging_pool"]["cap_bytes"] == 100
+        finding = doctor.memory_pressure_finding(memwatch.sample_block(), source="test")
+        assert finding is not None
+        assert (finding.rule, finding.severity) == ("host-memory-overcommit", "critical")
+        assert finding.evidence["over_cap_domains"][0]["domain"] == "staging_pool"
+        token = memwatch.window_begin()
+        assert memwatch.reconcile(memwatch.window_collect(token)) == []
+        assert ctl.fault_counts() == {"mem_pressure": 1}
+    finally:
+        d.close()
+        memwatch.reset()

@@ -172,6 +172,30 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         CheckpointManager(crash_base, max_to_keep=1).save(2, {{"m": StateDict(w=w)}})
         CheckpointManager(crash_base).reconcile(adopt=True)
         faultline.assert_reclaimed(crash_base, [2])
+        # Telemetry: the thirteen ported modules, a traced take and
+        # restore whose reports the doctor, the timeline and the SLO
+        # engine read, memwatch's host figures without psutil.
+        from torchsnapshot_tpu_torch import tracing
+        from torchsnapshot_tpu_torch.telemetry import (
+            doctor, export, goodput, ledger, memwatch, metrics, progress, report, slo,
+            summarize, timeline,
+        )
+        import torchsnapshot_tpu_torch.telemetry as telemetry_pkg
+        trace = run + "/trace.json"
+        tracing.enable(trace)
+        tel = run + "/tel"
+        Snapshot.take(tel, {{"m": StateDict(w=w)}})
+        Snapshot(tel).restore({{"m": StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16))}})
+        tracing.flush()
+        tracing.disable()
+        assert summarize.main([trace]) == 0
+        assert inspect.main([tel, "--report"]) == 0
+        assert inspect.main([tel, "--doctor"]) in (0, 1)
+        assert inspect.main([tel, "--timeline"]) in (0, 1)
+        assert len(ledger.read_records(tel)[0]) == 2
+        assert memwatch.process_rss_bytes() is None
+        assert slo.evaluate(records=ledger.read_records(tel)[0])["findings"] is not None
+        assert goodput.has_data() and telemetry_pkg.snapshot()
         # An example script, with optax blocked too.
         import runpy
         sys.argv = ["simple_example.py", "--device", "cpu", "--work-dir", run + "/example"]

@@ -160,7 +160,10 @@ def test_partial_restore_leaves_unselected_tensors_untouched_and_reads_only_sele
     head.fill_(3.0)
     snap = Snapshot(snap_path)
     snap.restore(app, paths=["model/layers/w1", "optim/step"])
-    assert sorted(reads) == [".snapshot_metadata", "0/model/layers/w1"]
+    # Beside the selected leaf's object, the metadata and the telemetry
+    # ledger (its restore record appends to it) are read, as in the JAX
+    # package.
+    assert sorted(reads) == [".snapshot_metadata", ".telemetry/ledger.jsonl", "0/model/layers/w1"]
     assert app["model"].sd["head"] is head and torch.equal(head, torch.full((4,), 3.0))
     assert app["optim"].sd["mu"] is mu and not mu.any()
     assert app["optim"].sd["step"] == 7

@@ -30,13 +30,16 @@ def fsdp_rule(keys, leaf):
 
 
 def _count_read_bytes():
-    """Count the payload bytes this process reads through the fs plugin."""
+    """Count the bytes this process reads through the fs plugin, but not
+    the telemetry ledger (rank 0 reads it to append a restore's record,
+    as the JAX package does)."""
     counter = {"bytes": 0}
     read = fs.FSStoragePlugin._read_sync
 
     def counting(self, io_req):
         read(self, io_req)
-        counter["bytes"] += len(io_req.data)
+        if not io_req.path.startswith(".telemetry/"):
+            counter["bytes"] += len(io_req.data)
 
     fs.FSStoragePlugin._read_sync = counting
     return counter

@@ -16,8 +16,13 @@ the flagship transformer with hand-written CUDA flash-attention kernels,
 forward and backward, and the JAX package's other workloads (DLRM with
 row-sharded tables, a ResNet CNN, a synthetic DDP model). Its
 ``faultline`` injects storage and rank faults and checks crash
-consistency. Imports neither JAX nor the JAX package.
+consistency. Every take and restore writes the JAX package's telemetry
+(flight reports, progress records, the ledger; ``telemetry``) and, with
+``TPUSNAPSHOT_TRACE`` set, a Chrome trace (``tracing``). Imports neither
+JAX nor the JAX package.
 """
+
+from . import telemetry
 
 from .coord import (
     Coordinator,
@@ -53,5 +58,6 @@ __all__ = [
     "StoreCoordinator",
     "TorchStore",
     "get_coordinator",
+    "telemetry",
     "__version__",
 ]

@@ -41,6 +41,7 @@ import json
 import logging
 import os
 import threading
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set, Tuple
@@ -48,7 +49,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from . import codecs
+from . import codecs, telemetry, tracing
 from .io_preparer import ArrayBufferStager, _in_executor
 from .io_types import IOReq, StoragePlugin, WriteReq, io_payload, is_not_found_error
 from .manifest import ArrayEntry, Manifest, ShardedArrayEntry, SnapshotMetadata
@@ -57,6 +58,7 @@ from .ops.transfer import device_to_host
 from .serialization import compute_checksum, verify_checksum
 from .storage_plugin import _parent_url, encode_base_ref, resolve_base_ref, url_to_storage_plugin
 from .telemetry import consume_profile as _cprof
+from .telemetry import metrics as _metric_names
 from .utils.env import env_float, env_int
 
 logger = logging.getLogger(__name__)
@@ -125,13 +127,42 @@ class ChunkStats:
 
     chunk_hits: int = 0
     chunk_misses: int = 0
-    hit_bytes: int = 0
-    stored_bytes: int = 0
+    hit_bytes: int = 0  # logical bytes skipped by dedup
+    logical_bytes: int = 0  # logical bytes of every chunked leaf
+    written_logical_bytes: int = 0  # logical bytes of missed chunks
+    stored_bytes: int = 0  # bytes written, after the codec
+    leaf_clean_bytes: int = 0  # bytes of leaves whose chunks all hit
+    chunked_leaves: int = 0
+    codec_in_bytes: int = 0  # logical bytes through a non-identity codec
+    codec_out_bytes: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
-    def note_stored(self, stored: int) -> None:
+    def note_stored(self, logical: int, stored: int, codec: Optional[str]) -> None:
         with self._lock:
             self.stored_bytes += stored
+            if codec is not None:
+                self.codec_in_bytes += logical
+                self.codec_out_bytes += stored
+        telemetry.counter(_metric_names.CHUNKSTORE_BYTES, result="stored").inc(stored)
+        if codec is not None:
+            telemetry.counter(_metric_names.CODEC_BYTES, dir="in", codec=codec).inc(logical)
+            telemetry.counter(_metric_names.CODEC_BYTES, dir="out", codec=codec).inc(stored)
+
+    def fold_into_churn(self, note: Dict[str, Any]) -> None:
+        """Merge this pass's numbers into the rank's churn note (the
+        flight report's block that the ledger sums across ranks)."""
+        with self._lock:
+            note.update(
+                chunk_hits=self.chunk_hits,
+                chunk_misses=self.chunk_misses,
+                chunk_hit_bytes=self.hit_bytes,
+                chunk_logical_bytes=self.logical_bytes,
+                chunk_written_logical_bytes=self.written_logical_bytes,
+                chunk_stored_bytes=self.stored_bytes,
+                leaf_clean_bytes=self.leaf_clean_bytes,
+                codec_in_bytes=self.codec_in_bytes,
+                codec_out_bytes=self.codec_out_bytes,
+            )
 
 
 class StoreRouterPlugin(StoragePlugin):
@@ -209,9 +240,20 @@ class ChunkStager(ArrayBufferStager):
         self._dtype_name = dtype_name
         self._nbytes = nbytes
         self._stats = stats
+        # (seconds, stored bytes) of the codec stage, which the scheduler
+        # reports as its own "encode" op.
+        self.encode_stats: Optional[Tuple[float, int]] = None
 
     async def stage_buffer(self, executor=None):
-        return await _in_executor(executor, self._stage_sync)
+        # An executor thread's context carries no trace: carry the take's
+        # trace id across, so the encode span joins the take.
+        tid = tracing.current_trace_id()
+
+        def _stage_adopted():
+            with tracing.adopt_trace(tid):
+                return self._stage_sync()
+
+        return await _in_executor(executor, _stage_adopted)
 
     def _stage_sync(self):
         data = self._data
@@ -228,22 +270,26 @@ class ChunkStager(ArrayBufferStager):
             itemsize = host.dtype.itemsize
             payload = memoryview(bytes(host.reshape(-1).view(np.uint8)[a * itemsize : b * itemsize]))
         self._data = None
+        logical = len(payload)
         codec = self._codec
         stored: Any = payload
         if codec is not None:
+            t0 = time.monotonic()
             try:
-                stored = codecs.encode(codec, payload, self._dtype_name)
+                with tracing.span("encode", codec=codec, bytes=logical):
+                    stored = codecs.encode(codec, payload, self._dtype_name)
             except codecs.CodecUnsuitable as e:
                 # The key and path are fixed already: store identity bytes
                 # under them and record no codec; the read path's identity
                 # fallback serves them.
                 logger.warning(f"codec {codec!r} unsuitable for chunk ({e}); storing identity bytes")
                 codec, stored = None, payload
+            self.encode_stats = (time.monotonic() - t0, len(stored))
         rec = self._record
         rec["c"] = codec
         rec["sn"] = len(stored)
         rec["cs"] = compute_checksum(stored)
-        self._stats.note_stored(len(stored))
+        self._stats.note_stored(logical, len(stored), codec)
         return stored
 
     @property
@@ -520,6 +566,7 @@ def _apply_chunkstore_body(
         total_elems = nbytes // itemsize
         records: List[Dict[str, Any]] = []
         new_reqs: List[Any] = []
+        leaf_hit_bytes = 0
         for i in range(n_chunks):
             a = i * elems
             b = min(total_elems, a + elems)
@@ -531,12 +578,21 @@ def _apply_chunkstore_body(
                 # A hit: the object verifies against its key at restore.
                 stats.chunk_hits += 1
                 stats.hit_bytes += logical
+                leaf_hit_bytes += logical
+                telemetry.counter(_metric_names.CHUNKSTORE_CHUNKS, result="hit").inc()
+                telemetry.counter(_metric_names.CHUNKSTORE_BYTES, result="hit").inc(logical)
                 continue
             rec["sn"] = rec["cs"] = None
             stats.chunk_misses += 1
+            stats.written_logical_bytes += logical
             scheduled.add(key)
             stager = ChunkStager(data, (a, b), rec, codec, entry.dtype, logical, stats, entry, ready)
             new_reqs.append(WriteReq(path=stager.write_path, buffer_stager=stager))
+            telemetry.counter(_metric_names.CHUNKSTORE_CHUNKS, result="miss").inc()
+        stats.logical_bytes += nbytes
+        stats.chunked_leaves += 1
+        if leaf_hit_bytes == nbytes:
+            stats.leaf_clean_bytes += nbytes
         entry.chunks = records
         entry.base = store_idx
         entry.checksum = None
@@ -823,6 +879,7 @@ def gc_snapshot_chunks(snapshot_path: str, metadata: SnapshotMetadata) -> Dict[s
         for key in doomed:
             await _adelete_missing_ok(storage, chunk_object_path(key))
             out["freed"] += 1
+            telemetry.counter(_metric_names.CHUNKSTORE_GC, action="freed").inc()
 
     try:
         asyncio.run(_run())
@@ -882,6 +939,7 @@ def reconcile_store(base_url: str) -> Dict[str, int]:
             try:
                 await _adelete_missing_ok(storage, obj)
                 out["freed"] += 1
+                telemetry.counter(_metric_names.CHUNKSTORE_GC, action="swept").inc()
             except Exception as e:
                 logger.warning(f"chunk sweep of {obj} failed: {e!r}")
 

@@ -30,6 +30,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from . import telemetry, tracing
+
 _DEFAULT_TIMEOUT_S = 300.0
 _CHUNK = 512 * 1024  # chunk size for large values through the KV store
 # Max broadcast generations a source lets go unacked before it blocks on
@@ -290,6 +292,9 @@ class StoreCoordinator(Coordinator):
         self._store = store
         self._rank = rank
         self._world = world_size
+        # Stamp the trace identity once the rank is known, so every trace
+        # this process flushes names its rank.
+        tracing.set_identity(rank=rank)
         self._gen = 0
         self._timeout_s = timeout_s
         # (generation, key) for every key this rank wrote and has not yet
@@ -368,17 +373,25 @@ class StoreCoordinator(Coordinator):
         # One shared deadline for the whole barrier: the timeout bounds
         # the operation, not each rank's key.
         deadline = time.monotonic() + wait
-        for r in range(self._world):
-            try:
-                self._store.get(f"b/{gen}/{r}", self._remaining(deadline))
-            except TimeoutError:
-                missing = self._absent_ranks(f"b/{gen}/{{rank}}", r)
-                raise TimeoutError(
-                    f"barrier (generation {gen}) timed out after {wait:g}s: "
-                    f"{format_rank_list(missing)} never arrived (observed by "
-                    f"rank {self._rank} of {self._world}); likely crashed or "
-                    f"stuck in storage IO."
-                ) from None
+        wait_t0 = time.monotonic()
+        try:
+            for r in range(self._world):
+                try:
+                    self._store.get(f"b/{gen}/{r}", self._remaining(deadline))
+                except TimeoutError:
+                    missing = self._absent_ranks(f"b/{gen}/{{rank}}", r)
+                    raise TimeoutError(
+                        f"barrier (generation {gen}) timed out after {wait:g}s: "
+                        f"{format_rank_list(missing)} never arrived (observed by "
+                        f"rank {self._rank} of {self._world}); likely crashed or "
+                        f"stuck in storage IO."
+                    ) from None
+        finally:
+            # A barrier that times out is observed too.
+            telemetry.record_coord_wait("barrier", time.monotonic() - wait_t0)
+        # Every rank passes here only after the last one arrived, so the
+        # same generation's instants mark about one moment on every rank.
+        tracing.instant("barrier_exit", gen=gen)
         self._gc_through(gen)
 
     def all_gather_object(self, obj: Any) -> List[Any]:
@@ -386,17 +399,21 @@ class StoreCoordinator(Coordinator):
         self._set_chunked(f"ag/{gen}/{self._rank}", pickle.dumps(obj, protocol=4), gen)
         deadline = time.monotonic() + self._timeout_s
         out = []
-        for r in range(self._world):
-            try:
-                out.append(pickle.loads(self._get_chunked(f"ag/{gen}/{r}", deadline)))
-            except TimeoutError:
-                missing = self._absent_ranks(f"ag/{gen}/{{rank}}", r)
-                raise TimeoutError(
-                    f"all_gather (generation {gen}) timed out after "
-                    f"{self._timeout_s:g}s total: {format_rank_list(missing)} "
-                    f"never finished publishing (observed by rank "
-                    f"{self._rank} of {self._world})."
-                ) from None
+        wait_t0 = time.monotonic()
+        try:
+            for r in range(self._world):
+                try:
+                    out.append(pickle.loads(self._get_chunked(f"ag/{gen}/{r}", deadline)))
+                except TimeoutError:
+                    missing = self._absent_ranks(f"ag/{gen}/{{rank}}", r)
+                    raise TimeoutError(
+                        f"all_gather (generation {gen}) timed out after "
+                        f"{self._timeout_s:g}s total: {format_rank_list(missing)} "
+                        f"never finished publishing (observed by rank "
+                        f"{self._rank} of {self._world})."
+                    ) from None
+        finally:
+            telemetry.record_coord_wait("all_gather", time.monotonic() - wait_t0)
         self._gc_through(gen)
         return out
 
@@ -413,6 +430,7 @@ class StoreCoordinator(Coordinator):
             return obj
         self._prune_consumed_acks()
         deadline = time.monotonic() + self._timeout_s
+        wait_t0 = time.monotonic()
         try:
             out = pickle.loads(self._get_chunked(f"bc/{gen}", deadline))
         except TimeoutError:
@@ -422,6 +440,8 @@ class StoreCoordinator(Coordinator):
                 f"finished publishing (receiving rank {self._rank} of "
                 f"{self._world})."
             ) from None
+        finally:
+            telemetry.record_coord_wait("broadcast", time.monotonic() - wait_t0)
         # Ack after the read: the source may delete the payload keys the
         # moment all acks exist. The ack is tracked in _own_keys too, so
         # barrier/gather progress collects it if the source never

@@ -41,12 +41,8 @@ from ..snapshot import Snapshot
 from ..storage_plugin import url_to_storage_plugin
 from .plugin import inject
 from .schedule import FaultSchedule, SimulatedCrash
+from ..telemetry.ledger import LEDGER_DIR
 
-# The JAX package's telemetry ledger directory (its
-# ``telemetry/ledger.py``). The port writes no ledger yet (ROADMAP Queue 1
-# item 8), but a base the JAX package wrote holds one, and its records
-# are not leaks.
-LEDGER_DIR = ".telemetry"
 
 
 def count_storage_ops(scenario: Callable[[], None]) -> int:

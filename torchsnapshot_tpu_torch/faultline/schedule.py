@@ -25,11 +25,15 @@ Fault kinds:
 - **latency** — a sleep before the op proceeds.
 - **crash** — :class:`SimulatedCrash` from this boundary onward, forever
   (a dead process never comes back).
+- **mem_pressure** — a memwatch domain's reported cap shrinks, so the
+  doctor's ``host-memory-overcommit`` rule trips.
+
+Every injected fault bumps ``FAULTS_INJECTED{kind}`` and emits a
+``fault_injected`` trace instant.
 
 The JAX package's schedule also drives the hot tier (host loss and flap,
-the wire faults, slow drains), the read plane (server and fleet-member
-kills, slow servers) and the memory plane (``mem_pressure``). Those
-subsystems are not ported yet, so their builders raise
+the wire faults, slow drains) and the read plane (server and fleet-member
+kills, slow servers). Those subsystems are not ported yet, so their builders raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, and a
 :class:`FaultRule` of such a kind cannot be constructed: a rule whose
 boundary nothing emits would never fire, silently.
@@ -45,7 +49,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
-_ITEM_8 = "telemetry's memory plane, memwatch (ROADMAP Queue 1 item 8)"
+from .. import telemetry, tracing
+from ..telemetry import metrics as _metric_names
+
 _ITEM_9 = "the hot tier and its wire (ROADMAP Queue 1 item 9)"
 _ITEM_10 = "the snapserve read plane (ROADMAP Queue 1 item 10)"
 
@@ -60,7 +66,6 @@ _UNPORTED_KINDS: Dict[str, str] = {
     "killserver": _ITEM_10,
     "killmember": _ITEM_10,
     "slowmember": _ITEM_10,
-    "mem_pressure": _ITEM_8,
 }
 
 
@@ -122,7 +127,7 @@ class FaultRule:
     matching ``(op, path)`` globs (1-based; ``times=None`` = forever)."""
 
     kind: str  # "transient" | "permanent" | "error" | "torn" | "latency"
-    #          | "crash"
+    #          | "crash" | "mem_pressure" (shrink a memory domain's cap)
     op: str = "*"
     path: str = "*"
     nth: int = 1
@@ -131,6 +136,9 @@ class FaultRule:
     seconds: float = 0.0
     torn: Optional[TornWrite] = None
     error_factory: Optional[Callable[[str, str], Exception]] = None
+    # mem_pressure: which memwatch domain shrinks, and to what cap.
+    domain: Optional[str] = None
+    cap_bytes: Optional[int] = None
     _hits: int = field(default=0, repr=False)
     _fired: int = field(default=0, repr=False)
 
@@ -308,9 +316,29 @@ class FaultSchedule:
         """Latency at the read-plane client's ``snapserve.request``."""
         raise _not_ported("slow_server", _ITEM_10)
 
-    def mem_pressure(self, *args, **kwargs) -> "FaultSchedule":
-        """Shrink a memory domain's reported cap."""
-        raise _not_ported("mem_pressure", _ITEM_8)
+    def mem_pressure(
+        self,
+        domain: str,
+        cap_bytes: int,
+        op: str = "*",
+        path: str = "*",
+        nth: int = 1,
+    ) -> "FaultSchedule":
+        """At the ``nth`` matching op boundary, shrink the REPORTED cap of
+        the named memwatch domain (``"staging_pool"``, ...) to
+        ``cap_bytes`` through :func:`..telemetry.memwatch.force_cap`. The
+        subsystem's real budget is untouched: its occupancy lands above
+        the shrunk cap, so the doctor's ``host-memory-overcommit`` rule
+        trips as it would on a host whose limit came down under the
+        workload. Cleared by ``memwatch.reset()`` /
+        ``clear_cap_overrides()``."""
+        self.rules.append(
+            FaultRule(
+                kind="mem_pressure", op=op, path=path, nth=nth, times=1,
+                domain=domain, cap_bytes=int(cap_bytes),
+            )
+        )
+        return self
 
 
 @dataclass
@@ -339,11 +367,12 @@ class FaultController:
         self._lock = threading.Lock()
 
     def _record(self, idx: int, op: str, path: str, kind: str) -> None:
-        # Lock held by caller. The JAX package also counts each fault in
-        # telemetry (FAULTS_INJECTED) and marks it with a trace instant;
-        # both wait on the telemetry and tracing port (ROADMAP Queue 1
-        # item 8). Until then the records and fault_counts() are the log.
+        # Lock held by caller. Each fault is counted and marked with a
+        # trace instant beside the retry layer's storage_retry instants:
+        # one increment per instant, so the two counts agree.
         self.records.append(FaultRecord(idx, op, path, kind))
+        telemetry.counter(_metric_names.FAULTS_INJECTED, kind=kind).inc()
+        tracing.instant("fault_injected", op=op, path=path, kind=kind, op_index=idx)
 
     def on_op(self, op: str, path: str) -> Optional[TornWrite]:
         """Announce one op boundary. Raises the scheduled fault, if any;
@@ -386,6 +415,13 @@ class FaultController:
                 if rule.kind == "error":
                     self._record(idx, op, path, "error")
                     raise rule.error_factory(op, path)
+                if rule.kind == "mem_pressure":
+                    self._record(idx, op, path, "mem_pressure")
+                    from ..telemetry import memwatch
+
+                    # Only the reported cap shrinks; the guarded op goes on.
+                    memwatch.force_cap(rule.domain or "", int(rule.cap_bytes or 0))
+                    continue
                 raise ValueError(f"unknown fault rule kind {rule.kind!r}")
         if sleep_s > 0.0:
             # Outside the lock. time.sleep (not asyncio): this runs both

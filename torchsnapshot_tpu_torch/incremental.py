@@ -50,6 +50,21 @@ class IncrementalStats:
     fingerprinted: int = 0
     dedup_hits: int = 0
     dedup_bytes: int = 0
+    # Bytes of array leaves this rank owned in the base manifest whose
+    # logical paths the new take lacks (state dropped between takes);
+    # 0 without a base.
+    removed_bytes: int = 0
+
+    def churn_note(self, has_base: bool) -> dict:
+        """The rank's churn block of the flight report; the ledger sums
+        these across ranks at commit."""
+        return {
+            "unchanged_bytes": self.dedup_bytes,
+            "removed_bytes": self.removed_bytes,
+            "dedup_hits": self.dedup_hits,
+            "fingerprinted": self.fingerprinted,
+            "basis": "incremental" if has_base else "full",
+        }
 
 
 @dataclass
@@ -300,6 +315,24 @@ def apply_incremental(
                 ):
                     continue
                 dedup(chunk, candidate, fp)
+
+    # Churn: array state this rank owned in the base but dropped from the
+    # new take. Replicated leaves sit under every rank's prefix of the
+    # merged base manifest, so rank 0 alone counts a removed one.
+    own_prefix = f"{rank}/"
+    for full_path, base_entry in ctx.metadata.manifest.items():
+        if not full_path.startswith(own_prefix):
+            continue
+        if full_path[len(own_prefix):] in manifest:
+            continue
+        if getattr(base_entry, "replicated", False) and rank != 0:
+            continue
+        if isinstance(base_entry, ShardedArrayEntry):
+            # This rank's shards only.
+            for shard in base_entry.shards:
+                stats.removed_bytes += _nbytes(shard.array.dtype, shard.sizes)
+        elif isinstance(base_entry, ArrayEntry):
+            stats.removed_bytes += _nbytes(base_entry.dtype, base_entry.shape)
 
     if dropped:
         write_reqs[:] = [

@@ -14,9 +14,12 @@ a bad object), ``--copy-to DEST``, ``--diff OLDER`` (exit 1 when
 something changed, 3 when only inconclusive), ``--delete [--sweep]``,
 and, with PATH a ``CheckpointManager`` directory, ``--steps`` and
 ``--reconcile {adopt,sweep}``, and ``--convert-back DEST`` (export to the
-reference torchsnapshot format). ``--report``, ``--doctor`` and
-``--timeline`` wait for modules not yet ported and exit 2 naming them.
-Needs neither PyYAML nor a device.
+reference torchsnapshot format), ``--report`` (the flight records; exit
+1 when there are none), ``--doctor`` (the doctor's findings over them:
+exit 0 healthy, 1 findings, 2 no report) and, with PATH a manager
+directory or a snapshot root, ``--timeline`` (the ledger's per-step
+trends and the regression sentinel: exit 0, 1 on a regression, 2 with no
+ledger). Needs neither PyYAML nor a device.
 """
 
 import argparse
@@ -33,15 +36,6 @@ from .manifest import (
 )
 from .serialization import array_nbytes
 from .snapshot import Snapshot
-
-# The flags of the JAX package's inspect whose modules the port lacks,
-# with the ROADMAP item that brings each.
-_NOT_YET_PORTED = {
-    "report": "the flight reports of the telemetry (ROADMAP Queue 1 item 8)",
-    "doctor": "the telemetry doctor (ROADMAP Queue 1 item 8)",
-    "timeline": "the telemetry ledger (ROADMAP Queue 1 item 8)",
-}
-
 
 def _human(n: float) -> str:
     for unit in ("B", "KB", "MB", "GB", "TB"):
@@ -75,6 +69,57 @@ def _describe(path: str, entry) -> str:
     return f"{path:60s} {entry.type}"
 
 
+def _print_reports(path: str) -> int:
+    """Render the snapshot's flight records: the committed take report
+    and any restore reports."""
+    import asyncio
+
+    from .io_types import IOReq, is_not_found_error
+    from .snapshot import SNAPSHOT_METADATA_FNAME
+    from .storage_plugin import url_to_storage_plugin
+    from .telemetry import report as flight
+
+    storage = url_to_storage_plugin(path)
+    try:
+        # A mistyped path reads as "no snapshot here", not as a snapshot
+        # without a report.
+        try:
+            asyncio.run(storage.read(IOReq(path=SNAPSHOT_METADATA_FNAME)))
+        except Exception as e:
+            if is_not_found_error(e):
+                print(f"no snapshot at {path}", file=sys.stderr)
+                return 1
+            raise
+        take_report = asyncio.run(flight.aread_json(storage, flight.REPORT_FNAME))
+        restore_paths = sorted(
+            p
+            for p in (asyncio.run(storage.list_prefix(flight.REPORT_PREFIX)) or [])
+            if p.startswith(".report.restore.")
+        )
+        printed = False
+        if take_report is not None:
+            print(flight.render_report(take_report))
+            printed = True
+        for rp in restore_paths:
+            doc = asyncio.run(flight.aread_json(storage, rp))
+            if doc is None:
+                continue
+            if printed:
+                print()
+            print(flight.render_report(doc))
+            printed = True
+        if not printed:
+            print(
+                f"no flight record at {path} (snapshot taken before "
+                f"telemetry existed, or its report write failed)",
+                file=sys.stderr,
+            )
+            return 1
+        return 0
+    finally:
+        storage.close()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="torchsnapshot_tpu_torch.inspect")
     parser.add_argument("path")
@@ -100,11 +145,16 @@ def main(argv=None) -> int:
                         help="copy the snapshot to DEST (any backend), checking every "
                         "payload in transit; the metadata is written last")
     parser.add_argument("--report", action="store_true",
-                        help="print the flight record (not yet ported)")
+                        help="print the snapshot's flight record (.report.json: per-rank "
+                        "phases, bytes, throughput, budget stall, retries, faults) and "
+                        "any restore reports; exit 1 when the snapshot has none")
     parser.add_argument("--doctor", action="store_true",
-                        help="diagnose the flight reports (not yet ported)")
+                        help="run the telemetry doctor over the snapshot's flight reports; "
+                        "exit 0 healthy, 1 findings, 2 no report to diagnose")
     parser.add_argument("--timeline", action="store_true",
-                        help="the telemetry ledger's trends (not yet ported)")
+                        help="the telemetry ledger's per-step trends for PATH (a "
+                        "CheckpointManager base or snapshot root) and the regression "
+                        "sentinel; exit 0 healthy, 1 regression, 2 no ledger")
     parser.add_argument("--diff", metavar="OLDER",
                         help="which logical paths were added, removed, changed or "
                         "unchanged since OLDER, from the metadata alone; exit 1 when "
@@ -130,14 +180,22 @@ def main(argv=None) -> int:
             "--timeline are mutually exclusive; run them in separate "
             "invocations"
         )
-    for flag, module in _NOT_YET_PORTED.items():
-        if getattr(args, flag):
-            print(
-                f"--{flag.replace('_', '-')} is not yet ported to "
-                f"torchsnapshot_tpu_torch: it needs {module}.",
-                file=sys.stderr,
-            )
+    if args.timeline:
+        from .telemetry import timeline as _timeline
+
+        return _timeline.main([args.path])
+    if args.report:
+        return _print_reports(args.path)
+    if args.doctor:
+        from .telemetry import doctor as _doctor
+
+        reports = _doctor._collect_snapshot_reports(args.path)
+        if not reports:
+            print(f"no flight report at {args.path} to diagnose", file=sys.stderr)
             return 2
+        findings = _doctor.diagnose(reports)
+        print(_doctor.render_findings(findings))
+        return 1 if findings else 0
     if args.diff:
         result = Snapshot(args.path).diff(args.diff, rank=args.rank)
         for kind in ("added", "removed", "changed", "unknown"):

@@ -65,7 +65,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import staging_pool
+from . import staging_pool, tracing
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .manifest import (
     ArrayEntry,
@@ -1027,6 +1027,11 @@ class ArrayRestorePlan:
         self.itemsize = dtype_itemsize(entry.dtype)
         self._shards = shards
         self._callback = callback
+        # The plan is built in the restoring thread, under the restore's
+        # trace scope; finalize may run on the finalize pool or an H2D
+        # worker, whose contexts carry no trace. Capture it now and adopt
+        # it in _finalize_now.
+        self._trace_id = tracing.current_trace_id()
         self._as_numpy = isinstance(template, np.ndarray)
         self._wrap: Optional[Tuple[Any, Any, Any, Any]] = None
         key_data = entry.prng_impl is not None
@@ -1305,7 +1310,8 @@ class ArrayRestorePlan:
     def _finalize_now(self) -> None:
         try:
             self.await_pipeline()
-            self._publish()
+            with tracing.adopt_trace(self._trace_id), tracing.span("assemble"):
+                self._publish()
         except BaseException as e:
             # On the finalize pool the raise lands in an unread future;
             # the restore's own finalize call re-raises it.

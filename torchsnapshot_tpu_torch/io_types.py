@@ -22,6 +22,8 @@ from concurrent.futures import Executor
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple, Union
 
+from . import telemetry, tracing
+from .telemetry import metrics as _metric_names
 from .utils.env import env_float, env_int
 
 BufferType = Union[bytes, bytearray, memoryview]
@@ -164,6 +166,7 @@ async def retry_storage_op(make_coro, desc: str):
     start = time.monotonic()
     prev_delay = floor
     for attempt in range(1, attempts + 1):
+        attempt_start = time.monotonic()
         try:
             return await make_coro()
         except asyncio.CancelledError:
@@ -187,6 +190,20 @@ async def retry_storage_op(make_coro, desc: str):
                     f"({elapsed:.1f}s elapsed of {budget_s:g}s) — giving up"
                 )
                 raise
+            # The counters beside the instant, so the instants equal the
+            # count whenever a trace is recorded. The op type labels the
+            # counter (the full desc carries a path).
+            op_type = desc.split("(", 1)[0]
+            telemetry.counter(_metric_names.STORAGE_RETRIES, op=op_type).inc()
+            telemetry.counter(_metric_names.STORAGE_RETRY_BACKOFF, op=op_type).inc(delay)
+            tracing.instant(
+                "storage_retry",
+                op=desc,
+                attempt=attempt,
+                attempt_s=round(time.monotonic() - attempt_start, 4),
+                delay_s=round(delay, 4),
+                error=type(e).__name__,
+            )
             logger.warning(
                 f"Storage op {desc} failed (attempt {attempt}/{attempts}): "
                 f"{e!r}; retrying in {delay:.2f}s"

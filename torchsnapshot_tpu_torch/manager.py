@@ -25,13 +25,17 @@ Not yet ported from the JAX package's manager: the hot tier.
 import asyncio
 import logging
 import re
+import time
 from typing import Any, List, Optional
 
+from . import telemetry, tracing
 from .coord import Coordinator, get_coordinator
 from .io_types import IOReq, is_not_found_error
 from .snapshot import _COMPLETION_TIMEOUT_S, PendingSnapshot, Snapshot, _BaseFromRank0
 from .stateful import AppState
 from .storage_plugin import url_to_storage_plugin
+from .telemetry import metrics as _metric_names
+from .telemetry.ledger import LEDGER_DIR
 from .utils.env import env_float
 
 logger = logging.getLogger(__name__)
@@ -248,9 +252,10 @@ class CheckpointManager:
 
     def _sweep_debris(self, storage: Any, objs: List[str]) -> None:
         """Remove torn ``<N>.tmp<pid>`` control files (a crash between the
-        fs plugin's write and rename), ``*.tmp<pid>`` telemetry-ledger
-        debris of the JAX package, and progress/sampler records of takes
-        that crashed mid-drain, each spared while younger than
+        fs plugin's write and rename), ``*.tmp<pid>`` debris of ledger
+        appends (never the ledger itself: its committed records are
+        durable metadata), and progress/sampler records of takes that
+        crashed mid-drain, each spared while younger than
         ``TPUSNAPSHOT_SWEEP_MIN_AGE_S`` (unknown age fails closed)."""
         doomed = [
             obj
@@ -258,7 +263,7 @@ class CheckpointManager:
             for obj in self._list(storage, prefix)
             if re.fullmatch(r"\d+\.tmp\d+", obj[len(prefix):])
         ]
-        doomed += [o for o in self._list(storage, ".telemetry/") if re.search(r"\.tmp\d+$", o)]
+        doomed += [o for o in self._list(storage, LEDGER_DIR + "/") if re.search(r"\.tmp\d+$", o)]
         doomed += [o for o in objs if re.match(r"^step-\d+/(\.progress|\.scope)/", o)]
         min_age_s = _sweep_min_age_s()
         for obj in doomed:
@@ -382,7 +387,13 @@ class CheckpointManager:
             try:
                 if coordinator.get_rank() == 0:
                     storage = url_to_storage_plugin(self.base_path)
+                    marker_t0 = time.monotonic()
                     self._write_marker(storage, step)
+                    telemetry.histogram(_metric_names.MANAGER_STEP_MARKER_SECONDS).observe(
+                        time.monotonic() - marker_t0
+                    )
+                    # From here the step resolves and must restore clean.
+                    tracing.instant("step_marker_committed", step=step)
             finally:
                 coordinator.barrier(_COMPLETION_TIMEOUT_S)
             if storage is not None and self.max_to_keep is not None:
@@ -392,6 +403,15 @@ class CheckpointManager:
                 storage.close()
 
     def _prune(self, storage: Any) -> None:
+        prune_t0 = time.monotonic()
+        try:
+            self._prune_steps(storage)
+        finally:
+            telemetry.histogram(_metric_names.MANAGER_PRUNE_SECONDS).observe(
+                time.monotonic() - prune_t0
+            )
+
+    def _prune_steps(self, storage: Any) -> None:
         # Two phases with a tombstone, so the NEXT prune re-drives an
         # interrupted one instead of leaking the step's payloads:
         #   1. write .pruning/<step>
@@ -435,6 +455,7 @@ class CheckpointManager:
                     if not is_not_found_error(e):
                         raise
                 snapshot.delete(sweep=True)
+                telemetry.counter(_metric_names.MANAGER_STEPS_PRUNED).inc()
                 # The sweep spares young unreferenced objects; the
                 # tombstone stays until the prefix is empty, and a later
                 # prune retries.

@@ -30,8 +30,9 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import staging_pool
+from .. import staging_pool, telemetry
 from ..telemetry import consume_profile as _cprof
+from ..telemetry import metrics as _metric_names
 from ..utils.env import env_int
 
 _DEFAULT_TRANSFER_CHUNK_BYTES = 64 * 1024 * 1024
@@ -166,30 +167,40 @@ class H2DPipeline:
         if lease is not None:
             lease.hold()
 
+        def _copy() -> None:
+            if not dst.is_cuda:
+                if not isinstance(src, np.ndarray):
+                    dst.copy_(src)
+                elif src.flags.c_contiguous and dst.is_contiguous():
+                    host_copy(dst, src)
+                else:
+                    dst.numpy()[...] = src
+                if then is not None:
+                    then()
+                return
+            if torch.cuda.current_device() != dst.device.index:
+                torch.cuda.set_device(dst.device)
+            stream = _side_stream(dst.device)
+            with torch.cuda.stream(stream):
+                # query() keeps the GIL; wait_event gives it up.
+                if not ready.query():
+                    stream.wait_event(ready)
+                dst.copy_(src)
+                if then is not None:
+                    then()
+                    stream.synchronize()
+
         def _transfer() -> None:
             try:
+                t0 = time.monotonic()
                 with _cprof.overlap_span(profile, nbytes):
-                    if not dst.is_cuda:
-                        if not isinstance(src, np.ndarray):
-                            dst.copy_(src)
-                        elif src.flags.c_contiguous and dst.is_contiguous():
-                            host_copy(dst, src)
-                        else:
-                            dst.numpy()[...] = src
-                        if then is not None:
-                            then()
-                        return
-                    if torch.cuda.current_device() != dst.device.index:
-                        torch.cuda.set_device(dst.device)
-                    stream = _side_stream(dst.device)
-                    with torch.cuda.stream(stream):
-                        # query() keeps the GIL; wait_event gives it up.
-                        if not ready.query():
-                            stream.wait_event(ready)
-                        dst.copy_(src)
-                        if then is not None:
-                            then()
-                            stream.synchronize()
+                    _copy()
+                # Host wall time of each call (the profile's overlap
+                # seconds above count concurrent workers' union once).
+                telemetry.counter(_metric_names.H2D_OVERLAP_SECONDS).inc(
+                    time.monotonic() - t0
+                )
+                telemetry.counter(_metric_names.H2D_OVERLAP_BYTES).inc(nbytes)
             finally:
                 if lease is not None:
                     lease.drop()
@@ -280,3 +291,57 @@ def probe_h2d_gbps(nbytes: int, device: Any = "cuda") -> float:
         torch.cuda.synchronize(dst.device)
 
     return _best_gbps(nbytes, run)
+
+
+# The restore report's H2D anchor: probed once per process, at this size.
+_H2D_PROBE_BYTES_ENV_VAR = "TPUSNAPSHOT_H2D_PROBE_BYTES"
+_DEFAULT_H2D_PROBE_BYTES = 32 * 1024 * 1024
+_report_probe: List[Optional[float]] = []
+_report_probe_lock = threading.Lock()
+
+
+def _chunked_h2d_seconds(nbytes: int, device: torch.device) -> float:
+    """Host wall seconds of one restore-style transfer of a fresh pinned
+    ``nbytes`` buffer to ``device``: ``H2D_CHUNK_BYTES`` pieces, each a
+    blocking copy as the H2D pipeline's workers issue them, on this
+    thread's copy stream. The destination is allocated on that stream,
+    so the copies wait for no other work on the card, and the only wait
+    is each piece's own (a copy stream's synchronize, never the
+    device's)."""
+    stream = _side_stream(device)
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    src.numpy()[:] = np.random.default_rng(11).integers(0, 256, nbytes, dtype=np.uint8)
+    with torch.cuda.stream(stream):
+        dst = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        begin = time.monotonic()
+        for lo in range(0, nbytes, H2D_CHUNK_BYTES):
+            dst[lo : lo + H2D_CHUNK_BYTES].copy_(src[lo : lo + H2D_CHUNK_BYTES])
+        elapsed = time.monotonic() - begin
+        del dst
+    return elapsed
+
+
+def report_h2d_probe_gbps() -> Optional[float]:
+    """The host→device rate in GiB/s (2**30 bytes/s, the unit of the
+    flight reports) of the restore's own piece-by-piece transfer, best of
+    two runs each from a fresh host buffer, measured once per process on
+    the current card (the JAX package probes through its chunked put the
+    same way); None without a card or with ``TPUSNAPSHOT_H2D_PROBE_BYTES=0``.
+    It runs inside a restore's report, so it waits on its own copies and
+    nothing else: no device-wide synchronize."""
+    with _report_probe_lock:
+        if not _report_probe:
+            nbytes = env_int(_H2D_PROBE_BYTES_ENV_VAR, _DEFAULT_H2D_PROBE_BYTES)
+            result: Optional[float] = None
+            if nbytes > 0 and torch.cuda.is_available():
+                try:
+                    device = torch.device("cuda", torch.cuda.current_device())
+                    best = max(
+                        nbytes / (1 << 30) / max(_chunked_h2d_seconds(nbytes, device), 1e-9)
+                        for _ in range(2)
+                    )
+                    result = best if best > 0 else None
+                except Exception:  # a capability probe: no figure, no failure
+                    result = None
+            _report_probe.append(result)
+        return _report_probe[0]

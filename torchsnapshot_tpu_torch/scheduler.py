@@ -36,8 +36,11 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
+from . import telemetry, tracing
 from .io_types import IOReq, ReadReq, StoragePlugin, WriteReq, io_payload
 from .telemetry import consume_profile as _cprof
+from .telemetry import memwatch
+from .telemetry import metrics as _metric_names
 
 logger = logging.getLogger(__name__)
 
@@ -83,44 +86,166 @@ def get_memory_budget_bytes(coord: Any = None) -> int:
     )
 
 
+def _observe_op(
+    ops: Dict[str, Dict[str, Any]],
+    op: str,
+    seconds: float,
+    nbytes: int,
+    progress: Optional[Any] = None,
+    progress_bytes: int = 0,
+) -> None:
+    """Record one pipelined op in the process metrics and in the call's
+    own aggregate (the flight recorder's exact numbers), from the event
+    loop's thread only. ``progress`` (a ProgressPublisher) gets the same
+    pulse, so its heartbeat beats as often as the pipeline completes
+    work. ``progress_bytes`` is the op's credit against the announced
+    ``bytes_total``, in cost units (not stored bytes, which differ under
+    compression); ops that describe payloads another op credited pass 0."""
+    telemetry.record_scheduler_op(op, seconds, nbytes)
+    agg = ops.setdefault(op, {"count": 0, "seconds": 0.0, "bytes": 0})
+    agg["count"] += 1
+    agg["seconds"] += seconds
+    agg["bytes"] += nbytes
+    if progress is not None:
+        progress.pipeline_update(op, progress_bytes)
+
+
+def _merge_stats(
+    stats: Optional[Dict[str, Any]],
+    pipeline: str,
+    nbytes: int,
+    stall_s: float,
+    high_water: int,
+    ops: Dict[str, Dict[str, Any]],
+) -> None:
+    """Fold one pipeline run into the process metrics and, when the
+    caller asked for them, the ``stats`` dict."""
+    telemetry.counter(_metric_names.SCHED_STALL_SECONDS, pipeline=pipeline).inc(stall_s)
+    telemetry.gauge(_metric_names.SCHED_BUDGET_HWM, pipeline=pipeline).set_max(high_water)
+    if stats is None:
+        return
+    stats["bytes"] = stats.get("bytes", 0) + nbytes
+    stats["stall_s"] = stats.get("stall_s", 0.0) + stall_s
+    stats["budget_high_water_bytes"] = max(stats.get("budget_high_water_bytes", 0), high_water)
+    out = stats.setdefault("ops", {})
+    for op, agg in ops.items():
+        acc = out.setdefault(op, {"count": 0, "seconds": 0.0, "bytes": 0})
+        for k in acc:
+            acc[k] += agg[k]
+
+
 async def execute_write_reqs(
     write_reqs: List[WriteReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
+    stats: Optional[Dict[str, Any]] = None,
+    progress: Optional[Any] = None,
 ) -> int:
-    """Run the staged-write pipeline; returns total bytes written."""
+    """Run the staged-write pipeline; returns total bytes written.
+
+    ``stats`` (optional) accumulates this run's numbers for the flight
+    recorder: bytes, per-op count/seconds/bytes (``stage``, ``encode``,
+    ``write``), the seconds dispatch waited on the budget, and the
+    budget's high-water mark. ``progress`` (a ProgressPublisher) is
+    pulsed at every op and published from this loop on its cadence."""
     begin = time.monotonic()
+    if progress is not None:
+        # Pre-staged buffers charge no budget but name their real size.
+        progress.add_bytes_total(
+            sum(
+                getattr(wr.buffer_stager, "payload_nbytes", None)
+                or wr.buffer_stager.get_staging_cost_bytes()
+                for wr in write_reqs
+            )
+        )
+        await progress.async_tick(force=True)
     pending = deque(write_reqs)
     staged: deque = deque()  # (WriteReq, buf)
     staging: Dict[asyncio.Task, Tuple[WriteReq, int]] = {}
     io_tasks: Dict[asyncio.Task, int] = {}
     budget = memory_budget_bytes
+    min_budget = memory_budget_bytes
+    stall_s = 0.0
+    ops: Dict[str, Dict[str, Any]] = {}
     bytes_written = 0
     executor = ThreadPoolExecutor(max_workers=_MAX_STAGING_THREADS)
+    in_use_gauge = telemetry.gauge(_metric_names.SCHED_BUDGET_IN_USE, pipeline="write")
+    stalled_gauge = telemetry.gauge(_metric_names.SCHED_BUDGET_STALLED, pipeline="write")
+    # Staged buffers live only between stage and write: any residual
+    # after the pipeline exits is a leak. The burst is at most the
+    # smaller of the total staging cost and the budget.
+    mem_domain = memwatch.register(
+        "scheduler.write",
+        cap_bytes=memory_budget_bytes,
+        transient=True,
+        watch_residual="used",
+    )
+    memwatch.forecast(
+        min(
+            sum(wr.buffer_stager.get_staging_cost_bytes() for wr in write_reqs),
+            memory_budget_bytes,
+        ),
+        kind="take",
+    )
+
+    async def _stage(wr: WriteReq, cost: int) -> Any:
+        t0 = time.monotonic()
+        with tracing.span("stage", path=wr.path, bytes=cost):
+            buf = await wr.buffer_stager.stage_buffer(executor)
+        _observe_op(ops, "stage", time.monotonic() - t0, len(buf), progress)
+        # A chunk's codec ran inside the stage: report it as its own op
+        # (no progress credit; the stage took it).
+        enc = getattr(wr.buffer_stager, "encode_stats", None)
+        if enc is not None:
+            _observe_op(ops, "encode", enc[0], enc[1])
+            telemetry.counter(_metric_names.CODEC_SECONDS, op="encode").inc(enc[0])
+        return buf
+
+    async def _write(wr: WriteReq, buf: Any) -> None:
+        # Credit in the units bytes_total summed (before compression).
+        share = (
+            getattr(wr.buffer_stager, "payload_nbytes", None)
+            or wr.buffer_stager.get_staging_cost_bytes()
+        )
+        t0 = time.monotonic()
+        with tracing.span("write", path=wr.path, bytes=len(buf)):
+            await storage.write(IOReq(path=wr.path, data=buf))
+        _observe_op(
+            ops, "write", time.monotonic() - t0, len(buf), progress, progress_bytes=share
+        )
+
     try:
         while pending or staged or staging or io_tasks:
+            blocked = False
             while pending:
                 cost = pending[0].buffer_stager.get_staging_cost_bytes()
                 nothing_in_flight = not (staging or staged or io_tasks)
                 if budget < cost and not nothing_in_flight:
+                    blocked = True
                     break
                 wr = pending.popleft()
                 budget -= cost
-                task = asyncio.ensure_future(wr.buffer_stager.stage_buffer(executor))
-                staging[task] = (wr, cost)
+                min_budget = min(min_budget, budget)
+                staging[asyncio.ensure_future(_stage(wr, cost))] = (wr, cost)
             while staged and len(io_tasks) < storage.max_write_concurrency:
                 wr, buf = staged.popleft()
-                task = asyncio.ensure_future(
-                    storage.write(IOReq(path=wr.path, data=buf))
-                )
-                io_tasks[task] = len(buf)
+                io_tasks[asyncio.ensure_future(_write(wr, buf))] = len(buf)
+            in_use = max(0, memory_budget_bytes - budget)
+            in_use_gauge.set(in_use)
+            mem_domain.set_used(in_use, pinned_bytes=in_use)
+            stalled_gauge.set(1.0 if blocked else 0.0)
             in_flight = set(staging) | set(io_tasks)
             if not in_flight:
                 continue
+            wait_t0 = time.monotonic()
             done, _ = await asyncio.wait(
                 in_flight, return_when=asyncio.FIRST_COMPLETED
             )
+            if blocked:
+                # Work was ready but the budget said no: the time until
+                # the next completion is budget stall.
+                stall_s += time.monotonic() - wait_t0
             for task in done:
                 if task in staging:
                     wr, cost = staging.pop(task)
@@ -132,8 +257,15 @@ async def execute_write_reqs(
                     task.result()  # propagate storage errors
                     budget += buf_len
                     bytes_written += buf_len
+            if progress is not None:
+                await progress.async_tick()
     finally:
         executor.shutdown(wait=False)
+        in_use_gauge.set(0)
+        stalled_gauge.set(0)
+        mem_domain.set_used(max(0, memory_budget_bytes - budget))
+        mem_domain.close()
+    _merge_stats(stats, "write", bytes_written, stall_s, memory_budget_bytes - min_budget, ops)
     logger.info(
         "Rank %d saved %d bytes in %.3f s",
         rank,
@@ -200,13 +332,6 @@ async def _straggler_release_landed(cell: _BudgetCell) -> bool:
     return cell.release_count() != baseline
 
 
-def _observe(ops: Dict[str, Dict[str, Any]], op: str, seconds: float, nbytes: int) -> None:
-    agg = ops.setdefault(op, {"count": 0, "seconds": 0.0, "bytes": 0})
-    agg["count"] += 1
-    agg["seconds"] += seconds
-    agg["bytes"] += nbytes
-
-
 async def execute_read_reqs(
     read_reqs: List[ReadReq],
     storage: StoragePlugin,
@@ -214,6 +339,7 @@ async def execute_read_reqs(
     rank: int,
     device_budget_bytes: Optional[int] = None,
     stats: Optional[Dict[str, Any]] = None,
+    progress: Optional[Any] = None,
 ) -> int:
     """Run the read→consume pipeline; returns total bytes read.
 
@@ -229,9 +355,20 @@ async def execute_read_reqs(
 
     ``stats`` (optional) accumulates this run's numbers: bytes, per-op
     count/seconds/bytes (``read``, ``consume``), the seconds dispatch
-    waited on a budget, and both budgets' high-water marks.
+    waited on a budget, and both budgets' high-water marks. ``progress``
+    (a ProgressPublisher) is pulsed at every op, as in
+    :func:`execute_write_reqs`.
     """
     begin = time.monotonic()
+    if progress is not None:
+        progress.add_bytes_total(
+            sum(
+                r.buffer_consumer.get_consuming_cost_bytes()
+                - r.buffer_consumer.get_deferred_cost_bytes()
+                for r in read_reqs
+            )
+        )
+        await progress.async_tick(force=True)
 
     def _sort_bytes(r: ReadReq) -> int:
         key = r.buffer_consumer.sort_key_bytes
@@ -251,18 +388,47 @@ async def execute_read_reqs(
     stall_s = 0.0
     bytes_read = 0
     executor = ThreadPoolExecutor(max_workers=_MAX_STAGING_THREADS)
+    in_use_gauge = telemetry.gauge(_metric_names.SCHED_BUDGET_IN_USE, pipeline="read")
+    stalled_gauge = telemetry.gauge(_metric_names.SCHED_BUDGET_STALLED, pipeline="read")
+    # The host cell's bytes are transient host memory; the device cell's
+    # are card memory, registered external (shown, but not counted
+    # against the host's headroom).
+    mem_domain = memwatch.register(
+        "scheduler.read.host",
+        cap_bytes=memory_budget_bytes,
+        transient=True,
+        watch_residual="used",
+    )
+    mem_device_domain = memwatch.register(
+        "scheduler.read.device",
+        cap_bytes=device_budget_bytes,
+        transient=True,
+        external=True,
+    )
+    memwatch.forecast(
+        min(
+            sum(r.buffer_consumer.get_consuming_cost_bytes() for r in read_reqs),
+            memory_budget_bytes,
+        ),
+        kind="restore",
+    )
 
-    async def _read(rr: ReadReq) -> IOReq:
+    async def _read(rr: ReadReq, share: int) -> IOReq:
         io_req = IOReq(path=rr.path, byte_range=rr.byte_range)
         t0 = time.monotonic()
-        await storage.read(io_req)
-        _observe(ops, "read", time.monotonic() - t0, len(io_payload(io_req)))
+        with tracing.span("read", path=rr.path):
+            await storage.read(io_req)
+        _observe_op(
+            ops, "read", time.monotonic() - t0, len(io_payload(io_req)), progress,
+            progress_bytes=share,
+        )
         return io_req
 
     async def _consume(rr: ReadReq, buf: Any) -> None:
         t0 = time.monotonic()
-        await rr.buffer_consumer.consume_buffer(buf, executor)
-        _observe(ops, "consume", time.monotonic() - t0, len(buf))
+        with tracing.span("consume", path=rr.path, bytes=len(buf)):
+            await rr.buffer_consumer.consume_buffer(buf, executor)
+        _observe_op(ops, "consume", time.monotonic() - t0, len(buf), progress)
 
     try:
         while pending or reading or consumable or consuming:
@@ -286,7 +452,7 @@ async def execute_read_reqs(
                 deferred = consumer.get_deferred_cost_bytes()
                 if deferred:
                     consumer.set_cost_releaser(budget.release)
-                reading[asyncio.ensure_future(_read(rr))] = (rr, cost - deferred)
+                reading[asyncio.ensure_future(_read(rr, cost - deferred))] = (rr, cost - deferred)
 
             # Consume dispatch under the device budget. The scan skips
             # past blocked entries: a consume waiting for device bytes
@@ -316,6 +482,13 @@ async def execute_read_reqs(
                     rr.buffer_consumer.set_device_cost_releaser(device_budget.release)
                 consuming[asyncio.ensure_future(_consume(rr, buf))] = refund
 
+            host_in_use = max(0, memory_budget_bytes - budget.value)
+            in_use_gauge.set(host_in_use)
+            mem_domain.set_used(host_in_use, pinned_bytes=host_in_use)
+            if device_budget_bytes is not None:
+                dev_in_use = max(0, device_budget_bytes - device_budget.value)
+                mem_device_domain.set_used(dev_in_use, pinned_bytes=dev_in_use)
+            stalled_gauge.set(1.0 if blocked else 0.0)
             in_flight = set(reading) | set(consuming)
             if not in_flight:
                 continue
@@ -335,6 +508,8 @@ async def execute_read_reqs(
                     refund = consuming.pop(task)
                     task.result()  # propagate consume errors
                     budget.release(refund)
+            if progress is not None:
+                await progress.async_tick()
     finally:
         for task in list(reading) + list(consuming):
             task.cancel()
@@ -342,24 +517,20 @@ async def execute_read_reqs(
         # may still submit transfers the caller must wait out) and drop
         # the queued ones.
         executor.shutdown(wait=True, cancel_futures=True)
+        in_use_gauge.set(0)
+        stalled_gauge.set(0)
+        mem_domain.set_used(max(0, memory_budget_bytes - budget.value))
+        mem_domain.close()
+        mem_device_domain.close()
     elapsed = time.monotonic() - begin
+    _merge_stats(stats, "read", bytes_read, stall_s, memory_budget_bytes - budget.low, ops)
     if stats is not None:
-        stats["bytes"] = stats.get("bytes", 0) + bytes_read
         stats["seconds"] = stats.get("seconds", 0.0) + elapsed
-        stats["stall_s"] = stats.get("stall_s", 0.0) + stall_s
-        stats["budget_high_water_bytes"] = max(
-            stats.get("budget_high_water_bytes", 0), memory_budget_bytes - budget.low
-        )
         if device_budget_bytes is not None:
             stats["device_budget_bytes"] = device_budget_bytes
             stats["device_high_water_bytes"] = max(
                 stats.get("device_high_water_bytes", 0),
                 device_budget_bytes - device_budget.low,
             )
-        out = stats.setdefault("ops", {})
-        for op, agg in ops.items():
-            acc = out.setdefault(op, {"count": 0, "seconds": 0.0, "bytes": 0})
-            for k in acc:
-                acc[k] += agg[k]
     logger.info("Rank %d loaded %d bytes in %.3f s", rank, bytes_read, elapsed)
     return bytes_read

@@ -169,7 +169,13 @@ from .storage_plugin import (
     resolve_base_ref,
     url_to_storage_plugin,
 )
+from . import telemetry, tracing
 from .telemetry import consume_profile as _cprof
+from .telemetry import goodput as goodput_acct
+from .telemetry import ledger as runledger
+from .telemetry import metrics as _metric_names
+from .telemetry import progress as liveprog
+from .telemetry import report as flight
 from .utils.env import env_int
 
 logger = logging.getLogger(__name__)
@@ -195,9 +201,9 @@ _DEFAULT_COMMIT_VIA_STORAGE_BYTES = 1 << 20
 _last_take_stats: Optional[Dict[str, Any]] = None
 
 # The last restore's (or read_object's) consume profile and read-pipeline
-# numbers (:func:`_set_restore_report`). The JAX package hands this block to
-# its flight recorder; the port has no recorder yet, so it is kept here
-# for a caller to read (chip_smoke.py prints it).
+# numbers (:func:`_set_restore_report`), kept for a caller to read
+# (chip_smoke.py prints it); a restore's flight report carries the same
+# profile.
 _last_restore_report: Optional[Dict[str, Any]] = None
 
 # The last ``restore(verify_device=True)``'s counts on this rank
@@ -257,20 +263,62 @@ class Snapshot:
         one object a rank instead of every manifest to every rank."""
         coordinator = get_coordinator(coord)
         path = _collate_path(coordinator, path)
+        # The whole sync take blocks the caller's loop (checkpoint time
+        # for goodput); every span below carries the take's trace id.
+        with goodput_acct.blocked("sync_take"), tracing.trace_scope("take"), tracing.span(
+            "Snapshot.take", path=path
+        ):
+            metadata = cls._take_sync(
+                path, app_state, coordinator, replicated, compression, base, fingerprint,
+                chunks, codec,
+            )
+        snapshot = cls(path, coord)
+        if metadata is not None:
+            snapshot._metadata = _decorate_metadata_refs(metadata)
+        return snapshot
+
+    @classmethod
+    def _take_sync(
+        cls,
+        path: str,
+        app_state: AppState,
+        coordinator: Coordinator,
+        replicated: Optional[List[str]],
+        compression: Optional[str],
+        base: Optional[Any],
+        fingerprint: Optional[bool],
+        chunks: Optional[bool],
+        codec: Optional[Any],
+    ) -> Optional[SnapshotMetadata]:
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
-        manifest, write_reqs, base_paths, chunk_ctx = _prepare_take(
-            path, app_state, coordinator, replicated, compression, base, fingerprint, chunks, codec
+        recorder, watch = _take_telemetry("take", path, rank, world_size)
+        manifest, write_reqs, base_paths, chunk_ctx, churn = _prepare_take(
+            path, app_state, coordinator, replicated, compression, base, fingerprint, chunks,
+            codec, recorder, watch,
         )
         budget = get_memory_budget_bytes(coordinator)
         storage = url_to_storage_plugin(path)
         metadata: Optional[SnapshotMetadata] = None
         try:
             writer = chunk_ctx.wrap(storage) if chunk_ctx is not None else storage
-            asyncio.run(execute_write_reqs(write_reqs, writer, budget, rank))
+            write_stats: Dict[str, Any] = {}
+            watch.set_phase("write")
+            with recorder.phase("write"):
+                asyncio.run(
+                    execute_write_reqs(
+                        write_reqs, writer, budget, rank, stats=write_stats, progress=watch
+                    )
+                )
+            recorder.note_pipeline(write_stats)
+            if chunk_ctx is not None:
+                # Stored sizes exist only after the writes.
+                chunk_ctx.stats.fold_into_churn(churn)
+                recorder.note(churn=churn)
             # Every object this rank wrote is durable before its manifest
             # reaches rank 0, which may commit at once.
             writer.ensure_durable()
+            watch.set_phase("commit")
             # The route must be the same on every rank, so both of its
             # inputs are gathered (rank 0's threshold holds); rank 0's
             # take_id rides the same gather.
@@ -284,36 +332,46 @@ class Snapshot:
             threshold, take_id = gathered[0][1], gathered[0][2]
             if world_size > 1 and max(size for size, _, _ in gathered) > threshold:
                 # Rank 0 collects every marker (so every rank's writes are
-                # done), writes the chunk refs and then the metadata.
-                metadata = asyncio.run(
-                    _acommit_via_storage(
-                        storage, rank, world_size, manifest, take_id,
-                        base_paths=base_paths, snapshot_path=path,
+                # done), writes the chunk refs and then the metadata; the
+                # rank summaries ride storage beside the markers.
+                with recorder.phase("commit"):
+                    metadata = asyncio.run(
+                        _acommit_via_storage(
+                            storage, rank, world_size, manifest, take_id,
+                            base_paths=base_paths, snapshot_path=path,
+                            rank_summary=recorder.rank_summary(), kind="take",
+                        )
                     )
-                )
             else:
-                metadata = SnapshotMetadata(
-                    version=FORMAT_VERSION,
-                    world_size=world_size,
-                    manifest=_merge_manifests(coordinator.all_gather_object(manifest)),
-                    take_id=take_id,
-                    base_paths=list(base_paths),
-                )
+                with recorder.phase("commit"):
+                    metadata = SnapshotMetadata(
+                        version=FORMAT_VERSION,
+                        world_size=world_size,
+                        manifest=_merge_manifests(coordinator.all_gather_object(manifest)),
+                        take_id=take_id,
+                        base_paths=list(base_paths),
+                    )
+                    if rank == 0:
+                        # The chunk-ref document before the commit point: a
+                        # committed manifest is always protected from chunk GC.
+                        _write_chunk_refs(path, metadata)
+                        asyncio.run(_write_metadata(storage, metadata))
+                # The rank summaries ride the coordinator on this route;
+                # every rank issues the gather.
+                summaries = coordinator.all_gather_object(recorder.rank_summary())
                 if rank == 0:
-                    # The chunk-ref document before the commit point: a
-                    # committed manifest is always protected from chunk GC.
-                    _write_chunk_refs(path, metadata)
-                    asyncio.run(_write_metadata(storage, metadata))
+                    report = flight.build_report("take", path, take_id, world_size, summaries)
+                    _write_report_best_effort(storage, report)
+                    _ledger_append_best_effort(path, report)
             # No rank returns before rank 0's metadata write.
             barrier_compat(coordinator, _COMPLETION_TIMEOUT_S)
+            watch.finish()
+            flight.local_export(recorder)
         finally:
             storage.close()
             if chunk_ctx is not None:
                 chunk_ctx.cleanup()
-        snapshot = cls(path, coord)
-        if metadata is not None:
-            snapshot._metadata = _decorate_metadata_refs(metadata)
-        return snapshot
+        return metadata
 
     @classmethod
     def async_take(
@@ -358,15 +416,45 @@ class Snapshot:
             raise ValueError(f'stage must be "auto", "host", or "device"; got {stage!r}')
         coordinator = get_coordinator(coord)
         path = _collate_path(coordinator, path)
+        # Only the capture stalls the caller (goodput "async_stall"); the
+        # drain adopts the take's trace id on its own thread.
+        with goodput_acct.blocked("async_stall"), tracing.trace_scope("async_take"):
+            background, storage = cls._async_capture(
+                path, app_state, coordinator, replicated, compression, stage, base,
+                fingerprint, chunks, codec,
+            )
+        return PendingSnapshot(path, coord, background, storage)
+
+    @classmethod
+    def _async_capture(
+        cls,
+        path: str,
+        app_state: AppState,
+        coordinator: Coordinator,
+        replicated: Optional[List[str]],
+        compression: Optional[str],
+        stage: str,
+        base: Optional[Any],
+        fingerprint: Optional[bool],
+        chunks: Optional[bool],
+        codec: Optional[Any],
+    ) -> Tuple["_BackgroundTake", StoragePlugin]:
+        """The foreground of an async take: the cut, the take_id and the
+        drain thread started. Returns the drain and the storage plugin
+        that :class:`PendingSnapshot` closes."""
         rank = coordinator.get_rank()
         world_size = coordinator.get_world_size()
-        manifest, write_reqs, base_paths, chunk_ctx = _prepare_take(
-            path, app_state, coordinator, replicated, compression, base, fingerprint, chunks, codec
+        recorder, watch = _take_telemetry("async_take", path, rank, world_size)
+        manifest, write_reqs, base_paths, chunk_ctx, churn = _prepare_take(
+            path, app_state, coordinator, replicated, compression, base, fingerprint, chunks,
+            codec, recorder, watch,
         )
         budget = get_memory_budget_bytes(coordinator)
         background = _BackgroundTake()
         try:
-            _prestage_write_reqs(write_reqs, budget, stage, coordinator)
+            watch.set_phase("prestage")
+            with recorder.phase("prestage"):
+                _prestage_write_reqs(write_reqs, budget, stage, coordinator)
             # Per-take nonce: completion markers and metadata from earlier
             # or concurrent takes to the same path never satisfy this
             # take's polls; it becomes the committed metadata's take_id.
@@ -379,22 +467,45 @@ class Snapshot:
             raise
         storage = url_to_storage_plugin(path)
         writer = chunk_ctx.wrap(storage) if chunk_ctx is not None else storage
+        # With the nonce, live progress can ride the snapshot's storage.
+        watch.attach_storage(storage, background.take_id)
+        # Captured here, inside the take's trace scope; the drain adopts it.
+        take_trace_id = tracing.current_trace_id()
 
         async def _drain() -> None:
             background.phase = "storage writes"
-            await execute_write_reqs(write_reqs, writer, budget, rank)
+            watch.set_phase("write")
+            await watch.async_tick(force=True)
+            write_stats: Dict[str, Any] = {}
+            drain_t0 = time.monotonic()
+            await execute_write_reqs(
+                write_reqs, writer, budget, rank, stats=write_stats, progress=watch
+            )
+            recorder.add_phase("write", time.monotonic() - drain_t0)
+            recorder.note_pipeline(write_stats)
+            if chunk_ctx is not None:
+                chunk_ctx.stats.fold_into_churn(churn)
+                recorder.note(churn=churn)
             writer.ensure_durable()
             # The marker carries the manifest, so it is serialised only
             # now: staging fills in the payload checksums and chunk records.
             background.phase = "commit markers"
+            watch.set_phase("commit")
+            await watch.async_tick(force=True)
+            commit_t0 = time.monotonic()
             await _acommit_via_storage(
                 storage, rank, world_size, manifest, background.take_id,
                 base_paths=base_paths, snapshot_path=path,
+                rank_summary=recorder.rank_summary(), kind="async_take", progress=watch,
             )
+            recorder.add_phase("commit", time.monotonic() - commit_t0)
+            watch.finish()
+            flight.local_export(recorder)
 
         def _run() -> None:
             try:
-                asyncio.run(_drain())
+                with tracing.adopt_trace(take_trace_id):
+                    asyncio.run(_drain())
             finally:
                 if chunk_ctx is not None:
                     chunk_ctx.cleanup()
@@ -406,7 +517,7 @@ class Snapshot:
             if chunk_ctx is not None:
                 chunk_ctx.cleanup()
             raise
-        return PendingSnapshot(path, coord, background, storage)
+        return background, storage
 
     def delete(self, sweep: bool = False, force: bool = False) -> None:
         """Delete this snapshot from storage, as the JAX package does.
@@ -518,6 +629,23 @@ class Snapshot:
         coordinator = get_coordinator(coord if coord is not None else self._coord)
         rank = coordinator.get_rank()
         storage = self._open_storage()
+        try:
+            with goodput_acct.blocked("restore"), tracing.trace_scope("restore"), tracing.span(
+                "Snapshot.restore", path=self.path
+            ):
+                self._restore(app_state, coordinator, rank, storage, paths, verify_device)
+        finally:
+            storage.close()
+
+    def _restore(
+        self,
+        app_state: AppState,
+        coordinator: Coordinator,
+        rank: int,
+        storage: StoragePlugin,
+        paths: Optional[List[str]],
+        verify_device: bool,
+    ) -> None:
         token = _cprof.begin()
         stats: Dict[str, Any] = {}
         verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = [] if verify_device else None
@@ -525,6 +653,16 @@ class Snapshot:
         try:
             metadata = self._read_metadata(storage)
             available = self._available_entries(metadata, rank)
+            # The rank's flight record of this restore: the read, consume
+            # and assemble breakdown, written best-effort at the end.
+            recorder = flight.FlightRecorder(kind="restore", path=self.path, rank=rank)
+            tracing.set_identity(rank=rank)
+            watch = liveprog.ProgressPublisher(
+                kind="restore", path=self.path, rank=rank,
+                world_size=coordinator.get_world_size(),
+            )
+            watch.set_phase("restore")
+            telemetry.counter(_metric_names.RESTORES_TOTAL).inc()
             app_state = dict(app_state)
             rng_key, rng_stateful = _pop_rng_state(app_state)
             # Every rank joins every per-key barrier, whichever statefuls
@@ -536,17 +674,21 @@ class Snapshot:
                 if key in app_state:
                     n_selected += _load_stateful(
                         key, app_state[key], available, storage, rank, budget, worlds, stats,
-                        verify_jobs, paths,
+                        verify_jobs, paths, watch,
                     )
                 coordinator.barrier()
             if rng_stateful is not None:
                 n_selected += _load_stateful(
                     rng_key, rng_stateful, available, storage, rank, budget, worlds, stats,
-                    verify_jobs, paths,
+                    verify_jobs, paths, watch,
                 )
+            watch.finish()
         finally:
-            storage.close()
-            _set_restore_report(token, stats)
+            assemble_s = stats.pop("assemble_s", 0.0)
+            profile = _set_restore_report(token, stats)
+        _finish_restore_report(
+            recorder, stats, assemble_s, profile, storage, self.path, rank, coordinator
+        )
         if verify_jobs is not None:
             verified, skipped = _verify_restored_fingerprints(verify_jobs)
             logger.info(
@@ -622,6 +764,7 @@ class Snapshot:
             return inflate(containers, flattened, prefix=logical_path)
         finally:
             storage.close()
+            stats.pop("assemble_s", None)
             _set_restore_report(token, stats)
 
     def get_manifest(self) -> Manifest:
@@ -857,6 +1000,11 @@ class PendingSnapshot:
         usable, and a later ``wait()`` resumes."""
         if self._result is not None:
             return self._result
+        # The caller is blocked on the drain: checkpoint time for goodput.
+        with goodput_acct.blocked("drain_wait"):
+            return self._wait(timeout_s)
+
+    def _wait(self, timeout_s: float) -> Snapshot:
         deadline = time.monotonic() + timeout_s
         thread = self._background.thread
         if thread is not None:
@@ -1021,16 +1169,19 @@ def _run_reads(
     rank: int,
     budget: int,
     stats: Dict[str, Any],
+    progress: Optional[Any] = None,
 ) -> None:
     """Run the reads, then publish the array plans. Every plan's transfer
     failure surfaces before any remaining finalize publishes; after a
-    failure no transfer is left writing when the error propagates."""
+    failure no transfer is left writing when the error propagates. The
+    publishing (assembly) seconds add up in ``stats["assemble_s"]``."""
     cuda = [p.region.device for p in plans if p.region.is_cuda]
     device_budget = get_device_restore_budget_bytes(cuda[0] if cuda else None)
     try:
         asyncio.run(
             execute_read_reqs(
-                reqs, storage, budget, rank, device_budget_bytes=device_budget, stats=stats
+                reqs, storage, budget, rank, device_budget_bytes=device_budget, stats=stats,
+                progress=progress,
             )
         )
         for plan in plans:
@@ -1039,8 +1190,10 @@ def _run_reads(
         for plan in plans:
             plan.settle()
         raise
+    assemble_t0 = time.monotonic()
     for plan in plans:
         plan.finalize()
+    stats["assemble_s"] = stats.get("assemble_s", 0.0) + time.monotonic() - assemble_t0
     stats["region_bytes"] = stats.get("region_bytes", 0) + sum(p.region.nbytes for p in plans)
     stats["streamed_bytes"] = stats.get("streamed_bytes", 0) + sum(p.streamed_bytes for p in plans)
     stats["private_bytes"] = stats.get("private_bytes", 0) + sum(
@@ -1048,20 +1201,96 @@ def _run_reads(
     )
 
 
-def _set_restore_report(token: Any, stats: Dict[str, Any]) -> None:
+def _set_restore_report(token: Any, stats: Dict[str, Any]) -> Optional[Dict[str, Any]]:
     """Close the consume-profile scope; keep its block, with the read
-    pipeline's numbers, in ``_last_restore_report``."""
+    pipeline's numbers, in ``_last_restore_report``. Returns the profile
+    as collected (None when nothing was noted)."""
     global _last_restore_report
     consume = stats.get("ops", {}).get("consume", {})
     block = _cprof.collect(token, consume_s=consume.get("seconds", 0.0))
     if block is None:
-        return
+        return None
+    profile = json.loads(json.dumps(block))
     block["bytes"] = consume.get("bytes", 0)
     block["scheduler"] = stats
     overlap = block["substeps"].get("h2d_overlap")
     if overlap and overlap["seconds"] > 0:
         block["h2d_overlap_gbps"] = overlap["bytes"] / 1e9 / overlap["seconds"]
     _last_restore_report = block
+    return profile
+
+
+# A restore's report measures the H2D link only for restores that moved at
+# least this much (two small copies are noise on a large restore and pure
+# overhead on a small one); 0 probes every restore.
+_H2D_PROBE_MIN_BYTES_ENV_VAR = "TPUSNAPSHOT_H2D_PROBE_MIN_BYTES"
+_DEFAULT_H2D_PROBE_MIN_BYTES = 64 << 20
+
+
+def _finish_restore_report(
+    recorder: Any,
+    stats: Dict[str, Any],
+    assemble_s: float,
+    profile: Optional[Dict[str, Any]],
+    storage: StoragePlugin,
+    path: str,
+    rank: int,
+    coordinator: Coordinator,
+) -> None:
+    """Fold the read pipeline's numbers and the consume profile into the
+    flight recorder, gather every rank's summary over the coordinator
+    (the restore is collective already), and have rank 0 write one
+    merged ``.report.restore.json`` and the ledger's restore record. The
+    gather runs on every rank; the writes are best-effort (restoring
+    from a read-only location must not fail)."""
+    recorder.note_pipeline(stats)
+    ops = stats.get("ops") or {}
+    consume_agg = ops.get("consume") or {}
+    consume_s = consume_agg.get("seconds", 0.0)
+    recorder.add_phase("read", (ops.get("read") or {}).get("seconds", 0.0))
+    recorder.add_phase("consume", consume_s)
+    recorder.add_phase("assemble", assemble_s)
+    try:
+        if profile is not None:
+            # GB/s here are GiB/s (2**30), as in the JAX package's reports.
+            consumed = int(consume_agg.get("bytes", 0))
+            profile["bytes"] = consumed
+            probe = None
+            if consume_s > 0 and consumed > 0:
+                gbps = consumed / (1 << 30) / consume_s
+                profile["consume_gbps"] = round(gbps, 6)
+                if consumed >= env_int(_H2D_PROBE_MIN_BYTES_ENV_VAR, _DEFAULT_H2D_PROBE_MIN_BYTES):
+                    from .ops.transfer import report_h2d_probe_gbps
+
+                    probe = report_h2d_probe_gbps()
+                if probe:
+                    profile["h2d_probe_gbps"] = round(probe, 4)
+                    profile["h2d_fraction"] = round(gbps / probe, 6)
+            overlap = (profile.get("substeps") or {}).get("h2d_overlap")
+            if overlap and overlap.get("seconds", 0) > 0:
+                ogbps = overlap.get("bytes", 0) / (1 << 30) / overlap["seconds"]
+                profile["h2d_overlap_gbps"] = round(ogbps, 6)
+                if probe:
+                    profile["h2d_overlap_vs_probe"] = round(ogbps / probe, 6)
+            recorder.note(consume_profile=profile)
+    except Exception as e:
+        logger.warning("consume-profile collection failed: %r", e)
+    # The state is restored by now: even the gather failing is caught on
+    # every rank, and it is the restore's last collective.
+    try:
+        summaries = coordinator.all_gather_object(recorder.rank_summary())
+        if rank == 0:
+            report = flight.build_report(
+                "restore", path, None, coordinator.get_world_size(), summaries
+            )
+            try:
+                asyncio.run(flight.awrite_json(storage, flight.RESTORE_REPORT_FNAME, report))
+            except Exception as e:
+                logger.debug("restore flight-record write failed: %r", e)
+            _ledger_append_best_effort(path, report)
+    except Exception as e:
+        logger.warning("restore report gather failed: %r", e)
+    flight.local_export(recorder)
 
 
 def _load_stateful(
@@ -1075,6 +1304,7 @@ def _load_stateful(
     stats: Dict[str, Any],
     verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = None,
     path_globs: Optional[List[str]] = None,
+    progress: Optional[Any] = None,
 ) -> int:
     """Load one stateful; returns how many of its leaves ``path_globs``
     selected (all of them without a filter)."""
@@ -1115,7 +1345,7 @@ def _load_stateful(
         r, f = prepare_read(available[logical_path], template, _callback)
         reqs.extend(r)
         plans.extend(f)
-    _run_reads(reqs, plans, storage, rank, budget, stats)
+    _run_reads(reqs, plans, storage, rank, budget, stats, progress)
     if verify_jobs is not None:
         for logical_path in sorted(selected & set(flattened)):
             entry = available.get(logical_path)
@@ -1288,13 +1518,35 @@ async def _acommit_via_storage(
     timeout_s: float = _COMPLETION_TIMEOUT_S,
     base_paths: Optional[List[str]] = None,
     snapshot_path: str = "",
+    rank_summary: Optional[Dict[str, Any]] = None,
+    kind: str = "take",
+    progress: Optional[Any] = None,
 ) -> Optional[SnapshotMetadata]:
     """Commit by completion markers, as the JAX package's async drain
     does: every rank writes its manifest to ``.completed/<take_id>/<rank>``;
     rank 0 polls for every marker, merges them, writes the chunk-ref
     document of ``snapshot_path`` and then the metadata, and removes the
     markers. ``base_paths`` is the same on every rank. Returns the
-    metadata on rank 0."""
+    metadata on rank 0.
+
+    ``rank_summary`` (the flight recorder's) rides storage, never the
+    coordinator, which the async drain must not touch: ranks other than
+    0 write ``.report/<take_id>/<rank>`` before their marker, and rank 0
+    merges them into ``.report.json`` after the metadata, then appends
+    the ledger record. Report IO is best-effort: it never fails the
+    commit. ``progress`` (the async route's publisher) writes a rank's
+    last record before its marker; rank 0 removes every rank's record
+    at commit."""
+    if rank_summary is not None and rank != 0:
+        try:
+            await flight.awrite_json(storage, flight.rank_report_path(take_id, rank), rank_summary)
+        except Exception as e:
+            logger.warning("flight-record summary write for rank %d failed: %r", rank, e)
+    if progress is not None and rank != 0:
+        # Published before the marker, so nothing republishes once rank 0
+        # has swept the records.
+        progress.finish()
+        await progress.async_tick(force=True)
     marker = IOReq(path=f".completed/{take_id}/{rank}")
     marker.buf.write(
         _encode_metadata_doc(
@@ -1334,11 +1586,34 @@ async def _acommit_via_storage(
     )
     await _awrite_chunk_refs(snapshot_path, metadata)
     await _write_metadata(storage, metadata)
+    # Every rank's writes are done (their markers are in), so the progress
+    # records describe nothing live; this is their one deletion path.
+    if progress is not None:
+        await liveprog.acleanup_progress_objects(storage, take_id, world_size)
     for r in range(world_size):
         try:
             await storage.delete(f".completed/{take_id}/{r}")
         except Exception:  # a leftover marker is inert; delete() removes it
             logger.debug(f"removing .completed/{take_id}/{r} failed", exc_info=True)
+    if rank_summary is not None:
+        # Each summary was written before its rank's marker: one read a
+        # rank, no polling. A missing one stays null in the report.
+        summaries: List[Optional[Dict[str, Any]]] = [rank_summary]
+        for r in range(1, world_size):
+            summaries.append(await flight.aread_json(storage, flight.rank_report_path(take_id, r)))
+        report = flight.build_report(kind, snapshot_path, take_id, world_size, summaries)
+        try:
+            await flight.awrite_json(storage, flight.REPORT_FNAME, report)
+        except Exception as e:
+            logger.warning("flight-record report write failed: %r", e)
+        await _aledger_append_best_effort(snapshot_path, report)
+        for r in range(1, world_size):
+            try:
+                await _delete_ignore_missing(storage, flight.rank_report_path(take_id, r))
+            except Exception:  # inert, and swept by delete and reconcile
+                logger.debug(
+                    f"removing {flight.rank_report_path(take_id, r)} failed", exc_info=True
+                )
     return metadata
 
 
@@ -1832,6 +2107,51 @@ async def _write_metadata(storage: StoragePlugin, metadata: SnapshotMetadata) ->
     io_req = IOReq(path=SNAPSHOT_METADATA_FNAME)
     io_req.buf.write(_encode_metadata_doc(metadata.to_yaml()))
     await storage.write(io_req)
+    # The commit point in a trace: retries and injected faults before it
+    # belong to a take that never committed.
+    tracing.instant(
+        "metadata_committed", take_id=metadata.take_id or "", world_size=metadata.world_size
+    )
+
+
+def _take_telemetry(kind: str, path: str, rank: int, world_size: int) -> Tuple[Any, Any]:
+    """A take's flight recorder and live progress publisher (both
+    observability only: nothing fails the take through them)."""
+    recorder = flight.FlightRecorder(kind=kind, path=path, rank=rank)
+    tracing.set_identity(rank=rank)
+    watch = liveprog.ProgressPublisher(kind=kind, path=path, rank=rank, world_size=world_size)
+    telemetry.counter(
+        _metric_names.TAKES_TOTAL, mode="sync" if kind == "take" else "async"
+    ).inc()
+    return recorder, watch
+
+
+def _ledger_append_best_effort(snapshot_path: str, report: Dict[str, Any]) -> None:
+    """Fold the merged flight report into a ledger digest and append it
+    (rank 0, after the commit). A failed append warns and counts; it
+    never fails the commit it records."""
+    try:
+        runledger.append_for_snapshot(snapshot_path, runledger.digest_from_report(report))
+    except Exception as e:
+        telemetry.counter(_metric_names.LEDGER_APPEND_FAILURES).inc()
+        logger.warning("telemetry ledger append failed: %r", e)
+
+
+async def _aledger_append_best_effort(snapshot_path: str, report: Dict[str, Any]) -> None:
+    """:func:`_ledger_append_best_effort` inside a running event loop."""
+    try:
+        await runledger.aappend_for_snapshot(snapshot_path, runledger.digest_from_report(report))
+    except Exception as e:
+        telemetry.counter(_metric_names.LEDGER_APPEND_FAILURES).inc()
+        logger.warning("telemetry ledger append failed: %r", e)
+
+
+def _write_report_best_effort(storage: StoragePlugin, report: Dict[str, Any]) -> None:
+    """Write a flight report; never fail the operation it describes."""
+    try:
+        asyncio.run(flight.awrite_json(storage, flight.REPORT_FNAME, report))
+    except Exception as e:
+        logger.warning("flight-record report write failed: %r", e)
 
 
 async def _aread_metadata_at(url: str) -> SnapshotMetadata:
@@ -2010,11 +2330,15 @@ def _prepare_take(
     fingerprint: Optional[bool],
     chunks: Optional[bool],
     codec: Optional[Any],
-) -> Tuple[Manifest, List[WriteReq], List[str], Any]:
+    recorder: Any,
+    watch: Any,
+) -> Tuple[Manifest, List[WriteReq], List[str], Any, Dict[str, Any]]:
     """A take's cut, then its incremental pass and its chunk pass, before
     any payload is staged (so a deduplicated leaf is never copied):
     (this rank's manifest, the write requests left, ``base_paths``, the
-    chunk context to clean up after the commit, or None)."""
+    chunk context to clean up after the commit, or None, and the rank's
+    churn note). Each pass is a phase of ``recorder`` and of the
+    progress publisher ``watch``."""
     global _last_take_stats
     from . import chunkstore
     from .incremental import IncrementalStats, apply_incremental
@@ -2024,7 +2348,9 @@ def _prepare_take(
         coordinator, _resolve_base_arg(base), fingerprint, chunks, codec
     )
     _validate_base_path(base_path, path)
-    manifest, write_reqs = _capture(app_state, coordinator, replicated or [], compression)
+    watch.set_phase("capture")
+    with recorder.phase("capture"):
+        manifest, write_reqs = _capture(app_state, coordinator, replicated or [], compression)
     rank = coordinator.get_rank()
     record = (
         fingerprint
@@ -2034,20 +2360,28 @@ def _prepare_take(
     base_paths: List[str] = []
     inc = IncrementalStats()
     if base_path is not None or record:
-        base_paths, inc = apply_incremental(
-            manifest, write_reqs, rank=rank, own_path=path, base_path=base_path,
-            record_fingerprints=record, base_metadata=_reusable_base_metadata(base, base_path),
-            coordinator=coordinator if base_path is not None else None,
-        )
+        watch.set_phase("incremental")
+        with recorder.phase("incremental"), tracing.span("Snapshot.incremental", path=path):
+            base_paths, inc = apply_incremental(
+                manifest, write_reqs, rank=rank, own_path=path, base_path=base_path,
+                record_fingerprints=record, base_metadata=_reusable_base_metadata(base, base_path),
+                coordinator=coordinator if base_path is not None else None,
+            )
+    # The churn note of the flight summary; without a fingerprint pass
+    # everything written is "added" (basis "full").
+    churn = inc.churn_note(base_path is not None)
+    recorder.note(churn=churn)
     chunk_ctx = None
     stats = chunkstore.ChunkStats()
     if chunks if chunks is not None else chunkstore.chunks_enabled_default():
-        chunk_ctx = chunkstore.apply_chunkstore(
-            manifest, write_reqs, rank=rank, own_path=path, base_paths=base_paths,
-            codec_spec=codec, stats=stats,
-        )
+        watch.set_phase("chunk")
+        with recorder.phase("chunk"), tracing.span("Snapshot.chunkstore", path=path):
+            chunk_ctx = chunkstore.apply_chunkstore(
+                manifest, write_reqs, rank=rank, own_path=path, base_paths=base_paths,
+                codec_spec=codec, stats=stats,
+            )
     _last_take_stats = {"incremental": inc, "chunks": stats}
-    return manifest, write_reqs, base_paths, chunk_ctx
+    return manifest, write_reqs, base_paths, chunk_ctx, churn
 
 
 def _verify_restored_fingerprints(jobs: List[Tuple[str, Entry, Any]]) -> Tuple[int, int]:

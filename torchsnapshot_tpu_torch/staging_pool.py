@@ -35,11 +35,15 @@ Env knobs (the JAX package's names):
 
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from . import telemetry
 from .telemetry import consume_profile as _cprof
+from .telemetry import memwatch
+from .telemetry import metrics as _metric_names
 from .utils.env import env_float, env_int
 
 _POOL_BYTES_ENV_VAR = "TPUSNAPSHOT_RESTORE_STAGING_POOL_BYTES"
@@ -151,6 +155,13 @@ class StagingPool:
         self._in_use_bytes = 0
         self._high_water_bytes = 0
         self._counts = {"hits": 0, "misses": 0, "waits": 0, "pinned_allocs": 0}
+        # Retained plus leased bytes against the cap. Leases are pinned
+        # (a live restore holds them); retained free buffers can be
+        # evicted, so the leak watch follows the leased side.
+        self._mem_domain = memwatch.register(
+            "staging_pool", cap_bytes=capacity_bytes, watch_residual="pinned"
+        )
+        weakref.finalize(self, self._mem_domain.close)
 
     def acquire(
         self,
@@ -180,6 +191,8 @@ class StagingPool:
                         self._cond.wait(remaining)
                         buf = self._take_free_locked(key)
                 self._counts["waits"] += 1
+                telemetry.counter(_metric_names.RESTORE_POOL_WAITS).inc(1)
+                self._mem_domain.counter("waits")
                 if buf is None:
                     buf = self._take_free_locked(key)
                 # A release wakes one waiter (not the herd, which would
@@ -188,12 +201,15 @@ class StagingPool:
                 self._cond.notify()
             hit = buf is not None
             self._counts["hits" if hit else "misses"] += 1
-            if not hit:
+            if hit:
+                telemetry.counter(_metric_names.RESTORE_POOL_HITS).inc(1)
+                self._mem_domain.counter("hits")
+            else:
                 self._counts["pinned_allocs"] += int(pinned)
+                telemetry.counter(_metric_names.RESTORE_POOL_MISSES).inc(1)
+                self._mem_domain.counter("misses")
             self._in_use_bytes += nbytes
-            self._high_water_bytes = max(
-                self._high_water_bytes, self._free_bytes + self._in_use_bytes
-            )
+            self._publish_locked()
         if buf is None:
             # Outside the lock: pinning takes a while, and page-locking a
             # large buffer must not stall every other acquisition.
@@ -237,7 +253,19 @@ class StagingPool:
             if self._free_bytes + key[0] <= self.capacity_bytes:
                 self._free.setdefault(key, []).append(buffer)
                 self._free_bytes += key[0]
+            self._publish_locked()
             self._cond.notify()
+
+    def _publish_locked(self) -> None:
+        """Mirror occupancy into the gauges and the memwatch domain
+        (retained plus leased against the cap, leases pinned), under the
+        pool's condition, after every change of bytes."""
+        total = self._free_bytes + self._in_use_bytes
+        self._high_water_bytes = max(self._high_water_bytes, total)
+        telemetry.gauge(_metric_names.RESTORE_POOL_RETAINED).set(float(self._free_bytes))
+        telemetry.gauge(_metric_names.RESTORE_POOL_LEASED).set(float(self._in_use_bytes))
+        telemetry.gauge(_metric_names.RESTORE_POOL_HWM).set(float(self._high_water_bytes))
+        self._mem_domain.set_used(total, pinned_bytes=self._in_use_bytes)
 
     def stats(self) -> Dict[str, int]:
         """Occupancy and, since the pool was made, its hits, misses,

@@ -19,7 +19,8 @@ import threading
 import time
 from typing import List, Optional, Set
 
-from ..io_types import IOReq, StoragePlugin, emit_storage_op
+from .. import telemetry
+from ..io_types import IOReq, StoragePlugin, emit_storage_op, io_payload
 
 
 def _fsync_dir(path: str) -> None:
@@ -174,15 +175,24 @@ class FSStoragePlugin(StoragePlugin):
 
     async def write(self, io_req: IOReq) -> None:
         loop = asyncio.get_running_loop()
+        nbytes = len(io_payload(io_req))
+        t0 = time.monotonic()
         await loop.run_in_executor(None, self._write_sync, io_req)
+        telemetry.record_storage_op("fs", "write", time.monotonic() - t0, nbytes)
 
     async def read(self, io_req: IOReq) -> None:
         loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
         await loop.run_in_executor(None, self._read_sync, io_req)
+        telemetry.record_storage_op(
+            "fs", "read", time.monotonic() - t0, len(io_payload(io_req))
+        )
 
     async def delete(self, path: str) -> None:
         loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
         await loop.run_in_executor(None, os.remove, os.path.join(self.root, path))
+        telemetry.record_storage_op("fs", "delete", time.monotonic() - t0)
 
     def _list_sync(self, prefix: str) -> List[str]:
         # Object-store semantics: a plain string prefix over paths relative

@@ -26,6 +26,7 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional
 
+from .. import telemetry
 from ..io_types import IOReq, StoragePlugin, io_payload, is_not_found_error
 from ..utils.env import env_int
 
@@ -116,12 +117,14 @@ class GCSStoragePlugin(StoragePlugin):
 
     async def write(self, io_req: IOReq) -> None:
         payload = io_payload(io_req)
+        t0 = time.monotonic()
         if len(payload) >= _parallel_upload_threshold():
             await self._parallel_composite_upload(io_req.path, payload)
-            return
-        loop = asyncio.get_running_loop()
-        key = f"{self.root}/{io_req.path}"
-        await loop.run_in_executor(self._executor, self._upload_sync, key, payload)
+        else:
+            loop = asyncio.get_running_loop()
+            key = f"{self.root}/{io_req.path}"
+            await loop.run_in_executor(self._executor, self._upload_sync, key, payload)
+        telemetry.record_storage_op("gcs", "write", time.monotonic() - t0, len(payload))
 
     def _read_sync(self, io_req: IOReq) -> None:
         blob = self._blob(io_req.path)
@@ -133,11 +136,18 @@ class GCSStoragePlugin(StoragePlugin):
 
     async def read(self, io_req: IOReq) -> None:
         loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
         await loop.run_in_executor(self._executor, self._read_sync, io_req)
+        telemetry.record_storage_op(
+            "gcs", "read", time.monotonic() - t0,
+            len(io_req.data) if io_req.data is not None else 0,
+        )
 
     async def delete(self, path: str) -> None:
         loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
         await loop.run_in_executor(self._executor, self._blob(path).delete)
+        telemetry.record_storage_op("gcs", "delete", time.monotonic() - t0)
 
     def _list_sync(self, prefix: str) -> List[str]:
         full_prefix = f"{self.root}/{prefix}" if prefix else f"{self.root}/"

@@ -12,6 +12,7 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+from .. import telemetry
 from ..io_types import IOReq, StoragePlugin
 
 # Write times per bucket, keyed by the bucket's id with the bucket itself
@@ -45,11 +46,14 @@ class MemoryStoragePlugin(StoragePlugin):
         return self.prefix + path
 
     async def write(self, io_req: IOReq) -> None:
+        t0 = time.monotonic()
         payload = io_req.data if io_req.data is not None else io_req.buf.getbuffer()
         self.store[self._key(io_req.path)] = bytes(payload)
         self._mtimes[self._key(io_req.path)] = time.time()
+        telemetry.record_storage_op("memory", "write", time.monotonic() - t0, len(payload))
 
     async def read(self, io_req: IOReq) -> None:
+        t0 = time.monotonic()
         try:
             data = self.store[self._key(io_req.path)]
         except KeyError:
@@ -59,13 +63,16 @@ class MemoryStoragePlugin(StoragePlugin):
             start, end = io_req.byte_range
             data = data[start:end]
         io_req.data = data
+        telemetry.record_storage_op("memory", "read", time.monotonic() - t0, len(data))
 
     async def delete(self, path: str) -> None:
+        t0 = time.monotonic()
         key = self._key(path)
         if key not in self.store:
             raise FileNotFoundError(path)
         del self.store[key]
         self._mtimes.pop(key, None)
+        telemetry.record_storage_op("memory", "delete", time.monotonic() - t0)
 
     async def list_prefix(self, prefix: str) -> Optional[List[str]]:
         full = self._key(prefix)

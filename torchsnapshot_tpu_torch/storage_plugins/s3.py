@@ -10,9 +10,11 @@ bucket; a ranged read sends an HTTP ``Range: bytes=<start>-<end - 1>``
 
 import asyncio
 import datetime
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, List, Optional
 
+from .. import telemetry
 from ..io_types import IOReq, StoragePlugin, is_not_found_error
 
 _IO_THREADS = 8
@@ -61,26 +63,35 @@ class S3StoragePlugin(StoragePlugin):
             body = bytes(io_req.data)
         else:
             body = io_req.buf.getvalue()
+        t0 = time.monotonic()
         await self._call("put_object", Bucket=self.bucket, Key=self._key(io_req.path), Body=body)
+        telemetry.record_storage_op("s3", "write", time.monotonic() - t0, len(body))
 
     async def read(self, io_req: IOReq) -> None:
         kwargs = {"Bucket": self.bucket, "Key": self._key(io_req.path)}
         if io_req.byte_range is not None:
             start, end = io_req.byte_range
             kwargs["Range"] = f"bytes={start}-{end - 1}"
+        t0 = time.monotonic()
         if self._mode == "aio":
             async with self._session.create_client("s3") as client:
                 response = await client.get_object(**kwargs)
                 async with response["Body"] as stream:
                     io_req.data = await stream.read()
-            return
-        loop = asyncio.get_running_loop()
-        io_req.data = await loop.run_in_executor(
-            self._executor, lambda: self._client.get_object(**kwargs)["Body"].read()
+        else:
+            loop = asyncio.get_running_loop()
+            io_req.data = await loop.run_in_executor(
+                self._executor, lambda: self._client.get_object(**kwargs)["Body"].read()
+            )
+        telemetry.record_storage_op(
+            "s3", "read", time.monotonic() - t0,
+            len(io_req.data) if io_req.data is not None else 0,
         )
 
     async def delete(self, path: str) -> None:
+        t0 = time.monotonic()
         await self._call("delete_object", Bucket=self.bucket, Key=self._key(path))
+        telemetry.record_storage_op("s3", "delete", time.monotonic() - t0)
 
     async def list_prefix(self, prefix: str) -> Optional[List[str]]:
         full_prefix = f"{self.root}/{prefix}" if prefix else f"{self.root}/"
