@@ -34,7 +34,9 @@ Phases, each printing JSON lines to stdout:
    batch, against their plain versions, run on the card, and the host
    fingerprint, bit for bit: nine dtypes from bool to f64, empty and odd
    lengths, 1-byte views at odd offsets, boxes along either dim, chunk
-   sizes that do not divide, each a batch of one launched twice; one K4
+   sizes that do not divide (the host at 12-byte chunks up to 4097
+   elements, the plain version at every length), each a batch of one
+   launched twice; one K4
    batch of them all with a tensor given twice, K5 batches over leaves
    of different chunk counts, a batch split between the fast and the
    general path. Then their times at the 40.96 MB w1, the 321.6 MB embed
@@ -128,6 +130,27 @@ Phases, each printing JSON lines to stdout:
    restored byte-equal), and a world-2 gloo take with rank 1's publishes
    muted (rank 0's TimeoutError names rank 1 within the 20 s deadline).
    ``FAULTS_INJECTED`` moves by exactly the 503 take's ``fault_counts()``.
+6f. hottier — in a process of its own, run beside the faults phase
+    (both hold correctness gates; its times are taken beside that load):
+    the hot tier with two real peer processes (``python -m
+    torchsnapshot_tpu_torch.hottier.peer``, hosts 1 and 2; this process
+    is host 0; k = 2) holding a CUDA state's replicas: the transformer at
+    GPT-2 XL's widths and 6 of its 48 layers (51 leaves, 1.07 GB; cut for
+    the time limit, since the tier fingerprints every object on the host
+    several times). An async take acked from peer RAM (K4 once over the
+    leaves), the background drain to the ``.tierdown`` watermark, a
+    restore into a zeroed CUDA template served hot from this host's RAM,
+    an unchanged sync retake replicated as delta pushes (under 10 % of
+    its bytes on the wire; its report's ``tier.replication`` and ``wire``
+    blocks), then the restore after preemption: host 0 lost, every
+    object served from peer 1's RAM over get RPCs, and last, with peer 1
+    SIGKILLed as well, a restore that falls back object by object to
+    durable storage (``hot-tier-degraded`` naming hosts 0 and 1), each
+    bit-identical; it prints the times, the put and get RPCs' GB/s, this
+    host's fingerprint rate and the put path's host tags' share of the
+    ack and of each hot restore, and MemAvailable. Stopped, it kills its
+    peers in its ``finally``; the peers share its process group, which
+    the script kills if it does not stop in time.
 7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
    tokens, every step through the three flash kernels (48 launches each
    per step), checkpointed as a training job does through
@@ -155,12 +178,12 @@ Phases, each printing JSON lines to stdout:
    model on the card, byte-equal, and a forward on 4 × 1024 tokens
    through the flash kernel with logits bit-identical to those of a
    model built from the seed with the same change.
-9. ring — the flagship at GPT-2 XL's widths and half its depth (24 of
-   48 layers, a cut for the time limit), f32,
+9. ring — the flagship at GPT-2 XL's widths and a quarter of its depth
+   (12 of 48 layers, a cut for the time limit), f32,
    4 × 1024 tokens, trained one step by two processes
    sharing the card over gloo on a ``{"sp": 2}`` DeviceMesh: zigzag ring
    attention with flash chunks, so K1–K3 run as chunk kernels (5 chunk
-   attentions a layer a rank: 120 launches of each kernel a step). The
+   attentions a layer a rank: 60 launches of each kernel a step). The
    reference is one process's flash step on the same weights and
    tokens, run first: the ranks' losses are equal and within rtol 1e-4 of it, and the gradients
    of ``embed``, ``layers/0/attn/wq``, the last layer's ``mlp/w2`` and
@@ -170,10 +193,10 @@ Phases, each printing JSON lines to stdout:
    helpers stage CUDA tensors on a gloo group), its peak card memory,
    and the step's transport alone: the gradient all-reduce, and the
    hops (or all-to-alls) on tensors of the same sizes.
-10. ulysses — the same at gpt2-large's widths and half its depth
-    (n_embd 1280, 20 heads, 18 of 36 layers, n_inner 5120: GPT-2 XL's 25
+10. ulysses — the same at gpt2-large's widths and a quarter of its depth
+    (n_embd 1280, 20 heads, 9 of 36 layers, n_inner 5120: GPT-2 XL's 25
     heads do not divide by sp 2), with Ulysses all-to-all attention
-    through the flash kernels (18 launches of each a step).
+    through the flash kernels (9 launches of each a step).
 11. dlrm — DLRM at the Criteo Kaggle widths of facebookresearch/dlrm's
     bench/dlrm_s_criteo_kaggle.sh (embedding 16, bottom MLP
     13-512-256-64-16, top 367-512-256-1, batch 128, lr 0.1) with the 26
@@ -203,7 +226,8 @@ Phases, each printing JSON lines to stdout:
 17. phase seconds — one JSON line with each phase's wall seconds.
 18. kernels — one JSON line summarising every kernel of the paths (K4
     and K5 with their launches and segments on the dedup, api, dlrm,
-    dryrun, faults and examples paths, K1 with its launches on each).
+    dryrun, faults, examples and hottier paths, K1 with its launches on
+    each).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -225,10 +249,12 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -780,8 +806,9 @@ def phase_kernel_fingerprint():
     """The batched K4 and K5 against their plain versions (run on the
     card) and the host twins, bit for bit: every dtype of the tests at
     their edges (empty, odd lengths, 1-byte views at odd offsets, one-dim
-    boxes, chunk sizes that do not divide), each a batch of one launched
-    twice; then one K4 batch of all of them with one tensor given twice,
+    boxes, chunk sizes that do not divide; the host twin at 12-byte
+    chunks up to 4097 elements), each a batch of one launched twice;
+    then one K4 batch of all of them with one tensor given twice,
     one K5 batch over leaves whose chunk counts differ, and a batch split
     between the fast and the general path. Then the times at the dedup
     path's shapes (w1, embed, the 387 state leaves) as one batch each:
@@ -816,15 +843,16 @@ def phase_kernel_fingerprint():
         if err or got[0] != got[-1] or got[0] != want or launched != (2 if nonempty else 0):
             failures.append(name)
 
-    def check_chunked(name, items, chunk_bytes):
+    def check_chunked(name, items, chunk_bytes, host=True):
+        """``host=False`` holds the kernel to its plain version alone."""
         nonlocal cases, worst
         launches = fops.fingerprint_chunked_launches
         outs = [fops.fingerprint_chunked_many(items, chunk_bytes) for _ in range(2)]
         launched = fops.fingerprint_chunked_launches - launches
         sizes = [chunk_bytes] * len(items) if isinstance(chunk_bytes, int) else chunk_bytes
         plain = [fops.fingerprint_chunked_reference(x, cb) for x, cb in zip(items, sizes)]
-        want = [fp.fingerprint_host_chunked(x.cpu(), cb) for x, cb in zip(items, sizes)]
         got = [fp.resolve_chunk_fingerprints(o) for o in outs]
+        want = [fp.fingerprint_host_chunked(x.cpu(), cb) for x, cb in zip(items, sizes)] if host else got[0]
         torch.cuda.synchronize()
         err = max(_lanes_err(o, p) for out in outs for o, p in zip(out, plain))
         worst = max(worst, err)
@@ -840,7 +868,10 @@ def phase_kernel_fingerprint():
             batch_items.append((x, None))
             check_boxes(f"k4_{dtype}_{n}", [(x, None)])
             for cb in (12, 4096):
-                check_chunked(f"k5_{dtype}_{n}_{cb}", [x], cb)
+                # The host twin at 12-byte chunks (87,381 chunks a MiB) is
+                # held up to 4097 elements, for the script's time limit; the
+                # plain version on the card covers every length.
+                check_chunked(f"k5_{dtype}_{n}_{cb}", [x], cb, host=cb > 12 or n <= 4097)
     base = torch.randint(-100, 100, (100003,), generator=gen, device="cuda").to(torch.int8)
     for offset in (1, 2, 3):
         batch_items.append((base[offset:], None))
@@ -2367,11 +2398,12 @@ SP_RANK_TIMEOUT_S = 600.0
 # sp 2, as Ulysses needs; GPT-2 XL's 25 do not.
 GPT2_LARGE = dataclasses.replace(GPT2_XL, d_model=1280, n_heads=20, n_layers=36, d_ff=5120)
 # (phase, config, ring_attention mode, chunk attentions a layer a rank).
-# Published widths at half their depth (24 and 18 layers), so the whole
-# script keeps its time limit with the faults phase at full depth.
+# Published widths at a quarter of their depth (12 and 9 layers), so the
+# whole script keeps its time limit with the faults phase at full depth
+# and the hottier phase beside it.
 SP_PHASES = {
-    "ring": (dataclasses.replace(GPT2_XL, n_layers=24), "zigzag", 5),
-    "ulysses": (dataclasses.replace(GPT2_LARGE, n_layers=18), "ulysses", 1),
+    "ring": (dataclasses.replace(GPT2_XL, n_layers=12), "zigzag", 5),
+    "ulysses": (dataclasses.replace(GPT2_LARGE, n_layers=9), "ulysses", 1),
 }
 
 
@@ -2473,7 +2505,7 @@ def sp_rank(rank, world, phase, workdir):
 
 
 def phase_seq_parallel(phase):
-    """The flagship at the phase's published widths and half depth (SP_PHASES),
+    """The flagship at the phase's published widths and a quarter of its depth (SP_PHASES),
     f32, 4 × 1024 tokens: the reference is one process's flash step on
     the same weights and tokens (run first and freed, so the ranks get
     the card to themselves); then two ranks train one step over
@@ -3982,6 +4014,428 @@ def phase_examples():
     return record
 
 
+# The hot tier phase: GPT-2 XL's widths at 6 of its 48 layers (51 leaves,
+# about 1.07 GB), cut for the time limit: every object is fingerprinted on
+# the host several times over (a put's tag, the peer's ack check, the
+# drain's and each hot read's check).
+HOT_TIER_LAYERS = 6
+HOT_TIER_K = 2
+HOT_TIER_WORLD = 3
+# The replication RPC's deadline, sized for the largest object (the
+# 321.6 MB embed), which the peer fingerprints on the host before it
+# acks; the default (5 s) suits objects a few MB large. A restore finds
+# a killed peer dead once its retry budget (10 s by default; 3 s here)
+# runs out, and a peer found dead stays marked down for the rest of the
+# phase (2 s by default), so the discovery is paid once.
+HOT_TIER_DEADLINE_S = 120
+HOT_TIER_RETRY_BUDGET_S = 3
+HOT_TIER_DOWN_COOLDOWN_S = 600
+HOT_TIER_DRAIN_TIMEOUT_S = 600.0
+# The name of the runtime's background drain thread: its host tags are
+# timed apart from the put path's.
+HOT_TIER_DRAIN_THREAD = "tpusnapshot-hottier-drain"
+HOST_FP_PROBE_BYTES = 64 << 20
+
+
+def _mem_available():
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable line")
+
+
+def _host_fingerprint_rates():
+    """The host fingerprints' rates on this machine, GB/s: the hot tier's
+    tag (``fingerprint_host`` of a whole object) and the delta pushes'
+    chunk fingerprints (``fingerprint_host_chunked`` at 1 MiB), each over
+    64 MiB of random bytes."""
+    from torchsnapshot_tpu_torch.fingerprint import fingerprint_host, fingerprint_host_chunked
+
+    data = torch.randint(0, 256, (HOST_FP_PROBE_BYTES,), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(41)).numpy().tobytes()
+    begin = time.perf_counter()
+    fingerprint_host(data)
+    whole = time.perf_counter() - begin
+    begin = time.perf_counter()
+    fingerprint_host_chunked(data, 1 << 20)
+    chunked = time.perf_counter() - begin
+    return {"fingerprint_host_gbps": HOST_FP_PROBE_BYTES / whole / 1e9,
+            "fingerprint_host_chunked_gbps": HOST_FP_PROBE_BYTES / chunked / 1e9}
+
+
+def phase_hottier(smi, workroot=None):
+    """The hot tier with two real peer processes holding a CUDA state's
+    replicas. Two port peers (``python -m torchsnapshot_tpu_torch.hottier.peer``,
+    hosts 1 and 2) named in ``TPUSNAPSHOT_HOT_TIER_ADDRS``;
+    ``enable_hot_tier(rank=0, world=3, k=2)`` with each host's cap at
+    2.5 × the state; the transformer at GPT-2 XL's widths and 6 of its 48
+    layers on the card. Gates: (a) ``async_take(..., fingerprint=True).wait()``
+    acks with every object on hosts 0 and 1, K4 once over every leaf;
+    (b) ``wait_drained`` leaves ``.tierdown`` and
+    the durable payload equals the state's bytes; (c) a restore into a
+    zeroed CUDA template is served hot (from this host's RAM), 0
+    fallbacks in the report's ``tier`` block, bit-identical; (f) an
+    unchanged sync retake replicates under 10 % of its bytes
+    (``tier.replication.delta_ratio``) and (g) its report has the
+    ``tier.replication`` and ``wire`` blocks, its replicated bytes the
+    payload's (the async take's report has the ``wire`` block: the JAX
+    package opens the replication window for sync takes); (d) with host 0
+    lost (``kill_host(0)``: this host's RAM gone, as after a preemption),
+    a restore is served hot from peer 1 over get RPCs (the wiretap's
+    ring: every get to peer 1's address), 0 fallbacks, degraded peers
+    [0], bit-identical; (e) with peer 1 SIGKILLed as well, a restore
+    falls back object by object to durable storage, bit-identical, and
+    the doctor's ``hot-tier-degraded`` names hosts 0 and 1. It prints the
+    ack, drain, restore and retake seconds, the put and get RPCs' GB/s,
+    the host fingerprint rates of this machine, the host tags of the put
+    path and of the drain thread apart, their share of the ack and of
+    each hot restore, and MemAvailable before, at the peak and after.
+    ``workroot`` is the directory its snapshots go under (a new
+    temporary directory by default)."""
+    from torchsnapshot_tpu_torch import hottier, wiretap
+    from torchsnapshot_tpu_torch.hottier import peer as ht_peer
+    from torchsnapshot_tpu_torch.hottier import tier as ht_tier
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+    from torchsnapshot_tpu_torch.telemetry import report as flight
+    from torchsnapshot_tpu_torch.telemetry.doctor import diagnose_report
+
+    phase_begin = time.perf_counter()
+    torch.cuda.empty_cache()
+    record = {"phase": "hottier", "nvidia_smi": smi, "model": "GPT-2 XL widths, f32",
+              "reduced": f"{HOT_TIER_LAYERS} of 48 layers, for the time limit",
+              "k": HOT_TIER_K, "world": HOT_TIER_WORLD, "mem_available_before": _mem_available()}
+    record.update(_host_fingerprint_rates())
+    cfg = dataclasses.replace(GPT2_XL, n_layers=HOT_TIER_LAYERS)
+    model = tf.Transformer.init(cfg, seed=11)
+    leaves = list(tf.param_leaves(model.params()))
+    n = len(leaves)
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    record.update(leaves=n, state_bytes=state_bytes)
+    print(f"hottier: {n} leaves, {state_bytes} bytes at GPT-2 XL widths, {HOT_TIER_LAYERS} of 48 layers "
+          f"({smi})", flush=True)
+    app = {"model": tf.TransformerState(model)}
+    template = tf.Transformer.init(cfg, seed=12)
+    template_leaves = list(tf.param_leaves(template.params()))
+    capacity = int(2.5 * state_bytes)
+    needed = 3 * capacity
+    if record["mem_available_before"] < needed:
+        raise RuntimeError(f"the host has {record['mem_available_before']} bytes available; "
+                           f"the hot tier phase's three host stores need {needed}")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_hottier-", dir=workroot)
+    free = shutil.disk_usage(workdir).free
+    if free < 2 * state_bytes:
+        shutil.rmtree(workdir)
+        raise RuntimeError(f"{workdir} has {free} bytes free; the hot tier phase needs {2 * state_bytes}")
+    root0, root1 = os.path.join(workdir, "step-0"), os.path.join(workdir, "step-1")
+    # Every host tag this process computes, as (role, begin, end, bytes):
+    # the drain thread's checks apart from the rest (a put's tag in a
+    # take, a hot read's check in a restore).
+    tag_log = []
+    tag_lock = threading.Lock()
+    payload_tag = ht_tier.payload_tag
+
+    def timed_tag(data):
+        role = "drain" if threading.current_thread().name == HOT_TIER_DRAIN_THREAD else "path"
+        begin = time.perf_counter()
+        try:
+            return payload_tag(data)
+        finally:
+            end = time.perf_counter()
+            with tag_lock:
+                tag_log.append((role, begin, end, len(data)))
+
+    def tags_since(mark, role):
+        """The role's tags logged since ``mark``: their summed seconds, the
+        wall seconds at least one of them ran (``covered_s``), bytes."""
+        with tag_lock:
+            spans = sorted((b, e, nb) for r, b, e, nb in tag_log[mark:] if r == role)
+        covered, reach = 0.0, None
+        for b, e, _ in spans:
+            if reach is None or b > reach:
+                covered += e - b
+                reach = e
+            elif e > reach:
+                covered += e - reach
+                reach = e
+        return {"seconds": sum(e - b for b, e, _ in spans), "covered_s": covered,
+                "bytes": sum(nb for _, _, nb in spans), "count": len(spans)}
+
+    def restore_timed(name):
+        """Restore step 0 into the zeroed template: its seconds, tier
+        block, whether every leaf is bit-identical, the host tags of its
+        reads and its get RPCs (the wiretap's window, and the peers of
+        the ring's get events), into the record; returns its report."""
+        with torch.no_grad():
+            for t in template_leaves:
+                t.zero_()
+        torch.cuda.synchronize()
+        mark = len(tag_log)
+        wire_token = wiretap.window_begin()
+        ring_mark = time.time() - 0.001
+        begin = time.perf_counter()
+        Snapshot(root0).restore({"model": tf.TransformerState(template)})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        with open(os.path.join(root0, flight.RESTORE_REPORT_FNAME)) as f:
+            report = json.load(f)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(leaves, template_leaves))
+        get = (wiretap.window_collect(wire_token) or {}).get("snapwire/get") or {}
+        get_events = [e for e in wiretap.ring_events()
+                      if e.get("transport") == "snapwire" and e.get("op") == "get" and e["t"] >= ring_mark]
+        record[name] = {"seconds": seconds, "tier": report["ranks"][0].get("tier"), "bit_identical": same,
+                        "host_tags": tags_since(mark, "path"), "wire_get": get,
+                        "get_gbps": get["bytes_in"] / get["seconds"] / 1e9 if get.get("seconds") else None,
+                        "get_peers": sorted({e["peer"] for e in get_events}),
+                        "get_events": len(get_events)}
+        print(f"hottier: {name} {seconds:.3f} s, tier {report['ranks'][0].get('tier')}, "
+              f"{len(get_events)} get RPCs to {record[name]['get_peers']}", flush=True)
+        return report
+
+    procs = {}
+    try:
+        from concurrent.futures import ThreadPoolExecutor
+
+        def spawn(host):
+            proc, addr, _ = ht_peer.spawn_peer(host, capacity_bytes=capacity, register=False)
+            procs[host] = (proc, addr)
+
+        begin = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            spawned = {host: pool.submit(spawn, host) for host in (1, 2)}
+        for host, fut in spawned.items():
+            if fut.exception() is not None:
+                raise RuntimeError(f"peer host {host} could not be spawned: {fut.exception()!r}")
+        record["spawn_s"] = time.perf_counter() - begin
+        record["peer_addrs"] = {host: addr for host, (_, addr) in sorted(procs.items())}
+        addrs = ",".join(f"{h}={a}" for h, (_, a) in sorted(procs.items()))
+        with _env(TPUSNAPSHOT_HOT_TIER_ADDRS=addrs, TPUSNAPSHOT_REPLICATION_DEADLINE_S=HOT_TIER_DEADLINE_S,
+                  TPUSNAPSHOT_REPLICATION_RETRY_BUDGET_S=HOT_TIER_RETRY_BUDGET_S,
+                  TPUSNAPSHOT_REPLICATION_DOWN_COOLDOWN_S=HOT_TIER_DOWN_COOLDOWN_S), \
+                _patched(ht_tier, "payload_tag", timed_tag):
+            hottier.enable_hot_tier(rank=0, world=HOT_TIER_WORLD, k=HOT_TIER_K, capacity_bytes=capacity)
+            try:
+                record["remote_hosts"] = sorted(hottier.remote_hosts())
+                # (a) the async take, acked from peer RAM.
+                _reset_launch_counts()
+                counts = _fp_counts()
+                wire_token = wiretap.window_begin()
+                mark = len(tag_log)
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                Snapshot.async_take(root0, app, fingerprint=True).wait()
+                record["ack_s"] = time.perf_counter() - begin
+                record["ack_put_tags"] = tags_since(mark, "path")
+                record["ack_drain_tags"] = tags_since(mark, "drain")
+                put = (wiretap.window_collect(wire_token) or {}).get("snapwire/put") or {}
+                record["take_wire_put"] = put
+                record["wire_gbps"] = put["bytes_out"] / put["seconds"] / 1e9 if put.get("seconds") else None
+                record["take_fp"] = _fp_delta(counts, "k4")
+                keys = ht_tier.keys_for_root(root0)
+                record["objects"] = len(keys)
+                record["replica_hosts"] = sorted({tuple(ht_tier.live_replicas(k)) for k in keys})
+                # The background drain starts at the first acked object.
+                record["durable_payload_at_ack"] = sum(1 for f in os.listdir(root0) if not f.startswith("."))
+                with open(os.path.join(root0, flight.REPORT_FNAME)) as f:
+                    async_report = json.load(f)
+                record["async_report_blocks"] = sorted(
+                    k for k in ("tier", "wire") if k in async_report["ranks"][0])
+                # (b) the drain.
+                mark = len(tag_log)
+                begin = time.perf_counter()
+                record["drained"] = hottier.wait_drained(timeout_s=HOT_TIER_DRAIN_TIMEOUT_S)
+                record["drain_s"] = time.perf_counter() - begin
+                record["drain_tags_after_ack"] = tags_since(mark, "drain")
+                files = [os.path.relpath(os.path.join(d, f), root0) for d, _, fs in os.walk(root0) for f in fs]
+                record["tierdown"] = ".tierdown" in files
+                payload = [f for f in files if not f.startswith(".")]
+                record["durable_payload_objects"] = len(payload)
+                record["durable_payload_bytes"] = sum(os.path.getsize(os.path.join(root0, f)) for f in payload)
+                # (c) a restore served from this host's RAM.
+                restore_timed("hot_restore")
+                # (f, g) an unchanged sync retake: delta pushes.
+                counts = _fp_counts()
+                wire_token = wiretap.window_begin()
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                Snapshot.take(root1, app, fingerprint=True)
+                record["retake_s"] = time.perf_counter() - begin
+                record["retake_fp"] = _fp_delta(counts, "k4")
+                record["retake_wire_put"] = (wiretap.window_collect(wire_token) or {}).get("snapwire/put")
+                with open(os.path.join(root1, flight.REPORT_FNAME)) as f:
+                    retake_rank = json.load(f)["ranks"][0]
+                record["retake_replication"] = (retake_rank.get("tier") or {}).get("replication")
+                record["retake_report_has_wire"] = "wire" in retake_rank
+                record["mem_available_peak"] = _mem_available()
+                # The retake's buffers and its pending drain go with it.
+                Snapshot(root1).delete()
+                # (d) host 0 lost, as in a preemption: its RAM is gone, and
+                # the restore after it is served from peer 1's RAM.
+                hottier.kill_host(0)
+                restore_timed("peer_restore")
+                # (e) peer 1 SIGKILLed as well: every replica of every
+                # object gone.
+                proc1 = procs[1][0]
+                proc1.kill()
+                record["peer1_exit"] = proc1.wait(timeout=30)
+                report = restore_timed("fallback_restore")
+                findings = {f.rule: f for f in diagnose_report(report)}
+                degraded = findings.get("hot-tier-degraded")
+                record["hot_tier_degraded"] = None if degraded is None else {
+                    "severity": degraded.severity, "degraded_peers": degraded.evidence.get("degraded_peers")}
+            finally:
+                hottier.disable_hot_tier(flush=False)
+                hottier.reset_hot_tier()
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(workdir, ignore_errors=True)
+        del model, template, leaves, template_leaves, app
+        torch.cuda.empty_cache()
+    record["mem_available_after"] = _mem_available()
+    rate = record["fingerprint_host_gbps"]
+    # The peer's ack check is one more full host pass in its own process,
+    # inside each put's round trip; estimated at this machine's rate.
+    record["peer_check_estimate_s"] = state_bytes / rate / 1e9
+    # The put path's tags against the ack's wall clock: the share of it
+    # during which at least one put's tag ran (the drain thread's checks,
+    # concurrent with the puts, are apart in ack_drain_tags).
+    record["ack_put_tag_share"] = record["ack_put_tags"]["covered_s"] / record["ack_s"]
+    for name in ("hot_restore", "peer_restore"):
+        record[f"{name}_host_tag_share"] = record[name]["host_tags"]["covered_s"] / record[name]["seconds"]
+    record["seconds"] = time.perf_counter() - phase_begin
+    emit(record)
+    wire = record["wire_gbps"]
+    get_gbps = record["peer_restore"]["get_gbps"]
+    print(f"hottier: ack {record['ack_s']:.3f} s, drain {record['drain_s']:.3f} s, hot restore "
+          f"{record['hot_restore']['seconds']:.3f} s, restore after preemption (host 0 lost, served by peer 1) "
+          f"{record['peer_restore']['seconds']:.3f} s, fallback restore "
+          f"{record['fallback_restore']['seconds']:.3f} s, retake {record['retake_s']:.3f} s; put RPCs "
+          f"{wire if wire is None else round(wire, 4)} GB/s, get RPCs "
+          f"{get_gbps if get_gbps is None else round(get_gbps, 4)} GB/s; host fingerprint {rate:.4f} GB/s "
+          f"(chunked {record['fingerprint_host_chunked_gbps']:.4f}); the put path's host tags "
+          f"{record['ack_put_tag_share']:.0%} of the ack (the drain's {record['ack_drain_tags']['seconds']:.1f} "
+          f"thread-s beside them; the peer's check about {record['peer_check_estimate_s']:.1f} s more), "
+          f"{record['hot_restore_host_tag_share']:.0%} of the hot restore, "
+          f"{record['peer_restore_host_tag_share']:.0%} of the restore after preemption; MemAvailable "
+          f"{record['mem_available_before']} / {record['mem_available_peak']} / {record['mem_available_after']} "
+          f"({smi})", flush=True)
+    objects = record["objects"]
+    rep = record["retake_replication"] or {}
+    hot, peer, fallback = (record[k]["tier"] or {} for k in ("hot_restore", "peer_restore", "fallback_restore"))
+    gates = {
+        "(a) both peers are remote hosts": record["remote_hosts"] == [1, 2],
+        "(a) the ack left every object on hosts 0 and 1":
+            objects == n and record["replica_hosts"] == [(0, 1)],
+        "(a) K4 launched once over every leaf a take": record["take_fp"] == {"k4_launches": 1, "k4_segments": n}
+        and record["retake_fp"] == {"k4_launches": 1, "k4_segments": n},
+        "(b) the drain finished with the .tierdown watermark": record["drained"] and record["tierdown"],
+        "(b) the durable payload is the state's bytes":
+            record["durable_payload_objects"] == objects and record["durable_payload_bytes"] == state_bytes,
+        # The tier block counts reads: a leaf above the parallel read
+        # threshold is read in ranges, each served (and checked) whole.
+        "(c) the restore was served hot from this host, 0 fallbacks, bit-identical":
+            record["hot_restore"]["bit_identical"] and hot.get("hot_bytes") == state_bytes
+            and hot.get("hot_objects", 0) >= objects and hot.get("fallback_objects") == 0
+            and hot.get("degraded_peers") == [] and record["hot_restore"]["get_events"] == 0,
+        "(d) with host 0 lost the restore was served hot by peer 1, 0 fallbacks, bit-identical":
+            record["peer_restore"]["bit_identical"] and peer.get("hot_bytes") == state_bytes
+            and peer.get("hot_objects", 0) >= objects and peer.get("fallback_objects") == 0
+            and peer.get("degraded_peers") == [0],
+        "(d) every get RPC of that restore went to peer 1, at least one an object, all ok":
+            record["peer_restore"]["get_peers"] == [record["peer_addrs"][1]]
+            and record["peer_restore"]["get_events"] >= objects
+            and record["peer_restore"]["wire_get"].get("outcomes") == {"ok": record["peer_restore"]["get_events"]}
+            and record["peer_restore"]["wire_get"].get("bytes_in", 0) >= state_bytes,
+        "(e) peer 1 died by SIGKILL": record["peer1_exit"] == -9,
+        "(e) with hosts 0 and 1 lost every object fell back, bit-identical":
+            record["fallback_restore"]["bit_identical"] and fallback.get("fallback_bytes") == state_bytes
+            and fallback.get("fallback_objects", 0) >= objects and fallback.get("hot_objects") == 0
+            and fallback.get("degraded_peers") == [0, 1],
+        "(e) hot-tier-degraded names hosts 0 and 1": record["hot_tier_degraded"] is not None
+        and record["hot_tier_degraded"]["degraded_peers"] == "peer hosts 0-1",
+        "(f) the unchanged retake replicated under 10 % of its bytes":
+            rep.get("delta_ratio") is not None and rep["delta_ratio"] < 0.10,
+        "(g) the take reports carry tier.replication and wire, the replicated bytes the payload's":
+            bool(rep) and record["retake_report_has_wire"] and "wire" in record["async_report_blocks"]
+            and rep.get("replicated_ack_bytes") == state_bytes and rep.get("write_through_bytes") == 0,
+    }
+    _hold("hottier", gates)
+    return record
+
+
+def _hottier_beside(smi, out_path):
+    """The hottier phase in a process of its own (spawned), its record
+    written to ``out_path`` as JSON and its snapshots under the same
+    directory. It leads a process group of its own, which its peer
+    processes join, and a SIGTERM raises in it, so that the phase's
+    ``finally`` kills the peers; it gets one too if the script dies."""
+    os.setpgid(0, 0)
+
+    def stopped(signum, frame):
+        raise RuntimeError(f"the hottier phase was stopped by signal {signum}")
+
+    signal.signal(signal.SIGTERM, stopped)
+    PR_SET_PDEATHSIG = 1
+    ctypes.CDLL(None, use_errno=True).prctl(PR_SET_PDEATHSIG, signal.SIGTERM)
+    record = phase_hottier(smi, workroot=os.path.dirname(out_path))
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+
+
+class _Beside:
+    """A phase run in a spawned process of its own while the script goes
+    on: ``result()`` joins it and returns its record, or raises with its
+    exit code; ``stop()`` stops it with SIGTERM (the phase's ``finally``
+    runs), then kills its process group (it and the processes it
+    started) and removes its directory."""
+
+    STOP_GRACE_S = 60.0
+
+    def __init__(self, fn, *args):
+        import multiprocessing as mp
+
+        self._dir = tempfile.mkdtemp(prefix="chip_smoke_beside-")
+        self._out = os.path.join(self._dir, "record.json")
+        self._proc = mp.get_context("spawn").Process(target=fn, args=(*args, self._out))
+        self._begin = time.perf_counter()
+        self._proc.start()
+
+    def result(self, timeout_s):
+        try:
+            self._proc.join(timeout_s)
+            if self._proc.is_alive():
+                raise RuntimeError(f"the phase beside ran past {timeout_s} s")
+            if self._proc.exitcode != 0:
+                raise RuntimeError(f"the phase beside exited {self._proc.exitcode}")
+            with open(self._out) as f:
+                return json.load(f), time.perf_counter() - self._begin
+        finally:
+            self.stop()
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join(self.STOP_GRACE_S)
+        try:
+            # Whatever of the group is left: the phase itself past its
+            # grace, or processes it started and did not stop.
+            os.killpg(self._proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if self._proc.is_alive():
+            # It had not yet made its own group: kill it alone.
+            self._proc.kill()
+        self._proc.join(30)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
+HOT_TIER_TIMEOUT_S = 900.0
+
+
 def _gpt2_xl_shapes(cfg):
     d, f = cfg.d_model, cfg.d_ff
     layer = [(d, d)] * 4 + [(d, f), (f, d), (d,), (d,)]
@@ -4011,7 +4465,21 @@ def main():
     ceilings = {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")}
     api = timed_phase("api", phase_api, model, tokens, ceilings)
     telemetry_record = timed_phase("telemetry", phase_telemetry, model, tokens, smi)
-    faults = timed_phase("faults", phase_faults, model)
+    # The hottier phase runs in a process of its own beside the faults
+    # phase: both hold correctness gates, the hot tier's work is host
+    # fingerprints on cores the faults phase leaves idle, and run after
+    # the others it took the script past its time limit on a slower
+    # machine. Its times are taken beside that load;
+    # tools/hottier_phase.py runs it alone.
+    hot_beside = _Beside(_hottier_beside, smi)
+    try:
+        faults = timed_phase("faults", phase_faults, model)
+    except BaseException:
+        hot_beside.stop()
+        raise
+    begin = time.perf_counter()
+    hot, hot_wall_s = hot_beside.result(HOT_TIER_TIMEOUT_S)
+    seconds["hottier_wait"] = time.perf_counter() - begin
     del model, tokens
     torch.cuda.empty_cache()
     timed_phase("torn_leaf", phase_torn_leaf)
@@ -4024,7 +4492,8 @@ def main():
     timed_phase("ddp", phase_ddp)
     dryrun_ranks = timed_phase("dryrun", phase_dryrun)["ranks"]
     examples = timed_phase("examples", phase_examples)
-    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values()),
+          "beside_faults": {"hottier": hot["seconds"], "hottier_wall": hot_wall_s}})
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
 
@@ -4126,6 +4595,10 @@ def main():
             **({"launches_examples_path": examples["launches"][name],
                 "segments_examples_path": sum(examples["runs"]["incremental_example"]["k4_segments_a_save"])}
                if name in examples["launches"] else {}),
+            # The hot tier path: the async take and the unchanged retake.
+            **({"launches_hottier_path": hot["take_fp"]["k4_launches"] + hot["retake_fp"]["k4_launches"],
+                "segments_hottier_path": hot["take_fp"]["k4_segments"] + hot["retake_fp"]["k4_segments"]}
+               if key == "k4" else {"launches_hottier_path": 0, "segments_hottier_path": 0}),
             "max_abs_err": fingerprint["max_abs_err"],
             # One batch of the 387 state leaves (the prepared launch; the
             # wrapper's call from a list of tensors as call_ms); w1 and the

@@ -883,3 +883,50 @@ def test_restore_report_probes_h2d_without_a_device_wide_synchronize(cuda, tmp_p
     with open(os.path.join(path, ".report.restore.json")) as f:
         profile = json.load(f)["ranks"][0]["consume_profile"]
     assert profile["h2d_probe_gbps"] > 0 and transfer._report_probe[0] > 0
+
+
+def test_hot_tier_async_take_and_restore_of_a_cuda_state(cuda, tmp_path):
+    """A hot-tier async take of a small CUDA state through two in-process
+    wire peers (k = 2 of 3 hosts) acks with every object on hosts 0 and 1,
+    launches K4 once over its leaves, and restores into a zeroed CUDA
+    template served hot, bit-exact; with the local host lost too, the
+    peer's replicas still serve it."""
+    from torchsnapshot_tpu_torch import hottier
+    from torchsnapshot_tpu_torch.hottier import tier as ht_tier
+    from torchsnapshot_tpu_torch.hottier.peer import start_local_peer
+    from torchsnapshot_tpu_torch.ops import fingerprint as fops
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    state = {"w": torch.randn(300, 257, generator=gen, device=cuda),
+             "b": torch.randn(4099, generator=gen, device=cuda).to(torch.bfloat16),
+             "i": torch.randint(-9, 9, (77,), generator=gen, device=cuda, dtype=torch.int32)}
+    servers = [start_local_peer(h, capacity_bytes=1 << 26)[0] for h in (1, 2)]
+    root = str(tmp_path / "step-0")
+    try:
+        with hottier.hot_tier(rank=0, world=3, k=2, drain="manual"):
+            launches, segments = fops.fingerprint_box_launches, fops.fingerprint_box_segments
+            Snapshot.async_take(root, {"m": StateDict(**state)}, fingerprint=True).wait()
+            assert fops.fingerprint_box_launches - launches == 1
+            assert fops.fingerprint_box_segments - segments == len(state)
+            keys = ht_tier.keys_for_root(root)
+            assert len(keys) == len(state)
+            assert {tuple(ht_tier.live_replicas(k)) for k in keys} == {(0, 1)}
+            for lost in ((), (0,)):
+                for h in lost:
+                    hottier.kill_host(h)
+                target = {k: torch.zeros_like(v) for k, v in state.items()}
+                before = hottier.runtime().stats_snapshot()
+                Snapshot(root).restore({"m": StateDict(**target)})
+                torch.cuda.synchronize()
+                after = hottier.runtime().stats_snapshot()
+                assert after["hot_objects"] - before["hot_objects"] == len(state)
+                assert after["fallback_objects"] == before["fallback_objects"]
+                for k, v in state.items():
+                    assert target[k].is_cuda
+                    assert torch.equal(target[k].cpu().view(torch.uint8), v.cpu().view(torch.uint8))
+            hottier.drain_now()
+    finally:
+        hottier.disable_hot_tier(flush=False)
+        hottier.reset_hot_tier()
+        for server in servers:
+            server.stop()

@@ -7,8 +7,11 @@ and ``test_snapmem.py::test_mem_pressure_fault_trips_overcommit``.
 
 Added here: the same manager cycle gives the same storage-op stream in
 both packages, telemetry objects included; ``FAULTS_INJECTED`` moves by
-exactly ``fault_counts()`` in both; and every rule whose subsystem the
-port lacks raises ``NotImplementedError`` naming its ROADMAP item."""
+exactly ``fault_counts()`` in both; the six hot-tier rules (a slow
+drain, a lost or flapped host, a dropped connection, a torn frame, a slow
+wire) fire against the port's tier and wire with the JAX package's
+counts and outcomes; and every rule whose subsystem the port lacks (the
+read plane) raises ``NotImplementedError`` naming its ROADMAP item."""
 
 import asyncio
 import collections
@@ -444,12 +447,6 @@ def test_crashed_fs_plugin_close_settles_no_deferred_fsync(tmp_path, monkeypatch
 
 
 _UNPORTED = {
-    "slow_drain": ((), "item 9"),
-    "lose_host": ((0,), "item 9"),
-    "flap_host": ((0,), "item 9"),
-    "drop_conn": ((), "item 9"),
-    "torn_frame": ((), "item 9"),
-    "slow_wire": ((), "item 9"),
     "kill_server": ((), "item 10"),
     "kill_fleet_member": (("m1",), "item 10"),
     "slow_fleet_member": (("m1",), "item 10"),
@@ -470,13 +467,161 @@ def test_unported_rule_raises_naming_its_item(builder):
     assert sched.rules == []
 
 
-@pytest.mark.parametrize(
-    "kind", ["hostloss", "flap", "drop_conn", "torn_frame", "slow_wire",
-             "killserver", "killmember", "slowmember"]
-)
+@pytest.mark.parametrize("kind", ["killserver", "killmember", "slowmember"])
 def test_unported_rule_kind_cannot_be_constructed(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         fl.FaultRule(kind=kind)
+
+
+# ------------------------------------- the hot tier's rules, both packages
+
+
+@pytest.fixture
+def _fresh_tiers(monkeypatch):
+    """Both packages' hot tiers empty, no wire fault armed, fast-failing
+    wire knobs; in-process peer servers stopped afterwards."""
+    from torchsnapshot_tpu import hottier as jhottier
+    from torchsnapshot_tpu.hottier import transport as jtransport
+    from torchsnapshot_tpu_torch import hottier
+    from torchsnapshot_tpu_torch.hottier import transport
+
+    monkeypatch.setenv("TPUSNAPSHOT_REPLICATION_DEADLINE_S", "0.5")
+    monkeypatch.setenv("TPUSNAPSHOT_REPLICATION_RETRY_BUDGET_S", "3")
+    monkeypatch.setenv("TPUSNAPSHOT_REPLICATION_DOWN_COOLDOWN_S", "0.2")
+    monkeypatch.setenv("TPUSNAPSHOT_REPLICATION_CODEC", "none")
+    servers = []
+    for tier, trans in ((hottier, transport), (jhottier, jtransport)):
+        tier.disable_hot_tier(flush=False)
+        tier.reset_hot_tier()
+        trans.clear_wire_faults()
+    yield servers
+    for tier, trans in ((hottier, transport), (jhottier, jtransport)):
+        tier.disable_hot_tier(flush=False)
+        tier.reset_hot_tier()
+        trans.clear_wire_faults()
+    for server in servers:
+        server.stop()
+
+
+def _tier_pkg(pkg):
+    """The modules of one package a hot-tier fault scenario drives."""
+    if pkg == "port":
+        from torchsnapshot_tpu_torch import hottier
+        from torchsnapshot_tpu_torch.hottier import peer, tier, transport
+
+        return {"fl": fl, "tier": hottier, "ht": tier, "transport": transport, "peer": peer,
+                "snap": Snapshot, "state": lambda v: _state(v), "target": _target}
+    from torchsnapshot_tpu import hottier
+    from torchsnapshot_tpu.hottier import peer, tier, transport
+
+    return {"fl": jfl, "tier": hottier, "ht": tier, "transport": transport, "peer": peer,
+            "snap": jsnap.Snapshot,
+            "state": lambda v: {"s": jsnap.StateDict(w=jnp.full((4,), float(v)))},
+            "target": lambda: {"s": jsnap.StateDict(w=jnp.zeros(4))}}
+
+
+def _rule_scenario(builder, pkg, servers, root):
+    """Take a 4-value state through a k = 2 tier (host 1 a wire peer
+    for the wire rules) under one schedule of ``builder``; returns what
+    the rule must have done, as comparable values."""
+    p = _tier_pkg(pkg)
+    build = {
+        "slow_drain": lambda s: s.slow_drain(seconds=0.05),
+        "lose_host": lambda s: s.lose_host(1, op="write", path=".snapshot_metadata"),
+        "flap_host": lambda s: s.flap_host(1, revive_after_ops=2, op="write",
+                                           path=".snapshot_metadata"),
+        "drop_conn": lambda s: s.drop_conn(host=1, path="host1:*"),
+        "torn_frame": lambda s: s.torn_frame(host=1, path="host1:*"),
+        "slow_wire": lambda s: s.slow_wire(seconds=1.0, host=1, path="host1:*"),
+    }[builder]
+    wire_rule = builder in ("drop_conn", "torn_frame", "slow_wire")
+    if wire_rule:
+        server, _ = p["peer"].start_local_peer(1, capacity_bytes=1 << 24)
+        servers.append(server)
+    before = p["transport"].wire_stats_snapshot()
+    with p["tier"].hot_tier(rank=0, world=2, k=2, drain="manual"):
+        with p["fl"].inject(build(p["fl"].FaultSchedule())) as ctl:
+            snap = p["snap"].take(root, p["state"](3))
+            live_after_take = p["tier"].live_hosts()
+            p["tier"].drain_now()
+        after = p["transport"].wire_stats_snapshot()
+        target = p["target"]()
+        snap.restore(target)
+        stats = p["tier"].runtime().stats_snapshot()
+    np.testing.assert_array_equal(np.asarray(target["s"]["w"]), 3.0)
+    wire = {k: after[k] - before[k] for k in ("pushes", "deadline_misses")}
+    return {
+        "counts": ctl.fault_counts(),
+        "live_after_take": sorted(live_after_take),
+        "wire": wire if wire_rule else None,
+        "retried": (after["retries"] > before["retries"]) if wire_rule else None,
+        "write_through": stats["write_through"],
+        "fallback_objects": stats["fallback_objects"],
+    }
+
+
+_HOT_TIER_RULES = {
+    "slow_drain": {"counts": {"latency": 1}, "live_after_take": [0, 1], "wire": None,
+                   "retried": None, "write_through": 0, "fallback_objects": 0},
+    "lose_host": {"counts": {"hostloss": 1}, "live_after_take": [0], "wire": None,
+                  "retried": None, "write_through": 0, "fallback_objects": 0},
+    "flap_host": {"counts": {"flap": 1, "revive": 1}, "live_after_take": [0, 1], "wire": None,
+                  "retried": None, "write_through": 0, "fallback_objects": 0},
+    "drop_conn": {"counts": {"drop_conn": 1}, "live_after_take": [0, 1],
+                  "wire": {"pushes": 1, "deadline_misses": 0}, "retried": True,
+                  "write_through": 0, "fallback_objects": 0},
+    "torn_frame": {"counts": {"torn_frame": 1}, "live_after_take": [0, 1],
+                   "wire": {"pushes": 1, "deadline_misses": 0}, "retried": True,
+                   "write_through": 0, "fallback_objects": 0},
+    "slow_wire": {"counts": {"slow_wire": 1}, "live_after_take": [0, 1],
+                  "wire": {"pushes": 1, "deadline_misses": 1}, "retried": True,
+                  "write_through": 0, "fallback_objects": 0},
+}
+
+
+@pytest.mark.parametrize("builder", sorted(_HOT_TIER_RULES))
+def test_hot_tier_rule_fires_as_in_jax(builder, tmp_path, _fresh_tiers):
+    """Each of the six hot-tier rules fires against the port's tier or
+    wire: a slow drain pays its latency at the ``hottier.drain``
+    boundary, a lost host is dead after the take (its replica gone, the
+    restore served by host 0), a flapped host is lost and back two
+    boundaries later, and the three wire faults each strike one push of
+    the wire peer (a retry lands it; the slow one misses its deadline
+    once). The same schedule gives the same counts and outcomes in the
+    JAX package, and every restore is exact."""
+    port = _rule_scenario(builder, "port", _fresh_tiers, str(tmp_path / "port" / "step-0"))
+    jax_side = _rule_scenario(builder, "jax", _fresh_tiers, str(tmp_path / "jax" / "step-0"))
+    assert port == jax_side == _HOT_TIER_RULES[builder]
+
+
+@pytest.mark.parametrize("kind", ["hostloss", "flap", "drop_conn", "torn_frame", "slow_wire"])
+def test_hot_tier_rule_kind_acts_at_its_boundary(kind, _fresh_tiers):
+    """A rule of each hot-tier kind, built directly, acts at its
+    boundary: a host loss kills in-process host 1, a flap kills it and
+    revives it at the boundary its ``revive_after_ops`` names, and a wire
+    kind arms exactly one scripted fault for host 1 (which ``inject``'s
+    exit clears)."""
+    from torchsnapshot_tpu_torch.hottier import tier, transport
+
+    rule = fl.FaultRule(kind=kind, op="x", host=1, revive_after_ops=2, seconds=0.1)
+    sched = fl.FaultSchedule()
+    sched.rules.append(rule)
+    with fl.inject(sched) as ctl:
+        ctl.on_op("x", "p")
+        if kind in ("hostloss", "flap"):
+            assert 1 not in tier.live_hosts()
+        else:
+            assert transport._SCRIPT == [{"kind": kind, "host": 1, "seconds": 0.1}]
+        ctl.on_op("y", "p")
+        ctl.on_op("y", "p")
+        if kind == "flap":
+            assert 1 in tier.live_hosts()
+            assert ctl.fault_counts() == {"flap": 1, "revive": 1}
+        else:
+            assert ctl.fault_counts() == {kind: 1}
+    assert transport._SCRIPT == []
+    if kind == "hostloss":
+        assert 1 not in tier.live_hosts()
 
 
 def test_public_api_matches_the_jax_package():

@@ -19,22 +19,43 @@ from torchsnapshot_tpu import tracing as jax_tracing
 from torchsnapshot_tpu.inspect import main as jax_inspect
 from torchsnapshot_tpu.telemetry import goodput as jax_goodput
 from torchsnapshot_tpu.telemetry import report as jax_flight
-from torchsnapshot_tpu_torch import Snapshot, StateDict, tracing
+from torchsnapshot_tpu import wiretap as jax_wiretap
+from torchsnapshot_tpu.hottier import tier as jax_ht_tier
+from torchsnapshot_tpu.telemetry import memwatch as jax_memwatch
+from torchsnapshot_tpu_torch import Snapshot, StateDict, tracing, wiretap
+from torchsnapshot_tpu_torch.hottier import tier as ht_tier
+from torchsnapshot_tpu_torch.telemetry import memwatch
 from torchsnapshot_tpu_torch.inspect import main as port_inspect
 from torchsnapshot_tpu_torch.telemetry import goodput
 from torchsnapshot_tpu_torch.telemetry import report as flight
 from torchsnapshot_tpu_torch.utils.test_utils import run_thread_ranks
 
-# Memory domains of subsystems the port has not ported (ROADMAP item 9):
-# the JAX package registers them at import, so its reports list them.
-# The restore pipelines differ by design: every port
+# The hot tier's and the wiretap's memory domains are registered at
+# import in both packages, so both reports list them. The restore
+# pipelines differ by design: every port
 # placement rides the H2D pipeline (``h2d_overlap``, never ``device_put``
 # or ``reassemble``), and a host-target restore of whole objects leases
 # no pooled buffer, so the port has no ``staging_pool`` domain on the
 # CPU. The consume profile's sub-step names and that domain are set
 # aside; every other key must match.
-_UNPORTED_DOMAINS = ("hottier.", "wiretap.", "staging_pool")
+_UNPORTED_DOMAINS = ("staging_pool",)
 _PIPELINE_KEYS = ("/consume_profile/substeps", "/consume_profile/h2d_overlap_gbps")
+
+
+@pytest.fixture(autouse=True)
+def _import_time_domains():
+    """Both packages' reports list the memory domains that importing the
+    hot tier and the wiretap registers. An earlier test in this process
+    may have reset one package's memwatch or left hosts in one package's
+    tier, so each case starts both packages from an empty tier and those
+    domains alone."""
+    for mw, tier, tap in ((memwatch, ht_tier, wiretap), (jax_memwatch, jax_ht_tier, jax_wiretap)):
+        tier.reset_hot_tier()
+        mw.reset()
+        mw.register_provider("hottier.host", tier._mem_hosts_provider)
+        mw.register_provider("hottier.shadow", tier._mem_shadow_provider, external=True)
+        tap.reset()  # registers wiretap.ring again
+    yield
 
 
 @pytest.fixture(autouse=True)

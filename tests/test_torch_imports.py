@@ -196,6 +196,22 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         assert memwatch.process_rss_bytes() is None
         assert slo.evaluate(records=ledger.read_records(tel)[0])["findings"] is not None
         assert goodput.has_data() and telemetry_pkg.snapshot()
+        # The hot tier: an in-process wire peer, an async take acked at
+        # k = 2, its drain and a restore served from peer RAM.
+        from torchsnapshot_tpu_torch import hottier, wire, wiretap
+        from torchsnapshot_tpu_torch.hottier import peer as hpeer, plugin, repair, runtime, tier, transport
+        server, _ = hpeer.start_local_peer(1)
+        with hottier.hot_tier(rank=0, world=2, k=2, drain="manual", repair="manual"):
+            Snapshot.async_take(run + "/hot", {{"m": StateDict(w=w)}}).wait()
+            hottier.repair_tick()
+            hottier.drain_now()
+            t = StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16))
+            Snapshot(run + "/hot").restore({{"m": t}})
+            assert torch.equal(t["w"].view(torch.int16), w.view(torch.int16))
+            assert hottier.runtime().stats_snapshot()["hot_objects"] == 1
+        server.stop()
+        hottier.reset_hot_tier()
+        assert wiretap.summary()["snapwire/put"]["count"] >= 1
         # An example script, with optax blocked too.
         import runpy
         sys.argv = ["simple_example.py", "--device", "cpu", "--work-dir", run + "/example"]
@@ -209,3 +225,66 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_peer_process_imports_no_jax_and_no_optional_packages(tmp_path):
+    """``python -m torchsnapshot_tpu_torch.hottier.peer`` binds, acks a
+    fingerprint-verified put and serves it back with JAX, the JAX
+    package, PyYAML and psutil blocked. Every import of them it attempts
+    is logged as it happens (the process is killed, as a lost host is):
+    JAX and the JAX package never are; psutil only where memwatch asks
+    for it optionally (host RSS, absent on the card's machine)."""
+    import time
+
+    import numpy as np
+
+    from torchsnapshot_tpu_torch.fingerprint import fingerprint_host
+    from torchsnapshot_tpu_torch.hottier.transport import RemotePeer
+
+    attempts, port_file = tmp_path / "attempts.log", tmp_path / "peer.addr"
+    script = textwrap.dedent(
+        f"""
+        import importlib.abc, runpy, sys
+
+        BLOCKED = {{"yaml", "psutil", "jax", "jaxlib", "torchsnapshot_tpu"}}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    with open({str(attempts)!r}, "a") as f:
+                        f.write(name + "\\n")
+                    raise ImportError(f"{{name}} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {str(ROOT)!r})
+        sys.argv = ["peer", "--host-id", "3", "--addr", "127.0.0.1:0",
+                    "--port-file", {str(port_file)!r}]
+        runpy.run_module("torchsnapshot_tpu_torch.hottier.peer", run_name="__main__")
+        """
+    )
+    proc = subprocess.Popen(
+        [sys.executable, "-c", script], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE
+    )
+    try:
+        deadline = time.monotonic() + 120.0
+        while not port_file.exists():
+            assert proc.poll() is None, proc.stderr.read().decode()
+            assert time.monotonic() < deadline, "the peer did not bind"
+            time.sleep(0.05)
+        peer = RemotePeer(host_id=3, addr=port_file.read_text().strip())
+        try:
+            data = np.arange(4096, dtype=np.float32).tobytes()
+            key, root = "memory://blocked/run/step_0/0/s/w", "memory://blocked/run/step_0"
+            stored, tag = peer.put(key, data, tag=fingerprint_host(data), root=root)
+            assert stored and tag == fingerprint_host(data)
+            assert peer.get(key).data == data
+            assert peer.probe()
+            assert peer.wire_stats() is not None and peer.mem_stats() is not None
+        finally:
+            peer.close()
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+    tried = set(attempts.read_text().split()) if attempts.exists() else set()
+    assert tried <= {"psutil"}, tried

@@ -16,13 +16,17 @@ the flagship transformer with hand-written CUDA flash-attention kernels,
 forward and backward, and the JAX package's other workloads (DLRM with
 row-sharded tables, a ResNet CNN, a synthetic DDP model). Its
 ``faultline`` injects storage and rank faults and checks crash
-consistency. Every take and restore writes the JAX package's telemetry
+consistency. Its ``hottier`` acknowledges an async take once every
+object is held in the RAM of k peer hosts (real peer processes over the
+JAX package's wire format), drains it to durable storage in the
+background, and restores from peer RAM with a per-object fallback to
+durable storage. Every take and restore writes the JAX package's telemetry
 (flight reports, progress records, the ledger; ``telemetry``) and, with
 ``TPUSNAPSHOT_TRACE`` set, a Chrome trace (``tracing``). Imports neither
 JAX nor the JAX package.
 """
 
-from . import telemetry
+from . import hottier, telemetry
 
 from .coord import (
     Coordinator,
@@ -58,6 +62,7 @@ __all__ = [
     "StoreCoordinator",
     "TorchStore",
     "get_coordinator",
+    "hottier",
     "telemetry",
     "__version__",
 ]

@@ -15,6 +15,7 @@ sub-step boundaries (fs.py's write → fsync → rename → dir-fsync) count
 as op boundaries and can crash too.
 """
 
+import logging
 from contextlib import contextmanager
 from typing import Iterator, Optional
 
@@ -134,3 +135,14 @@ def inject(
     finally:
         remove_storage_op_hook(ctl.on_subop)
         _sp.set_plugin_wrap_hook(prev)
+        # A wire fault a drop_conn/torn_frame/slow_wire rule armed but no
+        # RPC consumed (the matched host was substituted out before its
+        # next dial) must not leak into an unrelated later RPC.
+        try:
+            from ..hottier import transport as _wire_transport
+
+            _wire_transport.clear_wire_faults()
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "faultline: wire-fault cleanup failed", exc_info=True
+            )

@@ -27,16 +27,32 @@ Fault kinds:
   (a dead process never comes back).
 - **mem_pressure** — a memwatch domain's reported cap shrinks, so the
   doctor's ``host-memory-overcommit`` rule trips.
+- **host loss** — a hot-tier peer host is preempted at a deterministic
+  op boundary (its RAM replicas vanish; ``hottier.kill_host``). For a
+  host backed by a real peer process, ``kill_host`` SIGKILLs the process
+  and aborts its in-flight connections, so a blocked read observes the
+  loss within the RPC deadline.
+- **host flap** (``flap_host``) — the host is lost as by ``lose_host``,
+  then revived ``revive_after_ops`` boundaries later: a wire-backed peer
+  as a fresh subprocess one membership generation up
+  (``hottier.repair.respawn_host``), an in-process host alive and empty.
+- **wire faults** (``drop_conn`` / ``torn_frame`` / ``slow_wire``) —
+  armed at a ``hottier.replicate`` boundary and consumed by the next
+  matching RPC: the socket aborts before the request leaves, half a
+  frame is sent before the abort (the receiver never acks), or the RPC
+  sleeps into its ``TPUSNAPSHOT_REPLICATION_DEADLINE_S`` deadline. Each
+  surfaces as a transport failure and walks the retry → spare host →
+  write-through ladder.
 
 Every injected fault bumps ``FAULTS_INJECTED{kind}`` and emits a
 ``fault_injected`` trace instant.
 
-The JAX package's schedule also drives the hot tier (host loss and flap,
-the wire faults, slow drains) and the read plane (server and fleet-member
-kills, slow servers). Those subsystems are not ported yet, so their builders raise
-``NotImplementedError`` naming the ROADMAP item that brings them, and a
-:class:`FaultRule` of such a kind cannot be constructed: a rule whose
-boundary nothing emits would never fire, silently.
+The JAX package's schedule also drives the read plane (server and
+fleet-member kills, slow servers). That subsystem is not ported yet, so
+its builders raise ``NotImplementedError`` naming the ROADMAP item that
+brings it, and a :class:`FaultRule` of such a kind cannot be
+constructed: a rule whose boundary nothing emits would never fire,
+silently.
 
 The schedule is deterministic by construction: rules fire on the *n*-th
 match of their (op-glob, path-glob) pattern, and the crash point on a
@@ -44,6 +60,7 @@ fixed op index — replaying the same pipeline replays the same faults.
 """
 
 import fnmatch
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -52,17 +69,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 from .. import telemetry, tracing
 from ..telemetry import metrics as _metric_names
 
-_ITEM_9 = "the hot tier and its wire (ROADMAP Queue 1 item 9)"
 _ITEM_10 = "the snapserve read plane (ROADMAP Queue 1 item 10)"
 
 # Rule kinds of the JAX package whose subsystem the port lacks, with what
 # brings it.
 _UNPORTED_KINDS: Dict[str, str] = {
-    "hostloss": _ITEM_9,
-    "flap": _ITEM_9,
-    "drop_conn": _ITEM_9,
-    "torn_frame": _ITEM_9,
-    "slow_wire": _ITEM_9,
     "killserver": _ITEM_10,
     "killmember": _ITEM_10,
     "slowmember": _ITEM_10,
@@ -128,6 +139,8 @@ class FaultRule:
 
     kind: str  # "transient" | "permanent" | "error" | "torn" | "latency"
     #          | "crash" | "mem_pressure" (shrink a memory domain's cap)
+    #          | "hostloss" | "flap" (lose, then revive, a hot-tier host)
+    #          | "drop_conn" | "torn_frame" | "slow_wire" (snapwire)
     op: str = "*"
     path: str = "*"
     nth: int = 1
@@ -139,6 +152,11 @@ class FaultRule:
     # mem_pressure: which memwatch domain shrinks, and to what cap.
     domain: Optional[str] = None
     cap_bytes: Optional[int] = None
+    host: Optional[int] = None  # hostloss/flap/wire faults: which peer host
+    # flap: how many further op boundaries after the loss until the host
+    # comes back (a wire-backed peer as a fresh subprocess one membership
+    # generation up; an in-process host empty).
+    revive_after_ops: Optional[int] = None
     _hits: int = field(default=0, repr=False)
     _fired: int = field(default=0, repr=False)
 
@@ -273,32 +291,114 @@ class FaultSchedule:
         )
         return self
 
-    # The JAX package's builders for subsystems the port lacks: each
-    # raises, naming the ROADMAP item that brings its target.
+    def slow_drain(
+        self,
+        seconds: float = 0.2,
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = None,
+    ) -> "FaultSchedule":
+        """Latency at the hot tier's ``hottier.drain`` boundaries: every
+        matched tier-down write pays ``seconds`` first, which stretches
+        the ack → ``.tierdown`` window past a durability-lag budget so
+        the ``durability-lag-above-budget`` doctor rule fires."""
+        return self.latency(
+            op="hottier.drain", path=path, seconds=seconds, nth=nth, times=times
+        )
 
-    def slow_drain(self, *args, **kwargs) -> "FaultSchedule":
-        """Latency at the hot tier's ``hottier.drain`` boundaries."""
-        raise _not_ported("slow_drain", _ITEM_9)
+    def lose_host(
+        self, host: int, op: str = "*", path: str = "*", nth: int = 1
+    ) -> "FaultSchedule":
+        """Preempt hot-tier peer ``host`` at the ``nth`` op matching the
+        globs: its RAM store is dropped and it goes dead
+        (``hottier.kill_host``). The op itself then proceeds; the loss is
+        observed by whichever replica read or drain touches the host
+        next."""
+        self.rules.append(
+            FaultRule(kind="hostloss", op=op, path=path, nth=nth, times=1, host=host)
+        )
+        return self
 
-    def lose_host(self, *args, **kwargs) -> "FaultSchedule":
-        """Preempt a hot-tier peer host."""
-        raise _not_ported("lose_host", _ITEM_9)
+    def flap_host(
+        self,
+        host: int,
+        revive_after_ops: int = 1,
+        op: str = "*",
+        path: str = "*",
+        nth: int = 1,
+    ) -> "FaultSchedule":
+        """Lose peer ``host`` as :meth:`lose_host` does at the ``nth``
+        matching op, then revive it ``revive_after_ops`` op boundaries
+        later: a wire-backed host as a fresh subprocess one membership
+        generation up (``repair.respawn_host``; its empty store is never
+        trusted with its predecessor's replicas), an in-process host
+        through ``tier.revive_host`` (alive, empty). Both ride the op
+        stream, so a replay replays the same churn."""
+        self.rules.append(
+            FaultRule(
+                kind="flap", op=op, path=path, nth=nth, times=1,
+                host=host, revive_after_ops=max(1, int(revive_after_ops)),
+            )
+        )
+        return self
 
-    def flap_host(self, *args, **kwargs) -> "FaultSchedule":
-        """Lose, then revive, a hot-tier peer host."""
-        raise _not_ported("flap_host", _ITEM_9)
+    def drop_conn(
+        self,
+        host: Optional[int] = None,
+        op: str = "hottier.replicate",
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = 1,
+    ) -> "FaultSchedule":
+        """The connection to peer ``host`` (None: any peer) dies at the
+        ``nth`` matching op boundary: the next RPC to that host aborts its
+        socket before the request leaves and fails as a transport
+        error, which the retry layer absorbs by dialling again."""
+        self.rules.append(
+            FaultRule(kind="drop_conn", op=op, path=path, nth=nth, times=times, host=host)
+        )
+        return self
 
-    def drop_conn(self, *args, **kwargs) -> "FaultSchedule":
-        """Abort the replication transport's next connection."""
-        raise _not_ported("drop_conn", _ITEM_9)
+    def torn_frame(
+        self,
+        host: Optional[int] = None,
+        op: str = "hottier.replicate",
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = 1,
+    ) -> "FaultSchedule":
+        """The next matching RPC to peer ``host`` sends half its frame and
+        aborts the connection: the receiver sees the tear and never acks,
+        and the client retries or degrades."""
+        self.rules.append(
+            FaultRule(kind="torn_frame", op=op, path=path, nth=nth, times=times, host=host)
+        )
+        return self
 
-    def torn_frame(self, *args, **kwargs) -> "FaultSchedule":
-        """Send half a replication frame, then abort."""
-        raise _not_ported("torn_frame", _ITEM_9)
+    def slow_wire(
+        self,
+        seconds: float = 0.05,
+        host: Optional[int] = None,
+        op: str = "hottier.replicate",
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = 1,
+    ) -> "FaultSchedule":
+        """The next matching RPC to peer ``host`` pays ``seconds`` on the
+        wire before its request is sent: above
+        ``TPUSNAPSHOT_REPLICATION_DEADLINE_S`` it misses its deadline
+        (``tpusnapshot_hot_tier_replication_deadline_misses_total``) and
+        enters the retry → spare host → write-through ladder."""
+        self.rules.append(
+            FaultRule(
+                kind="slow_wire", op=op, path=path, nth=nth, times=times,
+                seconds=seconds, host=host,
+            )
+        )
+        return self
 
-    def slow_wire(self, *args, **kwargs) -> "FaultSchedule":
-        """Delay a replication RPC past its deadline."""
-        raise _not_ported("slow_wire", _ITEM_9)
+    # The JAX package's builders for the read plane, which the port lacks:
+    # each raises, naming the ROADMAP item that brings it.
 
     def kill_server(self, *args, **kwargs) -> "FaultSchedule":
         """Kill every in-process read-plane server."""
@@ -365,6 +465,10 @@ class FaultController:
         self.crashed = False
         self.records: List[FaultRecord] = []
         self._lock = threading.Lock()
+        # flap_host revivals due at a future op index: (revive_at, host).
+        # Popped at boundary entry and performed outside the lock (a
+        # wire-backed revival spawns a subprocess).
+        self._pending_revivals: List[Tuple[int, int]] = []
 
     def _record(self, idx: int, op: str, path: str, kind: str) -> None:
         # Lock held by caller. Each fault is counted and marked with a
@@ -374,11 +478,52 @@ class FaultController:
         telemetry.counter(_metric_names.FAULTS_INJECTED, kind=kind).inc()
         tracing.instant("fault_injected", op=op, path=path, kind=kind, op_index=idx)
 
+    def _revive_flapped_host(self, host: int, op: str, path: str) -> None:
+        """Bring a flapped host back (lock not held: a wire-backed revival
+        spawns a subprocess): a remote peer as a fresh process one
+        membership generation up, an in-process host alive and empty.
+        Either way it holds none of its predecessor's replicas;
+        re-replication is the repair plane's job."""
+        from ..hottier import repair as ht_repair
+        from ..hottier import tier as ht_tier
+
+        try:
+            if ht_tier.remote_host(host) is not None:
+                ht_repair.respawn_host(host)
+            else:
+                ht_tier.revive_host(host)
+        except Exception as e:
+            # A failed rejoin is a host that stayed lost: the repair plane
+            # keeps re-replicating around it.
+            logging.getLogger(__name__).warning(
+                f"flap_host revival of host {host} failed: {e!r}"
+            )
+            return
+        with self._lock:
+            # The revival is in place when this boundary's op runs, and
+            # on_op has not counted it yet: stamp the index it will get.
+            self._record(self.op_index + 1, op, path, "revive")
+
     def on_op(self, op: str, path: str) -> Optional[TornWrite]:
         """Announce one op boundary. Raises the scheduled fault, if any;
         returns a :class:`TornWrite` the caller must apply, or None."""
         sleep_s = 0.0
         torn: Optional[TornWrite] = None
+        due_revivals: List[int] = []
+        with self._lock:
+            if self._pending_revivals and not self.crashed:
+                upcoming = self.op_index + 1
+                still_pending: List[Tuple[int, int]] = []
+                for at, host in self._pending_revivals:
+                    if at <= upcoming:
+                        due_revivals.append(host)
+                    else:
+                        still_pending.append((at, host))
+                self._pending_revivals = still_pending
+        for host in due_revivals:
+            # Before this boundary's own faults: a revival scheduled N ops
+            # after the loss is in place when the Nth op runs.
+            self._revive_flapped_host(host, op, path)
         with self._lock:
             if self.crashed:
                 raise SimulatedCrash(f"(post-crash) {op}({path})")
@@ -421,6 +566,27 @@ class FaultController:
 
                     # Only the reported cap shrinks; the guarded op goes on.
                     memwatch.force_cap(rule.domain or "", int(rule.cap_bytes or 0))
+                    continue
+                if rule.kind in ("hostloss", "flap"):
+                    self._record(idx, op, path, rule.kind)
+                    from ..hottier import kill_host
+
+                    # A wire-backed peer is really SIGKILLed.
+                    kill_host(rule.host)
+                    if rule.kind == "flap":
+                        self._pending_revivals.append(
+                            (idx + (rule.revive_after_ops or 1), rule.host)
+                        )
+                    continue
+                if rule.kind in ("drop_conn", "torn_frame", "slow_wire"):
+                    self._record(idx, op, path, rule.kind)
+                    from ..hottier import transport
+
+                    # Armed here; the next RPC to the matched host consumes
+                    # it (at the hottier.replicate boundary, the RPC this
+                    # boundary guards: the emit fires just before the put
+                    # dials).
+                    transport.script_wire_fault(rule.kind, host=rule.host, seconds=rule.seconds)
                     continue
                 raise ValueError(f"unknown fault rule kind {rule.kind!r}")
         if sleep_s > 0.0:

@@ -18,8 +18,8 @@ only the stall of :meth:`Snapshot.async_take`.
 (``full_period`` forces a full take every that many steps), and retention
 defers a step that newer steps still borrow from. ``chunks``/``codec``
 write every save through the run's ``<base>/.chunkstore``, and retention
-frees chunks through the store's GC; ``reconcile`` sweeps the store.
-Not yet ported from the JAX package's manager: the hot tier.
+frees chunks through the store's GC; ``reconcile`` sweeps the store and
+the hot tier's orphaned RAM buffers (``hottier``).
 """
 
 import asyncio
@@ -219,6 +219,7 @@ class CheckpointManager:
                 self._reclaim_uncommitted(storage, objs, committed | marked | tombstoned)
             )
             self._sweep_debris(storage, objs)
+            self._reconcile_hot_tier(committed, marked, tombstoned)
             self._reconcile_chunkstore(storage)
             return handled
         finally:
@@ -281,6 +282,23 @@ class CheckpointManager:
             except Exception as e:
                 if not is_not_found_error(e):
                     logger.warning(f"reconcile: removing {obj} failed ({e!r})")
+
+    def _reconcile_hot_tier(self, committed: set, marked: set, tombstoned: set) -> None:
+        """Sweep orphaned hot-tier RAM buffers: steps with neither
+        committed metadata nor a marker (a take that crashed before its
+        commit) or condemned by a prune have buffers nothing will read or
+        drain. The keep-set is committed ∪ marked less the tombstoned, so
+        a committed take not yet drained keeps its replicas; young
+        uncommitted roots are spared by ``TPUSNAPSHOT_SWEEP_MIN_AGE_S``.
+        Best-effort: a tier failure never fails reconcile."""
+        try:
+            from . import hottier
+
+            keep = {_step_dir(self.base_path, s) for s in (committed | marked) - tombstoned}
+            for root in hottier.reconcile_hot_tier(self.base_path, keep):
+                logger.info(f"reconcile: dropped orphaned hot-tier buffers for {root}")
+        except Exception as e:
+            logger.warning(f"reconcile: hot-tier buffer sweep failed: {e!r}")
 
     def _reconcile_chunkstore(self, storage: Any) -> None:
         """Sweep the run's chunk store (stale intents, stale ref documents,

@@ -571,6 +571,17 @@ class Snapshot:
                         f"would corrupt them. Delete those first, or pass "
                         f"force=True."
                     )
+            # Hot-tier replicas of this snapshot go first, before any
+            # durable delete: queued tier-down drains are cancelled and
+            # in-flight ones waited out, so a background drain cannot
+            # resurrect a deleted snapshot's objects into the durable
+            # tier after the deletes below.
+            try:
+                from . import hottier as _hottier
+
+                _hottier.forget_root(self.path)
+            except Exception as e:
+                logger.warning(f"hot-tier buffer GC failed: {e!r}")
             asyncio.run(_delete_snapshot(storage, metadata, sweep, min_age_s))
             self.invalidate_caches()
             if metadata is not None and metadata.base_paths:
@@ -663,6 +674,14 @@ class Snapshot:
             )
             watch.set_phase("restore")
             telemetry.counter(_metric_names.RESTORES_TOTAL).inc()
+            # Hot-tier attribution: which objects peer RAM served and
+            # which fell back to the durable tier, and which peers were
+            # degraded — the flight report's ``tier`` block, read by the
+            # hot-tier-degraded doctor rule and the ledger. None whenever
+            # the tier is off.
+            from . import hottier as _hottier
+
+            tier_token = _hottier.restore_stats_begin()
             app_state = dict(app_state)
             rng_key, rng_stateful = _pop_rng_state(app_state)
             # Every rank joins every per-key barrier, whichever statefuls
@@ -683,6 +702,9 @@ class Snapshot:
                     verify_jobs, paths, watch,
                 )
             watch.finish()
+            tier_summary = _hottier.restore_stats_collect(tier_token)
+            if tier_summary is not None:
+                recorder.note(tier=tier_summary)
         finally:
             assemble_s = stats.pop("assemble_s", 0.0)
             profile = _set_restore_report(token, stats)
@@ -1932,9 +1954,9 @@ async def _delete_ignore_missing(storage: StoragePlugin, path: str) -> None:
 
 # Records the JAX package keeps beside a snapshot (incremental back-links,
 # flight reports, progress and sampler records, a bare snapshot's
-# telemetry ledger, the hot tier's watermark): they go with it.
+# telemetry ledger; the hot tier's watermark is named by its runtime):
+# they go with it.
 _OWN_RECORD_PREFIXES = ("refs/", ".report", ".progress", ".scope/", ".telemetry/")
-_TIERDOWN_FNAME = ".tierdown"
 
 
 async def _delete_snapshot(
@@ -1944,7 +1966,9 @@ async def _delete_snapshot(
     min_age_s: float,
 ) -> None:
     locations: Set[str] = set()
-    markers: List[str] = [_TIERDOWN_FNAME]
+    from .hottier.runtime import TIERDOWN_FNAME
+
+    markers: List[str] = [TIERDOWN_FNAME]
     if metadata is not None:
         locations = {
             e.location

@@ -115,11 +115,30 @@ class FlightRecorder:
         self._phases: Dict[str, float] = {}
         self._pipeline: Dict[str, Any] = {}
         self._lock = threading.Lock()
-        # The hot tier's replication window and the wiretap window
-        # (the ``tier.replication`` and ``wire`` blocks) come with
-        # ``hottier``/``wiretap``, not ported yet (ROADMAP item 9): a
-        # port summary has neither block, as a JAX take with the tier
-        # off has none.
+        # Take-side hot-tier replication window (snapwire): opened at
+        # recorder birth so every commit route — sync, async, KV,
+        # storage — attributes the same window. None when the tier is
+        # off; best-effort by contract (observability never fails a
+        # take).
+        self._replication_token: Any = None
+        if kind == "take":
+            try:
+                from torchsnapshot_tpu_torch import hottier
+
+                self._replication_token = hottier.replication_stats_begin()
+            except Exception:
+                logger.debug("replication window open failed", exc_info=True)
+        # Wire-observability window (wiretap/snapflight): opened for
+        # both kinds, so the summary's ``wire`` block attributes every
+        # RPC this operation put on any transport. Best-effort by the
+        # same contract as the replication window.
+        self._wire_token: Any = None
+        try:
+            from torchsnapshot_tpu_torch import wiretap
+
+            self._wire_token = wiretap.window_begin()
+        except Exception:
+            logger.debug("wire window open failed", exc_info=True)
         # Host-memory window (memwatch/snapmem): phase-windowed
         # per-domain high-waters for this operation's ``memory`` block.
         # Same contract: best-effort, absent when nothing registered.
@@ -217,6 +236,36 @@ class FlightRecorder:
             },
         }
         summary.update(pipeline.get("extra", {}))
+        if self._replication_token is not None:
+            # Close the snapwire window: the take's tier.replication
+            # block (pushes / delta_ratio / deadline misses / acked-
+            # bytes split) — what the replication-degraded doctor rule
+            # and the ledger's tier field read. Absent when the window
+            # saw no wire traffic.
+            try:
+                from torchsnapshot_tpu_torch import hottier
+
+                block = hottier.replication_stats_collect(self._replication_token)
+            except Exception:
+                logger.debug("replication window collect failed", exc_info=True)
+                block = None
+            if block:
+                summary.setdefault("tier", {})["replication"] = block
+        if self._wire_token is not None:
+            # Close the wiretap window: per-op latency quantiles,
+            # deadline margin, retries and outcome mix for every RPC this
+            # operation issued — what the deadline-margin-collapsing
+            # doctor rule and the ledger's wire field read. Absent when
+            # the window saw no wire traffic.
+            try:
+                from torchsnapshot_tpu_torch import wiretap
+
+                wire_block = wiretap.window_collect(self._wire_token)
+            except Exception:
+                logger.debug("wire window collect failed", exc_info=True)
+                wire_block = None
+            if wire_block:
+                summary["wire"] = wire_block
         if self._mem_token is not None:
             # Close the memory window: per-domain high-waters inside
             # this operation, ending occupancy/residuals, counter
