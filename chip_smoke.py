@@ -106,6 +106,32 @@ Phases, each printing JSON lines to stdout:
    fault. It prints each side's take seconds, their median and spread,
    the trace's bytes and spans, and the report and ledger write
    seconds, beside ``nvidia-smi``'s name and power limit.
+6r. read plane — in the process beside the faults phase, after the hottier
+   phase (its times are taken beside that load; ``tools/read_plane_phase.py``
+   runs it alone): the flagship at GPT-2 XL's widths and 6
+   of its 48 layers (51 leaves, 1.07 GB; cut for the time limit), f32,
+   taken with fingerprints (K4) to the fs backend behind one ``python -m
+   torchsnapshot_tpu_torch.snapserve.server`` process, its cache at least
+   the state. Four replica processes (inference replicas pulling new
+   weights) restore it onto the card at once through ``RemoteSnapshot``,
+   traced and sampled: every leaf byte-equal to the source, each
+   replica's K1 forward's logits bit-identical to the source's, the
+   server's backend reads at most 1.2 × the state; an ``ops`` view reads
+   the live server (``fetch_server_stats``: egress, cache hits, clients)
+   and the replicas' samples; the replicas' and the server's traces are
+   merged and ``summarize`` names the gating process. A ``verify_device``
+   restore through the server (K4 once over every leaf), a chunk take at
+   512 KiB chunks (K5 once over every chunked leaf) followed by
+   ``watch``, restored as row halves by a gloo world of 2 through the
+   server, each rank fetching at most 0.6 of each cut object (chunk
+   pushdown; its ``plan`` RPC equal to the local cut). Two server
+   processes behind one ``snapserve://h1,h2/`` URL, one SIGKILLed at the
+   28th request of a restore (bit-exact, no direct read, the failover in
+   the ``read_plane`` block); faultline's ``kill_server`` on an
+   in-process server mid-restore (bit-exact direct fallbacks counted,
+   the doctor's ``read-plane-degraded``). Every process it starts
+   (spawned first, so that their start-up overlaps the takes) dies with
+   the script and is killed in its ``finally``.
 6b. torn leaf — a copy of a small chunked snapshot with one corrupt
    chunk, then an injected failure of an H2D pipeline transfer, then a
    20 MiB single-object leaf (two staging-slot transfers) whose second
@@ -131,7 +157,8 @@ Phases, each printing JSON lines to stdout:
    muted (rank 0's TimeoutError names rank 1 within the 20 s deadline).
    ``FAULTS_INJECTED`` moves by exactly the 503 take's ``fault_counts()``.
 6f. hottier — in a process of its own, run beside the faults phase
-    (both hold correctness gates; its times are taken beside that load):
+    (all hold correctness gates; its times are taken beside that load;
+    the read plane phase follows it in that process):
     the hot tier with two real peer processes (``python -m
     torchsnapshot_tpu_torch.hottier.peer``, hosts 1 and 2; this process
     is host 0; k = 2) holding a CUDA state's replicas: the transformer at
@@ -148,7 +175,9 @@ Phases, each printing JSON lines to stdout:
     durable storage (``hot-tier-degraded`` naming hosts 0 and 1), each
     bit-identical; it prints the times, the put and get RPCs' GB/s, this
     host's fingerprint rate and the put path's host tags' share of the
-    ack and of each hot restore, and MemAvailable. Stopped, it kills its
+    ack and of each hot restore, and MemAvailable. It runs the sampler
+    through the ack and the drain, and takes one ``telemetry.ops`` view
+    over the live runtime while the drain runs. Stopped, it kills its
     peers in its ``finally``; the peers share its process group, which
     the script kills if it does not stop in time.
 7. train path — the same model trained with ``sgd_train_step`` on 4 × 1024
@@ -164,7 +193,9 @@ Phases, each printing JSON lines to stdout:
    save and the restore's. Then one
    step's gradients through the flash kernels are held against plain
    autograd of the einsum attention on a short input.
-8. multi rank — the same model at full widths and depth across ranks
+8. multi rank — the same model at full widths and a quarter of its depth
+   (12 of 48 layers, 1.80 GB; cut for the time limit when the read plane
+   phase came) across ranks
    that share the card as processes of one gloo process group (NCCL
    refuses two ranks on one GPU), each building the state on the card
    from the same seed: at world 2, the Megatron tensor-parallel layout
@@ -226,8 +257,8 @@ Phases, each printing JSON lines to stdout:
 17. phase seconds — one JSON line with each phase's wall seconds.
 18. kernels — one JSON line summarising every kernel of the paths (K4
     and K5 with their launches and segments on the dedup, api, dlrm,
-    dryrun, faults, examples and hottier paths, K1 with its launches on
-    each).
+    dryrun, faults, examples and hottier paths and their launches on the
+    read plane's, K1 with its launches on each).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero, as does a host without CUDA.
@@ -243,8 +274,11 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import glob
+import hashlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -1422,11 +1456,17 @@ def phase_api(model, tokens, ceilings):
             record["corrupt_copy_left_metadata"] = os.path.exists(
                 os.path.join(paths["from_corrupt"], ".snapshot_metadata"))
 
-        rc, out, seconds, err = _inspect_cli(paths["copy"], "--verify")
-        record["cli_verify"] = {"rc": rc, "seconds": seconds, "lines": out[:4], "stderr": err if rc != 1 else ""}
-        rc, out, seconds, err = _inspect_cli(paths["changed"], "--diff", paths["copy"])
-        record["cli_diff"] = {"rc": rc, "seconds": seconds, "summary": out[-1:] if out else [],
-                              "stderr": err if rc != 1 else ""}
+        # The two CLI processes run at once.
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2) as pool:
+            verify_cli = pool.submit(_inspect_cli, paths["copy"], "--verify")
+            diff_cli = pool.submit(_inspect_cli, paths["changed"], "--diff", paths["copy"])
+            rc, out, seconds, err = verify_cli.result()
+            record["cli_verify"] = {"rc": rc, "seconds": seconds, "lines": out[:4], "stderr": err if rc != 1 else ""}
+            rc, out, seconds, err = diff_cli.result()
+            record["cli_diff"] = {"rc": rc, "seconds": seconds, "summary": out[-1:] if out else [],
+                                  "stderr": err if rc != 1 else ""}
         record["launches"] = {"flash_fwd": attention.flash_forward_launches,
                               "xs128_box": fops.fingerprint_box_launches,
                               "xs128_chunked": fops.fingerprint_chunked_launches}
@@ -2145,6 +2185,8 @@ def phase_train():
 # process group, all on cuda:0. A rank that fails or hangs fails the
 # phase (run_multiprocess's shared deadline).
 MR_RANK_TIMEOUT_S = 420.0
+# A quarter of GPT-2 XL's 48 layers, for the script's time limit.
+MR_CFG = dataclasses.replace(GPT2_XL, n_layers=12)
 
 
 def _mr_change(tree):
@@ -2187,7 +2229,7 @@ def mr_save(rank, world, base, out_dir):
     counts = _mr_count_payload_bytes()
     torch.cuda.set_device(rank % torch.cuda.device_count())
     mesh = make_mesh({"tp": world}, "cuda")
-    full = tf.init_params(GPT2_XL, seed=0)
+    full = tf.init_params(MR_CFG, seed=0)
     params = tf.shard_params(full, mesh)
     del full
     torch.cuda.empty_cache()
@@ -2228,7 +2270,7 @@ def mr_restore(rank, world, base, out_dir):
     counts = _mr_count_payload_bytes()
     torch.cuda.set_device(rank % torch.cuda.device_count())
     mesh = make_mesh({"tp": world}, "cuda")
-    expected = tf.init_params(GPT2_XL, seed=0)
+    expected = tf.init_params(MR_CFG, seed=0)
     _mr_change(expected)
     template = shard_pytree(expected, mesh, _mr_fsdp_rule)
     for t in tf.param_leaves(template):
@@ -2287,7 +2329,7 @@ def _spawn(fn, world, args, out_dir, kind, timeout_s=None):
 
 
 def phase_multi_rank():
-    cfg = GPT2_XL
+    cfg = MR_CFG
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_mr-")
     base = os.path.join(workdir, "run")
@@ -2296,6 +2338,7 @@ def phase_multi_rank():
     record = {
         "phase": "multi_rank",
         "model": "GPT-2 XL widths, f32, flash attention",
+        "reduced": f"{cfg.n_layers} of 48 layers, for the time limit",
         "filesystem": list(_filesystem(os.path.realpath(workdir))),
     }
     try:
@@ -4098,7 +4141,9 @@ def phase_hottier(smi, workroot=None):
     from torchsnapshot_tpu_torch.hottier import peer as ht_peer
     from torchsnapshot_tpu_torch.hottier import tier as ht_tier
     from torchsnapshot_tpu_torch.ops import fingerprint as fops
+    from torchsnapshot_tpu_torch.telemetry import ops as scope_ops
     from torchsnapshot_tpu_torch.telemetry import report as flight
+    from torchsnapshot_tpu_torch.telemetry import sampler
     from torchsnapshot_tpu_torch.telemetry.doctor import diagnose_report
 
     phase_begin = time.perf_counter()
@@ -4217,6 +4262,9 @@ def phase_hottier(smi, workroot=None):
             hottier.enable_hot_tier(rank=0, world=HOT_TIER_WORLD, k=HOT_TIER_K, capacity_bytes=capacity)
             try:
                 record["remote_hosts"] = sorted(hottier.remote_hosts())
+                # The runtime sampler runs through the ack and the drain.
+                scope_dir = os.path.join(workdir, "scope")
+                sampler.start(rank=0, statusfile_dir=scope_dir, interval_s=0.5)
                 # (a) the async take, acked from peer RAM.
                 _reset_launch_counts()
                 counts = _fp_counts()
@@ -4241,12 +4289,35 @@ def phase_hottier(smi, workroot=None):
                     async_report = json.load(f)
                 record["async_report_blocks"] = sorted(
                     k for k in ("tier", "wire") if k in async_report["ranks"][0])
+                # One ops view over the live runtime, its drain under way.
+                ops_state = scope_ops.collect(scope_dir)
+                ops_findings = scope_ops.findings_of(ops_state)
+                view = scope_ops.render(ops_state, stale_after_s=60.0)
+                live = [x for x in ops_state["samples_by_rank"].get(0, []) if x.get("live")]
+                record["ops_view"] = {
+                    "live_samples": len(live),
+                    "live_hot_tier": bool(live and live[-1].get("hot_tier")),
+                    "findings": sorted(f.rule for f in ops_findings),
+                    "drain_section": "drain pipeline / scheduler:" in view,
+                    "lines": len(view.splitlines()),
+                }
                 # (b) the drain.
                 mark = len(tag_log)
                 begin = time.perf_counter()
                 record["drained"] = hottier.wait_drained(timeout_s=HOT_TIER_DRAIN_TIMEOUT_S)
                 record["drain_s"] = time.perf_counter() - begin
                 record["drain_tags_after_ack"] = tags_since(mark, "drain")
+                sampler.stop()
+                scope = [x for v in sampler.collect_statusfiles(scope_dir).values() for x in v]
+                record["sampler"] = {
+                    "samples": len(scope),
+                    "with_hot_tier": sum(1 for x in scope if x.get("hot_tier")),
+                    "max_queue_depth": max((int((x.get("hot_tier") or {}).get("queue_depth") or 0) for x in scope),
+                                           default=0),
+                    "max_at_risk_bytes": max((int((x.get("hot_tier") or {}).get("at_risk_bytes") or 0)
+                                              for x in scope), default=0),
+                    "with_wire": sum(1 for x in scope if (x.get("wire") or {}).get("ops")),
+                }
                 files = [os.path.relpath(os.path.join(d, f), root0) for d, _, fs in os.walk(root0) for f in fs]
                 record["tierdown"] = ".tierdown" in files
                 payload = [f for f in files if not f.startswith(".")]
@@ -4285,6 +4356,7 @@ def phase_hottier(smi, workroot=None):
                 record["hot_tier_degraded"] = None if degraded is None else {
                     "severity": degraded.severity, "degraded_peers": degraded.evidence.get("degraded_peers")}
             finally:
+                sampler.stop(final_sample=False)
                 hottier.disable_hot_tier(flush=False)
                 hottier.reset_hot_tier()
     finally:
@@ -4359,6 +4431,10 @@ def phase_hottier(smi, workroot=None):
         and record["hot_tier_degraded"]["degraded_peers"] == "peer hosts 0-1",
         "(f) the unchanged retake replicated under 10 % of its bytes":
             rep.get("delta_ratio") is not None and rep["delta_ratio"] < 0.10,
+        "the sampler recorded the live hot tier and its wire through the ack and the drain":
+            record["sampler"]["with_hot_tier"] >= 1 and record["sampler"]["with_wire"] >= 1,
+        "the ops view read the live runtime and rendered its drain pipeline":
+            record["ops_view"]["live_hot_tier"] and record["ops_view"]["drain_section"],
         "(g) the take reports carry tier.replication and wire, the replicated bytes the payload's":
             bool(rep) and record["retake_report_has_wire"] and "wire" in record["async_report_blocks"]
             and rep.get("replicated_ack_bytes") == state_bytes and rep.get("write_through_bytes") == 0,
@@ -4367,12 +4443,13 @@ def phase_hottier(smi, workroot=None):
     return record
 
 
-def _hottier_beside(smi, out_path):
-    """The hottier phase in a process of its own (spawned), its record
-    written to ``out_path`` as JSON and its snapshots under the same
-    directory. It leads a process group of its own, which its peer
-    processes join, and a SIGTERM raises in it, so that the phase's
-    ``finally`` kills the peers; it gets one too if the script dies."""
+def _phases_beside(smi, out_path):
+    """The hottier and read_plane phases, one after the other, in a
+    process of its own (spawned), their records written to ``out_path``
+    as JSON and their snapshots under the same directory. It leads a
+    process group of its own, which the processes the phases start join,
+    and a SIGTERM raises in it, so that each phase's ``finally`` kills
+    them; it gets one too if the script dies."""
     os.setpgid(0, 0)
 
     def stopped(signum, frame):
@@ -4381,9 +4458,11 @@ def _hottier_beside(smi, out_path):
     signal.signal(signal.SIGTERM, stopped)
     PR_SET_PDEATHSIG = 1
     ctypes.CDLL(None, use_errno=True).prctl(PR_SET_PDEATHSIG, signal.SIGTERM)
-    record = phase_hottier(smi, workroot=os.path.dirname(out_path))
+    workroot = os.path.dirname(out_path)
+    records = {"hottier": phase_hottier(smi, workroot=workroot),
+               "read_plane": phase_read_plane(smi, workroot=workroot)}
     with open(out_path, "w") as f:
-        json.dump(record, f)
+        json.dump(records, f)
 
 
 class _Beside:
@@ -4433,7 +4512,678 @@ class _Beside:
         shutil.rmtree(self._dir, ignore_errors=True)
 
 
-HOT_TIER_TIMEOUT_S = 900.0
+BESIDE_TIMEOUT_S = 900.0
+
+
+# ---------------------------------------------------------------- read plane
+
+# Depth: 6 of GPT-2 XL's 48 layers, the hottier phase's size. At 12 the
+# phase took 160.1 s on an H100 (80GB HBM3, 700 W), most of it the Python
+# server's rate (about 0.12 GB/s a replica, four at once) and process
+# start-up; the script is near its time limit.
+READ_PLANE_LAYERS = 6
+READ_PLANE_REPLICAS = 4
+READ_PLANE_SEED = 21
+# The JAX package's read fan-out bound: the server's backend reads for N
+# replicas restoring one snapshot at most 1.2 × its bytes (direct reads
+# would cost N ×).
+READ_PLANE_AMPLIFICATION = 1.2
+# A rank restoring a row half of a chunk-stored leaf needs half its bytes
+# and at most one chunk across the cut; at 512 KiB chunks that stays
+# under 0.6 of the smallest chunked leaf (pos_embed, 6.55 MB).
+READ_PLANE_PUSHDOWN_FRACTION = 0.6
+READ_PLANE_CHUNK_BYTES = 512 << 10
+# The server holds both snapshots of the state whole.
+READ_PLANE_CACHE_BYTES = 6 << 30
+READ_PLANE_WORLD = 2
+READ_PLANE_TIMEOUT_S = 300.0
+# The fleet member dies, and the in-process server is killed, at this
+# snapserve.request of their restores (57 for the 51 leaves and the
+# metadata at 6 layers; at most 16 in flight): after some leaves were
+# served, with about half still to read.
+READ_PLANE_KILL_AT = 28
+PR_SET_PDEATHSIG = 1
+
+
+def _die_with_parent():
+    """In a child process: SIGKILL it when the process that started it
+    dies, so nothing this phase starts outlives the script."""
+    ctypes.CDLL(None, use_errno=True).prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
+
+
+def _read_plane_tokens(cfg):
+    gen = torch.Generator(device="cuda").manual_seed(READ_PLANE_SEED + 2)
+    return torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+
+
+def _logits_digest(model, tokens):
+    """sha256 of the logits of a forward through K1 (bit identity)."""
+    with torch.no_grad():
+        logits = model(tokens)
+    torch.cuda.synchronize()
+    return hashlib.sha256(logits.cpu().numpy().tobytes()).hexdigest()
+
+
+def _start_snapserve(workdir, name, env=None):
+    """``python -m torchsnapshot_tpu_torch.snapserve.server`` over the fs
+    backend, its cache capped at READ_PLANE_CACHE_BYTES: (process, port
+    file, log path). The caller waits for the port file."""
+    port_file = os.path.join(workdir, f"{name}.addr")
+    log_path = os.path.join(workdir, f"{name}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torchsnapshot_tpu_torch.snapserve.server", "--addr", "127.0.0.1:0",
+             "--port-file", port_file, "--cache-bytes", str(READ_PLANE_CACHE_BYTES)],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT, **(env or {})},
+            stdout=log, stderr=subprocess.STDOUT, preexec_fn=_die_with_parent,
+        )
+    return proc, port_file, log_path
+
+
+def _await_snapserve(proc, port_file, log_path, timeout_s=READ_PLANE_TIMEOUT_S):
+    deadline = time.monotonic() + timeout_s
+    while not (os.path.exists(port_file) and open(port_file).read().strip()):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(log_path) as f:
+                tail = f.read()[-4000:]
+            raise RuntimeError(f"snapserve server did not bind (exit {proc.poll()}): {tail}")
+        time.sleep(0.05)
+    return open(port_file).read().strip()
+
+
+def _stop_snapserve(proc):
+    """Stop a server process so that it flushes its trace: SIGINT cancels
+    its serving task, whose exit waits for open connections to close (a
+    client's idle pooled connection can hold it); a second SIGINT raises
+    in its loop at once. Its exit code, or None if it still runs."""
+    for grace_s in (10.0, 30.0):
+        proc.send_signal(signal.SIGINT)
+        try:
+            return proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            continue
+    return None
+
+
+def _await_files(paths, procs, timeout_s):
+    """Wait until every path exists; fail early if a process died."""
+    deadline = time.monotonic() + timeout_s
+    while not all(os.path.exists(p) for p in paths):
+        dead = [p.exitcode for p in procs if not p.is_alive() and p.exitcode != 0]
+        if dead or time.monotonic() > deadline:
+            raise RuntimeError(f"read_plane: processes did not get ready (exit codes {dead})")
+        time.sleep(0.05)
+
+
+def _await_go(out_dir, name):
+    """In a replica or rank: wait for the parent's ``name`` file, which
+    holds the server's address; a ``stop`` file (the phase failed) or the
+    deadline raises."""
+    go, stop = os.path.join(out_dir, name), os.path.join(out_dir, "stop")
+    deadline = time.monotonic() + READ_PLANE_TIMEOUT_S
+    while not os.path.exists(go):
+        if os.path.exists(stop) or time.monotonic() > deadline:
+            raise RuntimeError(f"read_plane: no {name} from the phase")
+        time.sleep(0.01)
+    with open(go) as f:
+        return f.read().strip()
+
+
+def _write_go(out_dir, name, addr):
+    tmp = os.path.join(out_dir, f".{name}.tmp")
+    with open(tmp, "w") as f:
+        f.write(addr)
+    os.replace(tmp, os.path.join(out_dir, name))
+
+
+def rp_replica(index, path, layers, out_dir):
+    """One inference replica pulling new weights (a spawned process on
+    the card): a CUDA template, then, on the parent's ``go`` (which names
+    the server), a traced ``RemoteSnapshot(path, addr).restore()``
+    started together with the other replicas, the sampler running; then
+    every leaf held to the source built from the seed and the sha256 of a
+    K1 forward's logits. Its record to ``out_dir/replica<index>.json``."""
+    _die_with_parent()
+    entered = time.time()
+    from torchsnapshot_tpu_torch import RemoteSnapshot, snapserve, tracing
+    from torchsnapshot_tpu_torch.telemetry import sampler
+
+    torch.cuda.init()
+    cuda_ready = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(GPT2_XL, n_layers=layers)
+    source = tf.Transformer.init(cfg, seed=READ_PLANE_SEED)
+    template = tf.Transformer.init(cfg, seed=READ_PLANE_SEED + 1)
+    tokens = _read_plane_tokens(cfg)
+    tracing.enable(os.path.join(out_dir, f"replica{index}.trace.json"))
+    sampler.start(rank=index, statusfile_dir=os.path.join(out_dir, "scope"), interval_s=0.25)
+    ready = time.time()
+    open(os.path.join(out_dir, f"ready{index}"), "w").close()
+    addr = _await_go(out_dir, "go")
+    before = snapserve.stats_snapshot()
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    RemoteSnapshot(path, addr=addr).restore({"model": tf.TransformerState(template)})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - begin
+    after = snapserve.stats_snapshot()
+    sampler.stop()
+    tracing.flush()
+    tracing.disable()
+    leaves = list(tf.param_leaves(template.params()))
+    equal = sum(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                for a, b in zip(leaves, tf.param_leaves(source.params())))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del source
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    digest = _logits_digest(template, tokens)
+    record = {
+        "replica": index, "restore_s": seconds, "gbps": state_bytes / seconds / 1e9,
+        # Wall clock (time.time()) at entry (after spawn and import), with
+        # CUDA up, and ready (the models built), for the start-up's parts.
+        "entered_at": entered, "cuda_at": cuda_ready, "ready_at": ready,
+        "leaves": len(leaves), "leaves_byte_equal": equal, "logits_sha256": digest,
+        "on_card": all(t.is_cuda for t in leaves),
+        "k1_launches": attention.flash_forward_launches,
+        "remote_objects": after["remote_objects"] - before["remote_objects"],
+        "remote_bytes": after["remote_bytes"] - before["remote_bytes"],
+        "fallback_objects": after["fallback_objects"] - before["fallback_objects"],
+    }
+    with open(os.path.join(out_dir, f"replica{index}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def rp_pushdown_rank(rank, world, path, layers, out_dir):
+    """A rank of a gloo world of 2 sharing the card: on the parent's
+    ``pushdown_go`` (which names the server), restores the row half (dim
+    0 over ``{"tp": 2}``) of every chunk-stored leaf of the chunk take
+    onto the card through the server, holds each local box to the
+    seed's, and counts the content-chunk bytes it fetched for each cut
+    object; one ``plan`` RPC for the embed's box is held to the local
+    cut. Its record to ``out_dir/pushdown_<rank>.json``."""
+    _die_with_parent()
+    from torchsnapshot_tpu_torch import RemoteSnapshot, snapserve, wiretap
+    from torchsnapshot_tpu_torch.snapserve import client as sv_client
+
+    torch.cuda.set_device(0)
+    fetched = collections.Counter()
+    read = sv_client.SnapServePlugin.read
+
+    async def counting(self, io_req):
+        await read(self, io_req)
+        fetched[io_req.path.rsplit("/", 1)[-1]] += len(io_payload(io_req))
+
+    sv_client.SnapServePlugin.read = counting
+    mesh = make_mesh({"tp": world}, "cuda")
+    cfg = dataclasses.replace(GPT2_XL, n_layers=layers)
+    expected = tf.init_params(cfg, seed=READ_PLANE_SEED)
+    rows = lambda keys, leaf: ("tp",) if _chunked(leaf) else None  # noqa: E731
+    template = shard_pytree(tf.init_params(cfg, seed=READ_PLANE_SEED + 1), mesh, rows)
+    addr = _await_go(out_dir, "pushdown_go")
+    snap = RemoteSnapshot(path, addr=addr)
+    skipped = telemetry.counter(metric_names.CHUNK_PUSHDOWN_SKIPPED_BYTES)
+    skipped0 = skipped.value
+    before = snapserve.stats_snapshot()
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    snap.restore({"model": PytreeStateful(template)})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - begin
+    after = snapserve.stats_snapshot()
+    skipped_bytes = skipped.value - skipped0
+    equal = 0
+    leaves = list(tf.param_leaves(template))
+    for got, want in zip(leaves, tf.param_leaves(expected)):
+        offsets, sizes = shard_box(list(want.shape), list(mesh.shape), mesh.get_coordinate(), got.placements)
+        box = tuple(slice(o, o + s) for o, s in zip(offsets, sizes))
+        equal += bool(torch.equal(got.to_local().view(torch.uint8), want[box].contiguous().view(torch.uint8)))
+    fractions = {}
+    cut_stored = 0
+    for name, entry in snap.get_manifest().items():
+        records = getattr(entry, "chunks", None)
+        if not records:
+            continue
+        stored = sum(int(r.get("sn") or r["n"]) for r in records)
+        got_bytes = sum(fetched.get(r["k"], 0) for r in records)
+        fractions[name] = got_bytes / stored
+        cut_stored += stored
+    fetched_bytes = sum(fetched[k] for k in fetched if k.startswith("xs128:"))
+    embed = snap.get_manifest()["0/model/embed"]
+    r0, r1 = rank * -(-embed.shape[0] // world), min(embed.shape[0], (rank + 1) * -(-embed.shape[0] // world))
+    box = (slice(r0, r1), slice(0, embed.shape[1]))
+    doc = {"shape": list(embed.shape), "itemsize": 4, "record_sizes": [int(r["n"]) for r in embed.chunks],
+           "boxes": [[[r0, r1], [0, embed.shape[1]]]]}
+    plan = snapserve.plan_remote(addr, doc)
+    local_cut = io_preparer._pushdown_cut(embed.chunks, list(embed.shape), box, 4)
+    record = {
+        "rank": rank, "restore_s": seconds, "leaves": len(leaves), "leaves_byte_equal": equal,
+        "on_card": all(t.to_local().is_cuda for t in leaves), "cut_objects": len(fractions), "max_fraction": max(fractions.values()),
+        "min_fraction": min(fractions.values()),
+        "embed_fraction": fractions.get("0/model/embed"),
+        "fetched_chunk_bytes": fetched_bytes, "cut_objects_stored_bytes": cut_stored,
+        "skipped_bytes_counted": skipped_bytes,
+        "plan_equals_local_cut": plan["indices"] == local_cut,
+        "plan_rpcs": (wiretap.summary().get("snapserve/plan") or {}).get("count", 0),
+        "fallback_objects": after["fallback_objects"] - before["fallback_objects"],
+        "remote_objects": after["remote_objects"] - before["remote_objects"],
+    }
+    with open(os.path.join(out_dir, f"pushdown_{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def phase_read_plane(smi, workroot=None):
+    """The read plane serving a CUDA state to replica processes: the
+    flagship at GPT-2 XL's widths and READ_PLANE_LAYERS of its 48 layers,
+    f32, taken with fingerprints to the fs backend, behind one
+    ``python -m torchsnapshot_tpu_torch.snapserve.server`` whose cache
+    holds the state. Gates: (1) four replica processes restore it
+    concurrently onto the card through the server (``RemoteSnapshot``),
+    every leaf byte-equal to the source, each replica's K1 forward's
+    logits bit-identical to the source's, the server's backend reads at
+    most READ_PLANE_AMPLIFICATION × the state's bytes; the replicas run
+    the sampler and are traced, the server too, and the merged trace's
+    summary names the gating process; an ``ops`` view of the live
+    server (``fetch_server_stats``) and of the replicas' samples;
+    (2) a ``verify_device`` restore through the server launches K4 once
+    over every leaf and is bit-identical; (5) a chunk take (K5 once,
+    followed by ``watch`` over its progress records) is restored as row
+    halves by a gloo world of 2 through the server, each rank's boxes
+    byte-equal, each fetching at most READ_PLANE_PUSHDOWN_FRACTION of
+    each cut object, its ``plan`` RPC equal to the local cut; (3) two
+    server processes behind one ``snapserve://h1,h2/`` URL, one SIGKILLed
+    at a counted ``snapserve.request`` mid-restore: bit-exact, no direct
+    fallback, the failover in the ``read_plane`` block; (4) faultline's
+    ``kill_server`` kills an in-process server mid-restore: bit-exact
+    direct fallbacks, counted in the ``read_plane`` block, and the
+    doctor's ``read-plane-degraded``. Every process it starts is killed
+    in its ``finally`` (and dies with the script). ``workroot`` is the
+    directory its snapshots go under (a new temporary directory by
+    default)."""
+    import multiprocessing as mp
+
+    from torchsnapshot_tpu_torch import RemoteSnapshot, io_types, snapserve
+    from torchsnapshot_tpu_torch import faultline as fl
+    from torchsnapshot_tpu_torch.telemetry import merge, summarize, watch
+    from torchsnapshot_tpu_torch.telemetry import ops as scope_ops
+    from torchsnapshot_tpu_torch.telemetry import report as flight
+    from torchsnapshot_tpu_torch.telemetry.doctor import diagnose_report
+
+    phase_begin = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(GPT2_XL, n_layers=READ_PLANE_LAYERS)
+    state_bytes = 4 * sum(math.prod(s) for s in _gpt2_xl_shapes(cfg))
+    record = {"phase": "read_plane", "nvidia_smi": smi, "model": "GPT-2 XL widths, f32",
+              "reduced": f"{READ_PLANE_LAYERS} of 48 layers, for the time limit",
+              "state_bytes": state_bytes, "replicas": READ_PLANE_REPLICAS}
+    source = template = None
+    leaves, template_leaves = [], []
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_read_plane-", dir=workroot)
+    free = shutil.disk_usage(workdir).free
+    if free < 3 * state_bytes:
+        shutil.rmtree(workdir)
+        raise RuntimeError(f"{workdir} has {free} bytes free; the read plane phase needs {3 * state_bytes}")
+    plain = os.path.join(workdir, "plain")
+    chunked = os.path.join(workdir, "chunked", "step-1")
+    out_dir = os.path.join(workdir, "records")
+    os.makedirs(out_dir)
+    trace_root = os.path.join(out_dir, "server.trace.json")
+    launches = {"k1": 0, "k4": 0, "k5": 0}
+
+    def restore_into_template(url_addr, **kwargs):
+        """Restore ``plain`` through ``url_addr`` into the zeroed CUDA
+        template: (seconds, bit-identical, the restore's report)."""
+        with torch.no_grad():
+            for t in template_leaves:
+                t.zero_()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        RemoteSnapshot(plain, addr=url_addr).restore({"model": tf.TransformerState(template)}, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - begin
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(leaves, template_leaves))
+        with open(os.path.join(plain, flight.RESTORE_REPORT_FNAME)) as f:
+            report = json.load(f)
+        return seconds, same, report
+
+    procs = []
+    processes = []
+    ranks = {"thread": None, "error": None}
+    try:
+        # Every process of the phase starts first, so that its start-up
+        # (spawn, import, CUDA, the model inits: about 25 s for a replica)
+        # overlaps the takes: the traced server; the fleet's two members,
+        # which serve only step (3); the four replicas and the gloo world
+        # of 2, each waiting for its go file, which names the server.
+        server, port_file, log_path = _start_snapserve(
+            workdir, "server", env={"TPUSNAPSHOT_TRACE": trace_root, "TPUSNAPSHOT_TRACE_ROLE": "server"})
+        procs.append(server)
+        members = [_start_snapserve(workdir, f"member{i}") for i in range(2)]
+        procs.extend(m[0] for m in members)
+        ctx = mp.get_context("spawn")
+        spawned = time.perf_counter()
+        record["replicas_spawned_at"] = time.time()
+        for i in range(READ_PLANE_REPLICAS):
+            p = ctx.Process(target=rp_replica, args=(i, plain, READ_PLANE_LAYERS, out_dir))
+            p.start()
+            processes.append(p)
+
+        def run_ranks():
+            try:
+                run_multiprocess(rp_pushdown_rank, READ_PLANE_WORLD, (chunked, READ_PLANE_LAYERS, out_dir),
+                                 timeout_s=READ_PLANE_TIMEOUT_S)
+            except BaseException as e:  # raised again by the phase
+                ranks["error"] = e
+
+        ranks["thread"] = threading.Thread(target=run_ranks, name="read-plane-ranks")
+        ranks["thread"].start()
+        # The source, its logits, the template, while they start.
+        source = tf.Transformer.init(cfg, seed=READ_PLANE_SEED)
+        leaves = list(tf.param_leaves(source.params()))
+        n = len(leaves)
+        chunked_leaves = sum(_chunked(t) for t in leaves)
+        source_digest = _logits_digest(source, _read_plane_tokens(cfg))
+        record.update(leaves=n, shapes_are_gpt2_xl=[tuple(t.shape) for t in leaves] == _gpt2_xl_shapes(cfg),
+                      state_bytes_of_leaves=sum(t.numel() * t.element_size() for t in leaves))
+        print(f"read_plane: {n} leaves, {state_bytes} bytes at GPT-2 XL widths, {READ_PLANE_LAYERS} of 48 "
+              f"layers ({smi})", flush=True)
+        template = tf.Transformer.init(cfg, seed=READ_PLANE_SEED + 1)
+        template_leaves = list(tf.param_leaves(template.params()))
+        # The take (K4 over every leaf).
+        counts = _fp_counts()
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        Snapshot.take(plain, {"model": tf.TransformerState(source)}, fingerprint=True)
+        record["take_s"] = time.perf_counter() - begin
+        record["take_fp"] = _fp_delta(counts, "k4")
+        launches["k4"] += record["take_fp"]["k4_launches"]
+        addr = _await_snapserve(server, port_file, log_path)
+        record["server_addr"] = addr
+
+        # (5) Chunk pushdown, first half: while the replicas start, a
+        # chunk take (K5), followed by watch.
+        prog_dir = os.path.join(workdir, "progress")
+        seen = []
+        views = []
+        stop_watch = threading.Event()
+
+        def poll():
+            for ops in watch.collect(prog_dir).values() if os.path.isdir(prog_dir) else ():
+                for rec in ops.values():
+                    seen.append((rec.get("phase"), rec.get("bytes_done"), rec.get("bytes_total")))
+                if not views and any(r.get("phase") != "done" for r in ops.values()):
+                    views.append(watch.render_progress(ops, stale_after_s=60.0))
+
+        def follow():
+            while not stop_watch.is_set():
+                poll()
+                stop_watch.wait(0.05)
+
+        follower = threading.Thread(target=follow, name="read-plane-watch")
+        counts = _fp_counts()
+        with _env(TPUSNAPSHOT_CHUNK_BYTES=READ_PLANE_CHUNK_BYTES, TPUSNAPSHOT_PROGRESS_DIR=prog_dir,
+                  TPUSNAPSHOT_PROGRESS_INTERVAL_S="0.05"):
+            follower.start()
+            try:
+                begin = time.perf_counter()
+                Snapshot.take(chunked, {"model": tf.TransformerState(source)}, chunks=True, replicated=["**"])
+                record["chunk_take_s"] = time.perf_counter() - begin
+            finally:
+                stop_watch.set()
+                follower.join(30)
+        record["chunk_take_fp"] = _fp_delta(counts, "k5")
+        launches["k5"] += record["chunk_take_fp"]["k5_launches"]
+        poll()
+        # Finished, the take's record is "done": watch renders it and
+        # exits 1 (nothing in flight).
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            watch_rc = watch.main([prog_dir])
+        record["watch"] = {
+            "rc_after": watch_rc, "polls": len(seen), "phases": sorted({p for p, _, _ in seen if p}),
+            "in_flight_polls": sum(1 for p, _, _ in seen if p and p != "done"),
+            "in_flight_view_lines": len(views[0].splitlines()) if views else 0,
+            "last": seen[-1] if seen else None, "view_lines": len(buf.getvalue().splitlines()),
+        }
+        _await_files([os.path.join(out_dir, f"ready{i}") for i in range(READ_PLANE_REPLICAS)], processes,
+                     READ_PLANE_TIMEOUT_S)
+        record["replicas_ready_s"] = time.perf_counter() - spawned  # the takes beside it
+        # (1) Fan-in: the replicas restore together.
+        _write_go(out_dir, "go", addr)
+        begin = time.perf_counter()
+        for p in processes:
+            p.join(max(1.0, READ_PLANE_TIMEOUT_S - (time.perf_counter() - begin)))
+        record["fan_in_s"] = time.perf_counter() - begin
+        exits = [p.exitcode for p in processes]
+        if exits != [0] * READ_PLANE_REPLICAS:
+            raise RuntimeError(f"read_plane: replica exit codes {exits}")
+        replicas = []
+        for i in range(READ_PLANE_REPLICAS):
+            with open(os.path.join(out_dir, f"replica{i}.json")) as f:
+                replicas.append(json.load(f))
+        record["replica_records"] = replicas
+        record["replica_startup_s"] = {
+            part: max(r[end] - (record["replicas_spawned_at"] if start is None else r[start]) for r in replicas)
+            for part, start, end in (("spawn_import", None, "entered_at"), ("cuda_init", "entered_at", "cuda_at"),
+                                     ("models", "cuda_at", "ready_at"))}
+        launches["k1"] += sum(r["k1_launches"] for r in replicas)
+        stats = snapserve.fetch_server_stats(addr)
+        record["server_after_fan_in"] = {
+            "backend_read_bytes": stats.get("backend_read_bytes", 0), "egress_bytes": stats.get("egress_bytes", 0),
+            "amplification": stats.get("amplification"), "cache_hit_ratio": stats.get("cache_hit_ratio"),
+            "cache_hits": stats["cache"]["hits"], "cache_misses": stats["cache"]["misses"],
+            "clients": len(stats.get("clients") or {}), "requests": stats.get("requests"),
+        }
+        record["backend_over_state"] = record["server_after_fan_in"]["backend_read_bytes"] / state_bytes
+        # The ops view: the live server's wire and stats, the replicas'
+        # sampler statusfiles.
+        wire_view = scope_ops.collect_fleet_wire([addr], [])
+        scope_dir = os.path.join(out_dir, "scope")
+        ops_state = scope_ops.collect(scope_dir)
+        ops_findings = scope_ops.findings_of(ops_state)
+        samples = ops_state["samples_by_rank"]
+        record["ops"] = {
+            "wire_reachable": wire_view["reachable"],
+            "wire_ops": sorted(wire_view["ops"]),
+            "sampled_replicas": sorted(samples),
+            "samples": sum(len(v) for v in samples.values()),
+            "replicas_with_read_wire": sum(
+                any(((s.get("wire") or {}).get("ops") or {}).get("snapserve/read") for s in v)
+                for v in samples.values()),
+            "findings": sorted(f.rule for f in ops_findings),
+            "view_lines": len(scope_ops.render(ops_state, stale_after_s=60.0).splitlines()),
+        }
+        for r in replicas:
+            print(f"read_plane: replica {r['replica']} restore {r['restore_s']:.3f} s, {r['gbps']:.3f} GB/s, "
+                  f"{r['leaves_byte_equal']}/{r['leaves']} leaves equal, {r['k1_launches']} K1 launches "
+                  f"({smi})", flush=True)
+        sa = record["server_after_fan_in"]
+        print(f"read_plane: fan-in of {READ_PLANE_REPLICAS} replicas {record['fan_in_s']:.3f} s; server egress "
+              f"{sa['egress_bytes']} bytes, backend reads {sa['backend_read_bytes']} bytes "
+              f"({record['backend_over_state']:.4f} × the state), cache hits {sa['cache_hits']} / misses "
+              f"{sa['cache_misses']}, {sa['clients']} clients ({smi})", flush=True)
+
+        # (2) A verify_device restore through the warm server: K4 once.
+        counts = _fp_counts()
+        seconds, same, report = restore_into_template(addr, verify_device=True)
+        record["verify_device"] = {"seconds": seconds, "bit_identical": same,
+                                   **snapshot_mod._last_verify_stats, **_fp_delta(counts, "k4"),
+                                   "read_plane": report["ranks"][0].get("read_plane")}
+        launches["k4"] += record["verify_device"]["k4_launches"]
+
+        # (5) Chunk pushdown, second half: the ranks restore.
+        begin = time.perf_counter()
+        _write_go(out_dir, "pushdown_go", addr)
+        ranks["thread"].join(READ_PLANE_TIMEOUT_S)
+        if ranks["thread"].is_alive():
+            raise RuntimeError("read_plane: the pushdown ranks did not finish")
+        if ranks["error"] is not None:
+            raise ranks["error"]
+        record["pushdown_s"] = time.perf_counter() - begin
+        record["pushdown"] = _mr_records(out_dir, "pushdown", READ_PLANE_WORLD)
+        for r in record["pushdown"]:
+            print(f"read_plane: pushdown rank {r['rank']} restore {r['restore_s']:.3f} s, fetched "
+                  f"{r['fetched_chunk_bytes']} of {r['cut_objects_stored_bytes']} chunk bytes of "
+                  f"{r['cut_objects']} cut objects (largest share {r['max_fraction']:.4f}) ({smi})", flush=True)
+
+        # The traced server's trace: it flushes as it exits on SIGINT.
+        begin = time.perf_counter()
+        gc.collect()  # closes this process's idle pooled connections to it
+        record["server_exit"] = _stop_snapserve(server)
+        record["server_stop_s"] = time.perf_counter() - begin
+        traces = sorted(glob.glob(os.path.join(out_dir, "replica*.trace.json")))
+        server_traces = glob.glob(os.path.join(out_dir, "server.trace.server.pid*.json"))
+        merged = os.path.join(out_dir, "merged.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            merge_rc = merge.main([*traces, *server_traces, "-o", merged, "--json"])
+        merge_info = json.loads(buf.getvalue()) if merge_rc == 0 else {}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summarize_rc = summarize.main([merged])
+        summary_text = buf.getvalue()
+        critical = (merge_info.get("critical_path") or {})
+        record["merge"] = {
+            "inputs": len(traces) + len(server_traces), "server_traces": len(server_traces), "rc": merge_rc,
+            "cross_process_flows": merge_info.get("cross_process_flows"),
+            "gating_process": critical.get("gating_process"), "gating_phase": critical.get("gating_phase"),
+            "summarize_rc": summarize_rc,
+            "summary_critical_path": [ln for ln in summary_text.splitlines() if "critical path" in ln],
+        }
+
+        # (3) A fleet of two server processes; one SIGKILLed mid-restore.
+        member_addrs = [_await_snapserve(*m) for m in members]
+        victim = members[1][0]
+        kill = {"requests": 0, "killed_at": None}
+        kill_lock = threading.Lock()
+
+        def kill_member(op, path):
+            if op != "snapserve.request":
+                return
+            with kill_lock:
+                kill["requests"] += 1
+                if kill["requests"] != READ_PLANE_KILL_AT:
+                    return
+                victim.kill()
+                victim.wait(30)
+                kill["killed_at"] = kill["requests"]
+
+        io_types.add_storage_op_hook(kill_member)
+        try:
+            seconds, same, report = restore_into_template(",".join(member_addrs))
+        finally:
+            io_types.remove_storage_op_hook(kill_member)
+        record["fleet"] = {"seconds": seconds, "bit_identical": same, "killed_at": kill["killed_at"],
+                           "requests": kill["requests"], "victim_exit": victim.returncode,
+                           "read_plane": report["ranks"][0].get("read_plane")}
+
+        # (4) faultline kill_server: an in-process server dies mid-restore.
+        local = snapserve.start_local_server(service=snapserve.ReadService(cache_bytes=READ_PLANE_CACHE_BYTES))
+        try:
+            with fl.inject(fl.FaultSchedule().kill_server(nth=READ_PLANE_KILL_AT)) as ctl:
+                seconds, same, report = restore_into_template(local.addr)
+        finally:
+            snapserve.kill_local_servers()
+        findings = {f.rule: f.severity for f in diagnose_report(report)}
+        record["server_kill"] = {"seconds": seconds, "bit_identical": same, "faults": ctl.fault_counts(),
+                                 "read_plane": report["ranks"][0].get("read_plane"),
+                                 "read_plane_degraded": findings.get("read-plane-degraded")}
+    finally:
+        # Replicas and ranks still waiting for a go file stop at once.
+        open(os.path.join(out_dir, "stop"), "w").close()
+        for p in processes:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        if ranks["thread"] is not None:
+            # run_multiprocess kills its ranks at its deadline.
+            ranks["thread"].join(READ_PLANE_TIMEOUT_S + 60)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(workdir, ignore_errors=True)
+        del source, template, leaves, template_leaves
+        torch.cuda.empty_cache()
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - phase_begin
+    emit(record)
+    fleet_plane = record["fleet"]["read_plane"] or {}
+    kill_plane = record["server_kill"]["read_plane"] or {}
+    print(f"read_plane: verify_device restore {record['verify_device']['seconds']:.3f} s; fleet restore with a "
+          f"member SIGKILLed at request {record['fleet']['killed_at']} {record['fleet']['seconds']:.3f} s "
+          f"({fleet_plane.get('failover_objects', 0)} failovers, {fleet_plane.get('fallback_objects', 0)} "
+          f"fallbacks); server-kill restore {record['server_kill']['seconds']:.3f} s "
+          f"({kill_plane.get('fallback_objects', 0)} fallbacks); chunk take {record['chunk_take_s']:.3f} s; "
+          f"phase {record['seconds']:.1f} s ({smi})", flush=True)
+    pushdown = record["pushdown"]
+    gates = {
+        "the state has GPT-2 XL's shapes": record["shapes_are_gpt2_xl"]
+        and record["state_bytes_of_leaves"] == state_bytes,
+        "(1) every replica restored every leaf byte-equal onto the card":
+            all(r["leaves_byte_equal"] == n and r["on_card"] for r in replicas),
+        "(1) every replica's K1 forward is bit-identical to the source's":
+            all(r["logits_sha256"] == source_digest for r in replicas),
+        "(1) every replica's forward launched K1 once a layer":
+            [r["k1_launches"] for r in replicas] == [READ_PLANE_LAYERS] * READ_PLANE_REPLICAS,
+        "(1) every replica read through the server, no fallback":
+            all(r["fallback_objects"] == 0 and r["remote_bytes"] >= state_bytes for r in replicas),
+        f"(1) backend reads at most {READ_PLANE_AMPLIFICATION} × the state": 0 < record["backend_over_state"]
+        <= READ_PLANE_AMPLIFICATION,
+        "(1) the server's egress covers every replica":
+            record["server_after_fan_in"]["egress_bytes"] >= READ_PLANE_REPLICAS * state_bytes,
+        "(1) the ops view reads the live server and every replica's samples":
+            record["ops"]["wire_reachable"] == 1 and "snapserve/read" in record["ops"]["wire_ops"]
+            and record["ops"]["sampled_replicas"] == list(range(READ_PLANE_REPLICAS))
+            and record["ops"]["replicas_with_read_wire"] == READ_PLANE_REPLICAS
+            and record["server_after_fan_in"]["cache_hits"] > 0
+            and record["server_after_fan_in"]["clients"] >= READ_PLANE_REPLICAS,
+        "(1) the merged trace pairs client and server flows and names the gating process":
+            record["server_exit"] == 0 and record["merge"]["rc"] == 0 and record["merge"]["server_traces"] == 1
+            and record["merge"]["inputs"] == READ_PLANE_REPLICAS + 1
+            and (record["merge"]["cross_process_flows"] or 0) > 0 and bool(record["merge"]["gating_process"])
+            and record["merge"]["summarize_rc"] == 0 and bool(record["merge"]["summary_critical_path"]),
+        "(2) the verify_device restore is bit-identical and K4 verified every leaf in one launch":
+            record["verify_device"]["bit_identical"] and record["verify_device"]["verified"] == n
+            and record["verify_device"]["k4_launches"] == 1 and record["verify_device"]["k4_segments"] == n,
+        "(2) the take launched K4 once over every leaf": record["take_fp"] == {"k4_launches": 1, "k4_segments": n},
+        "(5) the chunk take launched K5 once over every chunked leaf":
+            record["chunk_take_fp"]["k5_launches"] == 1 + record["chunk_take_fp"]["k5_probes"]
+            and record["chunk_take_fp"]["k5_segments"] == chunked_leaves + record["chunk_take_fp"]["k5_probes"],
+        "(5) watch followed the chunk take to its end": record["watch"]["in_flight_polls"] > 0
+        and record["watch"]["in_flight_view_lines"] > 0 and record["watch"]["rc_after"] == 1
+        and record["watch"]["last"] is not None and record["watch"]["last"][0] == "done"
+        and record["watch"]["last"][1] == record["watch"]["last"][2] > 0,
+        "(5) each rank's boxes are byte-equal on the card":
+            all(r["leaves_byte_equal"] == n and r["on_card"] for r in pushdown),
+        "(5) every chunked leaf was cut": all(r["cut_objects"] == chunked_leaves for r in pushdown),
+        f"(5) each rank fetched at most {READ_PLANE_PUSHDOWN_FRACTION} of each cut object":
+            all(r["max_fraction"] <= READ_PLANE_PUSHDOWN_FRACTION for r in pushdown),
+        "(5) the record cut is counted": all(
+            r["skipped_bytes_counted"] == r["cut_objects_stored_bytes"] - r["fetched_chunk_bytes"] > 0
+            for r in pushdown),
+        "(5) the plan RPC answered the local cut and was counted":
+            all(r["plan_equals_local_cut"] and r["plan_rpcs"] == 1 for r in pushdown),
+        "(5) the ranks read through the server, no fallback": all(r["fallback_objects"] == 0 for r in pushdown),
+        "(3) a fleet member died by SIGKILL mid-restore":
+            record["fleet"]["killed_at"] == READ_PLANE_KILL_AT and record["fleet"]["victim_exit"] == -9,
+        "(3) the fleet restore is bit-exact with no direct fallback and its failover recorded":
+            record["fleet"]["bit_identical"] and fleet_plane.get("fallback_objects", 0) == 0
+            and fleet_plane.get("failover_objects", 0) > 0,
+        "(4) kill_server fired once mid-restore": record["server_kill"]["faults"] == {"killserver": 1},
+        "(4) the restore degraded to direct reads, bit-exact, the fallbacks counted":
+            record["server_kill"]["bit_identical"] and kill_plane.get("fallback_objects", 0) > 0
+            and kill_plane.get("remote_objects", 0) > 0,
+        "(4) the doctor reports read-plane-degraded": record["server_kill"]["read_plane_degraded"] is not None,
+        "K1, K4 and K5 ran on the path": all(launches.values()),
+    }
+    _hold("read_plane", gates)
+    return record
 
 
 def _gpt2_xl_shapes(cfg):
@@ -4465,21 +5215,23 @@ def main():
     ceilings = {k: main_path[k] for k in ("fs_read_gbps", "fs_write_fsync_gbps")}
     api = timed_phase("api", phase_api, model, tokens, ceilings)
     telemetry_record = timed_phase("telemetry", phase_telemetry, model, tokens, smi)
-    # The hottier phase runs in a process of its own beside the faults
-    # phase: both hold correctness gates, the hot tier's work is host
-    # fingerprints on cores the faults phase leaves idle, and run after
-    # the others it took the script past its time limit on a slower
-    # machine. Its times are taken beside that load;
-    # tools/hottier_phase.py runs it alone.
-    hot_beside = _Beside(_hottier_beside, smi)
+    # The hottier and read_plane phases run, one after the other, in a
+    # process of its own beside the faults phase: all three hold
+    # correctness gates, the hot tier's and the read plane's work is
+    # mostly host work on cores the faults phase leaves idle, and run
+    # after the others they took the script past its time limit on
+    # slower machines. Their times are taken beside that load;
+    # tools/hottier_phase.py and tools/read_plane_phase.py run each alone.
+    beside = _Beside(_phases_beside, smi)
     try:
         faults = timed_phase("faults", phase_faults, model)
     except BaseException:
-        hot_beside.stop()
+        beside.stop()
         raise
     begin = time.perf_counter()
-    hot, hot_wall_s = hot_beside.result(HOT_TIER_TIMEOUT_S)
-    seconds["hottier_wait"] = time.perf_counter() - begin
+    beside_records, beside_wall_s = beside.result(BESIDE_TIMEOUT_S)
+    hot, read_plane = beside_records["hottier"], beside_records["read_plane"]
+    seconds["beside_wait"] = time.perf_counter() - begin
     del model, tokens
     torch.cuda.empty_cache()
     timed_phase("torn_leaf", phase_torn_leaf)
@@ -4493,7 +5245,8 @@ def main():
     dryrun_ranks = timed_phase("dryrun", phase_dryrun)["ranks"]
     examples = timed_phase("examples", phase_examples)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values()),
-          "beside_faults": {"hottier": hot["seconds"], "hottier_wall": hot_wall_s}})
+          "beside_faults": {"hottier": hot["seconds"], "read_plane": read_plane["seconds"],
+                            "wall": beside_wall_s}})
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
 
@@ -4517,6 +5270,7 @@ def main():
         "launches_forward_path": main_path["flash_launches"],
         "launches_api_path": api["launches"]["flash_fwd"],
         "launches_telemetry_path": telemetry_record["launches"]["flash_fwd"],
+        "launches_read_plane_path": read_plane["launches"]["k1"],
         "launches_multi_rank_path": multi_rank["flash_launches"],
         **sp_launches(0),
         "launches_dryrun_path": dryrun_ranks[0]["ring_launches"]["flash_fwd"],
@@ -4591,6 +5345,7 @@ def main():
             "segments_dryrun_path": sum(s["segments"] for s in dryrun_ranks[0]["k4_by_step"].values())
             if key == "k4" else 0,
             "launches_faults_path": faults["launches"][name],
+            "launches_read_plane_path": read_plane["launches"][key],
             "segments_faults_path": faults["segments"][name],
             **({"launches_examples_path": examples["launches"][name],
                 "segments_examples_path": sum(examples["runs"]["incremental_example"]["k4_segments_a_save"])}

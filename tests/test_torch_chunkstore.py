@@ -1,6 +1,7 @@
 """The port's content-chunk store: the cases of tests/test_chunkstore.py
-without telemetry, doctor or snapserve (verify and copy_to held against
-the JAX package on the same snapshots), the fault-free
+without telemetry or doctor (verify and copy_to held against the JAX
+package on the same snapshots; its snapserve keying cases, served by a
+server of either package), the fault-free
 cases of tests/test_chunkstore_gc.py, and stores shared between the port
 and the JAX package in both directions (equal bytes, equal keys)."""
 
@@ -617,3 +618,56 @@ def test_chunked_entry_is_array_entry_with_store_base(tmp_path):
     _assert_restores(Snapshot(s.path), state)
     streamed = snapshot_mod._last_restore_report["scheduler"]["streamed_bytes"]
     assert streamed == sum(v.numel() * 4 for v in state["m"].values())
+
+
+# ---- Snapserve keying: chunk objects keyed by their content address.
+
+
+class TestSnapserveKeying:
+    def test_content_address_recognition(self):
+        key = chunkstore.chunk_key("xs128:" + "ab" * 16, 4096, "zlib")
+        path = chunkstore.chunk_object_path(key)
+        assert chunkstore.content_address_of(path) == key
+        assert chunkstore.content_address_of(f"@base1/{path}") == key
+        assert chunkstore.content_address_of("0/model/w") is None
+        assert chunkstore.content_address_of("objects/zz/not-a-key") is None
+        for p in (path, f"@base1/{path}", "0/model/w", "objects/zz/not-a-key"):
+            assert chunkstore.content_address_of(p) == jchunkstore.content_address_of(p)
+
+    @pytest.mark.parametrize("server_pkg", ["port", "jax"])
+    def test_retake_keeps_server_cache_warm(self, tmp_path, server_pkg):
+        from torchsnapshot_tpu import snapserve as jsnapserve
+        from torchsnapshot_tpu_torch import snapserve
+
+        mod = snapserve if server_pkg == "port" else jsnapserve
+        d = str(tmp_path)
+        state = _state(21)
+        Snapshot.take(f"{d}/step-1", state, chunks=True)
+        service = mod.ReadService()
+        server = mod.start_local_server(service=service)
+        try:
+            addr = f"snapserve://{server.addr}"
+            _assert_restores(Snapshot(f"{addr}/{d}/step-1"), state)
+            backend_before = service.stats()["backend_read_bytes"]
+            # The server really served the first restore (a malformed
+            # address would fall back to direct reads and prove nothing).
+            assert backend_before > 0
+            # Retake to a NEW path with the same content: the chunk
+            # objects have content-addressed cache keys, so the second
+            # restore is served almost entirely from cache.
+            Snapshot.take(f"{d}/step-2", state, chunks=True)
+            _assert_restores(Snapshot(f"{addr}/{d}/step-2"), state)
+            backend_delta = service.stats()["backend_read_bytes"] - backend_before
+            logical = sum(v.numel() * v.element_size() for v in state["m"].values())
+            # Metadata and manifest fetches only: payload chunks hit.
+            assert backend_delta < 0.2 * logical, (backend_delta, logical)
+        finally:
+            server.stop()
+            mod.kill_local_servers()
+            # The wire tap is process-wide: a later test's live rules must
+            # not read this one's RPCs.
+            from torchsnapshot_tpu import wiretap as jwiretap
+            from torchsnapshot_tpu_torch import wiretap
+
+            wiretap.reset()
+            jwiretap.reset()

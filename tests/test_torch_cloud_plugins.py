@@ -307,8 +307,9 @@ def test_gcs_not_found_is_classified_and_sized_as_missing():
 
 def test_url_dispatch(tmp_path, monkeypatch):
     """gs:// and s3:// open the port's plugins (each behind the retry
-    layer); snapserve:// is refused naming its ROADMAP item; an unknown
-    protocol is unsupported."""
+    layer); snapserve:// opens the read plane's client over its embedded
+    backend URL, as in the JAX package; an unknown protocol is
+    unsupported."""
     from torchsnapshot_tpu_torch.storage_plugins.fs import FSStoragePlugin
     from torchsnapshot_tpu_torch.storage_plugins.memory import MemoryStoragePlugin
 
@@ -319,8 +320,15 @@ def test_url_dispatch(tmp_path, monkeypatch):
         plugin = sp_mod.url_to_storage_plugin(url)
         assert isinstance(plugin, RetryingStoragePlugin) and isinstance(plugin._inner, backend)
         plugin.close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        sp_mod.url_to_storage_plugin("snapserve://localhost:1/gs://b/p")
+    from torchsnapshot_tpu.snapserve.client import SnapServePlugin as JaxSnapServePlugin
+    from torchsnapshot_tpu_torch.snapserve.client import SnapServePlugin
+
+    plugin = sp_mod.url_to_storage_plugin("snapserve://localhost:1/gs://b/p")
+    assert isinstance(plugin, RetryingStoragePlugin) and isinstance(plugin._inner, SnapServePlugin)
+    jplugin = JaxSnapServePlugin("localhost:1/gs://b/p")
+    assert (plugin._inner._addrs, plugin._inner._backend_url) == (jplugin._addrs, jplugin._backend_url)
+    plugin.close()
+    jplugin.close()
     with pytest.raises(RuntimeError, match="Unsupported protocol"):
         sp_mod.url_to_storage_plugin("bogus://x")
 

@@ -10,8 +10,10 @@ both packages, telemetry objects included; ``FAULTS_INJECTED`` moves by
 exactly ``fault_counts()`` in both; the six hot-tier rules (a slow
 drain, a lost or flapped host, a dropped connection, a torn frame, a slow
 wire) fire against the port's tier and wire with the JAX package's
-counts and outcomes; and every rule whose subsystem the port lacks (the
-read plane) raises ``NotImplementedError`` naming its ROADMAP item."""
+counts and outcomes; and the four read-plane rules (a killed server, a
+killed or slow fleet member, a slow server) build the JAX package's rules
+and fire at a restore's ``snapserve.request`` boundaries in both
+packages, with the same counts and outcomes."""
 
 import asyncio
 import collections
@@ -443,34 +445,90 @@ def test_crashed_fs_plugin_close_settles_no_deferred_fsync(tmp_path, monkeypatch
     assert plugin._inner._inner._dirty_dirs  # left unsettled
 
 
-# ------------------------------------------------ unported rules raise
+# ------------------------------------------------ the read plane's rules
 
 
-_UNPORTED = {
-    "kill_server": ((), "item 10"),
-    "kill_fleet_member": (("m1",), "item 10"),
-    "slow_fleet_member": (("m1",), "item 10"),
-    "slow_server": ((), "item 10"),
+_READ_PLANE_RULES = {
+    "kill_server": ((), {"nth": 2}),
+    "kill_fleet_member": (("m1",), {"nth": 2}),
+    "slow_fleet_member": (("m1",), {"seconds": 0.01}),
+    "slow_server": ((), {"seconds": 0.01, "times": 2}),
 }
 
 
-@pytest.mark.parametrize("builder", sorted(_UNPORTED))
-def test_unported_rule_raises_naming_its_item(builder):
-    """Each builder of the JAX package whose target the port lacks exists
-    and raises, naming the ROADMAP item; it never builds a rule that would
-    silently never fire."""
-    args, item = _UNPORTED[builder]
-    assert hasattr(jfl.FaultSchedule, builder)  # the JAX package has it
-    sched = fl.FaultSchedule()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        getattr(sched, builder)(*args)
-    assert sched.rules == []
+@pytest.mark.parametrize("method", sorted(_READ_PLANE_RULES))
+def test_unported_rule_raises_naming_its_item(method):
+    """Each read-plane method of the JAX package's ``FaultSchedule`` adds,
+    in the port, the rule the JAX package's adds: same kind, boundary,
+    count, member and latency."""
+    args, kwargs = _READ_PLANE_RULES[method]
+    (rule,) = getattr(fl.FaultSchedule(), method)(*args, **kwargs).rules
+    (jrule,) = getattr(jfl.FaultSchedule(), method)(*args, **kwargs).rules
+    fields = ("kind", "op", "path", "nth", "times", "seconds", "member")
+    assert {f: getattr(rule, f) for f in fields} == {f: getattr(jrule, f) for f in fields}
+    assert rule.op == "snapserve.request"
+
+
+def _read_plane_fault_run(pkg, kind, path, arrays):
+    """Restore ``path`` through a 2-member in-process fleet of ``pkg``'s
+    package under one rule of ``kind``: (fault counts, client stats
+    delta, restored leaves)."""
+    if pkg == "port":
+        from torchsnapshot_tpu_torch import RemoteSnapshot, snapserve
+        from torchsnapshot_tpu_torch import wiretap as wiretap_mod
+        from torchsnapshot_tpu_torch.snapserve import fleet
+
+        mod_fl, template = fl, {"m": StateDict(**{k: torch.zeros(v.shape) for k, v in arrays.items()})}
+    else:
+        from torchsnapshot_tpu import snapserve
+        from torchsnapshot_tpu import wiretap as wiretap_mod
+        from torchsnapshot_tpu.snapserve import RemoteSnapshot, fleet
+
+        mod_fl, template = jfl, {"m": jsnap.StateDict(**{k: np.zeros_like(v) for k, v in arrays.items()})}
+    sched = mod_fl.FaultSchedule()
+    if kind == "killserver":
+        sched.kill_server(nth=2)
+    elif kind == "killmember":
+        sched.kill_fleet_member("m1", nth=1)
+    else:
+        sched.slow_fleet_member("m1", seconds=0.01, nth=1)
+    lf = fleet.start_local_fleet(n=2)
+    try:
+        before = snapserve.stats_snapshot()
+        with mod_fl.inject(sched) as ctl:
+            RemoteSnapshot(path, addr=lf.addr_spec).restore(template)
+        after = snapserve.stats_snapshot()
+    finally:
+        lf.stop()
+        for name in fleet.local_member_names():
+            fleet.unregister_local_member(name)
+        snapserve.kill_local_servers()
+        wiretap_mod.reset()
+    delta = {k: after[k] - before[k] for k in ("remote_objects", "fallback_objects")}
+    return ctl.fault_counts(), delta, {k: np.asarray(template["m"][k]) for k in arrays}
 
 
 @pytest.mark.parametrize("kind", ["killserver", "killmember", "slowmember"])
-def test_unported_rule_kind_cannot_be_constructed(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        fl.FaultRule(kind=kind)
+def test_unported_rule_kind_cannot_be_constructed(kind, tmp_path, monkeypatch):
+    """A rule of each read-plane kind fires at a restore's
+    ``snapserve.request`` boundary in both packages: counted once, the
+    restore bit-exact; a killed server degrades to direct reads, a
+    killed member fails over to its ring replica (no direct read), a
+    slow member only slows."""
+    monkeypatch.setenv("TPUSNAPSHOT_SNAPSERVE_DOWN_COOLDOWN_S", "0.2")
+    rng = np.random.default_rng(9)
+    arrays = {f"p{i}": rng.standard_normal(1024).astype(np.float32) for i in range(6)}
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(**{k: torch.from_numpy(v) for k, v in arrays.items()})})
+    runs = {pkg: _read_plane_fault_run(pkg, kind, path, arrays) for pkg in ("port", "jax")}
+    for pkg, (counts, delta, got) in runs.items():
+        assert counts == {kind: 1}, (pkg, counts)
+        for k, v in arrays.items():
+            assert got[k].tobytes() == v.tobytes(), (pkg, k)
+        if kind == "killserver":
+            assert delta["fallback_objects"] > 0, (pkg, delta)
+        else:
+            assert delta["fallback_objects"] == 0, (pkg, delta)
 
 
 # ------------------------------------- the hot tier's rules, both packages
@@ -501,6 +559,13 @@ def _fresh_tiers(monkeypatch):
         trans.clear_wire_faults()
     for server in servers:
         server.stop()
+    # The wire tap is process-wide: a later test's live rules must not read
+    # this one's RPCs.
+    from torchsnapshot_tpu import wiretap as jwiretap
+    from torchsnapshot_tpu_torch import wiretap
+
+    wiretap.reset()
+    jwiretap.reset()
 
 
 def _tier_pkg(pkg):

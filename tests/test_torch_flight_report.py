@@ -48,7 +48,18 @@ def _import_time_domains():
     hot tier and the wiretap registers. An earlier test in this process
     may have reset one package's memwatch or left hosts in one package's
     tier, so each case starts both packages from an empty tier and those
-    domains alone."""
+    domains alone. A read-plane server an earlier test killed may still be
+    winding down on its thread (its cache and tenant domains would show up
+    in one package's report): every in-process server of both packages is
+    stopped, its thread joined, first."""
+    from torchsnapshot_tpu.snapserve import server as jax_sv_server
+    from torchsnapshot_tpu_torch.snapserve import server as sv_server
+
+    for mod in (sv_server, jax_sv_server):
+        with mod._LOCAL_LOCK:
+            servers = list(mod._LOCAL_SERVERS)
+        for server in servers:
+            server.stop()
     for mw, tier, tap in ((memwatch, ht_tier, wiretap), (jax_memwatch, jax_ht_tier, jax_wiretap)):
         tier.reset_hot_tier()
         mw.reset()

@@ -66,6 +66,13 @@ def _fresh_tier():
     for mod in (hottier, jhottier):
         mod.disable_hot_tier(flush=False)
         mod.reset_hot_tier()
+    # The wire tap is process-wide: a later test's live rules must not read
+    # this one's RPCs.
+    from torchsnapshot_tpu import wiretap as jwiretap
+    from torchsnapshot_tpu_torch import wiretap
+
+    wiretap.reset()
+    jwiretap.reset()
 
 
 def _state(v, n=1024):

@@ -212,6 +212,30 @@ def test_port_runs_with_optional_packages_blocked(tmp_path):
         server.stop()
         hottier.reset_hot_tier()
         assert wiretap.summary()["snapwire/put"]["count"] >= 1
+        # The read plane: a RemoteSnapshot restore through an in-process
+        # server and a 2-member fleet, a chunk-stored leaf restored
+        # through both, and the rest of telemetry (watch, merge, sampler,
+        # ops) over them.
+        from torchsnapshot_tpu_torch import RemoteSnapshot, snapserve
+        from torchsnapshot_tpu_torch.snapserve import cache, client, fleet, protocol, pushdown, remote
+        from torchsnapshot_tpu_torch.telemetry import merge, ops, sampler, watch
+        os.environ["TPUSNAPSHOT_CHUNK_BYTES"] = "4096"
+        Snapshot.take(run + "/served", {{"m": StateDict(w=w, big=big)}}, chunks=True)
+        srv = snapserve.start_local_server()
+        lf = fleet.start_local_fleet(n=2)
+        sampler.start(statusfile_dir=run + "/scope", interval_s=0.05)
+        for addr in (srv.addr, lf.addr_spec):
+            t = StateDict(w=torch.zeros(5, 3, dtype=torch.bfloat16), big=torch.zeros(1 << 16))
+            RemoteSnapshot(run + "/served", addr=addr).restore({{"m": t}})
+            assert torch.equal(t["big"], big)
+        sampler.stop()
+        assert snapserve.stats_snapshot()["fallback_objects"] == 0
+        assert snapserve.fetch_server_stats(srv.addr)["requests"] > 0
+        assert ops.main(["--wire", srv.addr]) == 0
+        assert ops.main([run + "/scope"]) in (0, 1)
+        assert watch.main([run + "/served"]) in (0, 1, 2)
+        lf.stop()
+        srv.stop()
         # An example script, with optax blocked too.
         import runpy
         sys.argv = ["simple_example.py", "--device", "cpu", "--work-dir", run + "/example"]
@@ -283,6 +307,61 @@ def test_peer_process_imports_no_jax_and_no_optional_packages(tmp_path):
             assert peer.wire_stats() is not None and peer.mem_stats() is not None
         finally:
             peer.close()
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+    tried = set(attempts.read_text().split()) if attempts.exists() else set()
+    assert tried <= {"psutil"}, tried
+
+
+def test_server_process_imports_no_jax_and_no_optional_packages(tmp_path):
+    """``python -m torchsnapshot_tpu_torch.snapserve.server`` binds and
+    serves a restore with JAX, the JAX package, PyYAML, psutil and
+    ml_dtypes blocked; every import of them it attempts is logged (the
+    process is killed at the end): none but psutil, which memwatch asks
+    for optionally."""
+    import time
+
+    import torch
+
+    from torchsnapshot_tpu_torch import RemoteSnapshot, Snapshot, StateDict
+
+    attempts, port_file = tmp_path / "attempts.log", tmp_path / "server.addr"
+    w = torch.arange(4096, dtype=torch.float32)
+    Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(w=w)})
+    script = textwrap.dedent(
+        f"""
+        import importlib.abc, runpy, sys
+
+        BLOCKED = {{"yaml", "psutil", "ml_dtypes", "jax", "jaxlib", "torchsnapshot_tpu"}}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    with open({str(attempts)!r}, "a") as f:
+                        f.write(name + "\\n")
+                    raise ImportError(f"{{name}} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {str(ROOT)!r})
+        sys.argv = ["server", "--addr", "127.0.0.1:0", "--port-file", {str(port_file)!r}]
+        runpy.run_module("torchsnapshot_tpu_torch.snapserve.server", run_name="__main__")
+        """
+    )
+    proc = subprocess.Popen(
+        [sys.executable, "-c", script], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE
+    )
+    try:
+        deadline = time.monotonic() + 120.0
+        while not (port_file.exists() and port_file.read_text().strip()):
+            assert proc.poll() is None, proc.stderr.read().decode()
+            assert time.monotonic() < deadline, "the server did not bind"
+            time.sleep(0.05)
+        addr = port_file.read_text().strip()
+        target = StateDict(w=torch.zeros(4096))
+        RemoteSnapshot(str(tmp_path / "snap"), addr=addr).restore({"m": target})
+        assert torch.equal(target["w"], w)
     finally:
         proc.kill()
         proc.wait(timeout=10)

@@ -119,9 +119,19 @@ def test_timeline_and_slo_clis_on_a_ledger_file(tmp_path, capsys):
         jout = capsys.readouterr().out
         assert rc == jrc and out == jout
     assert timeline.main([str(tmp_path / "none")]) == jax_timeline.main([str(tmp_path / "none")]) == 2
-    # The live rules need the sampler, which is not ported yet.
-    assert slo.main([root, "--samples-dir", root]) == 2
-    assert "item 8b" in capsys.readouterr().err
+    # The live rules read sampler statusfiles (the port's sampler writes
+    # one here): both packages' CLIs give the same exit code and output.
+    from torchsnapshot_tpu_torch.telemetry import sampler
+
+    samples = str(tmp_path / "samples")
+    for _ in range(2):
+        sampler.RuntimeSampler(rank=0, statusfile_dir=samples).sample_once()
+    for argv in ([root, "--samples-dir", samples], [root, "--samples-dir", samples, "--json"]):
+        rc = slo.main(argv)
+        out = capsys.readouterr().out
+        jrc = jax_slo.main(argv)
+        jout = capsys.readouterr().out
+        assert rc == jrc and out == jout
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])

@@ -1,7 +1,6 @@
 """The port's snapmend against the JAX package's: the hot tier's
 self-healing repair plane; the tests of ``tests/test_snapmend.py`` on the
-port (the ops CLI's part of the escalation case waits for
-``telemetry.ops``, ROADMAP item 8b).
+port.
 
 Fast tier (``-m faultline``, runs in tier-1): repair back to k after a
 real host loss with a bit-exact restore from a *repaired* (not
@@ -50,6 +49,7 @@ from torchsnapshot_tpu_torch.hottier import transport
 from torchsnapshot_tpu_torch.hottier.peer import spawn_peer, start_local_peer
 from torchsnapshot_tpu_torch.telemetry import ledger as runledger
 from torchsnapshot_tpu_torch.telemetry import metrics as m
+from torchsnapshot_tpu_torch.telemetry import ops as ops_cli
 from torchsnapshot_tpu_torch.telemetry import slo as slo_mod
 
 pytestmark = pytest.mark.faultline
@@ -80,6 +80,13 @@ def _fresh_mend(monkeypatch):
     transport.clear_wire_faults()
     for server in servers:
         server.stop()
+    # The wire tap is process-wide: a later test's live rules must not read
+    # this one's RPCs.
+    from torchsnapshot_tpu import wiretap as jwiretap
+    from torchsnapshot_tpu_torch import wiretap
+
+    wiretap.reset()
+    jwiretap.reset()
 
 
 def _local_peer(servers, host_id, capacity_bytes=1 << 26):
@@ -716,8 +723,8 @@ def test_deadline_escalation_write_through_and_critical_rule(
     """Past TPUSNAPSHOT_REPAIR_DEADLINE_S with no spare host, the
     repair deterministically escalates to the synchronous durable
     write-through. While the escalation is stalled (durable backend
-    faulted), replication-underreplicated fires CRITICAL (the ops CLI's
-    half of this case waits for ``telemetry.ops``, ROADMAP item 8b); once the escalation lands, the object is durable, the
+    faulted), replication-underreplicated fires CRITICAL and the ops
+    CLI exits 1; once the escalation lands, the object is durable, the
     gauge returns to 0, and the finding clears."""
     monkeypatch.setenv("TPUSNAPSHOT_REPAIR_DEADLINE_S", "0.05")
     _local_peer(_fresh_mend, 1)
@@ -750,6 +757,22 @@ def test_deadline_escalation_write_through_and_critical_rule(
             if f.rule == "replication-underreplicated"
         }
         assert crit == {"replication-underreplicated": "critical"}
+        # ...and drives the ops CLI's exit-code contract. (An empty
+        # dir is a valid statusfile root; the live in-process runtime
+        # is folded in.)
+        live_dir = str(tmp_path / "liveops")
+        os.makedirs(live_dir, exist_ok=True)
+        state = ops_cli.collect(live_dir)
+        ops_findings = ops_cli.findings_of(state)
+        assert any(
+            f.rule == "replication-underreplicated"
+            and f.severity == "critical"
+            for f in ops_findings
+        )
+        rendered = ops_cli.render(state, stale_after_s=60.0)
+        assert "repair[manual]:" in rendered
+        assert "membership:" in rendered and "(LOST)" in rendered
+        assert ops_cli.main([live_dir]) == 1
         # Un-stall: the next escalation retires the obligation.
         healed = hottier.repair_tick()
         assert healed["escalated_write_throughs"] == 1

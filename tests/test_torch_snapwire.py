@@ -69,6 +69,13 @@ def _fresh_wire(monkeypatch):
         trans.clear_wire_faults()
     for server in servers:
         server.stop()
+    # The wire tap is process-wide: a later test's live rules must not read
+    # this one's RPCs.
+    from torchsnapshot_tpu import wiretap as jwiretap
+    from torchsnapshot_tpu_torch import wiretap
+
+    wiretap.reset()
+    jwiretap.reset()
 
 
 def _local_peer(servers, host_id, capacity_bytes=1 << 26):

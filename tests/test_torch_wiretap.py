@@ -3,22 +3,31 @@ wire-observability layer of the hot tier's transport — per-op histograms
 and outcome taxonomy, deadline margin, window deltas, the blackbox flight
 recorder (crc-framed through the port's ``telemetry.ledger.encode_line``),
 a real SIGKILLed peer process leaving a survivor's blackbox, and the
-doctor's ``deadline-margin-collapsing`` rule. The cases of
-``tests/test_snapflight.py`` that need neither the read plane (snapserve)
-nor ``telemetry.ops``/``slo``'s live mode, and parity checks: the same
-records give the same summaries, windows and findings in both packages,
-and each package reads the other's blackbox dumps.
+doctor's ``deadline-margin-collapsing`` rule; a real SIGKILLed read-plane
+server process marking the survivor's blackbox, ``slo``'s live rule over
+window deltas, and ``telemetry.ops``' fleet wire mode over a live
+snapserve server and a live hot-tier peer. These are the cases of
+``tests/test_snapflight.py``, with parity checks: the same records give
+the same summaries, windows and findings in both packages, each package
+reads the other's blackbox dumps, and each package's ``ops`` view reads
+the other's live server.
 """
 
 import glob
+import json
 import os
 import signal
+import subprocess
+import sys
+import time
 
 import pytest
 
 import torchsnapshot_tpu.wiretap as jwiretap
 from torchsnapshot_tpu.telemetry.doctor import diagnose_report as jax_diagnose_report
-from torchsnapshot_tpu_torch import tracing, wiretap
+from torchsnapshot_tpu import snapserve as jsnapserve
+from torchsnapshot_tpu.telemetry import ops as jax_scope_ops
+from torchsnapshot_tpu_torch import snapserve, tracing, wiretap
 from torchsnapshot_tpu_torch.hottier.peer import spawn_peer
 from torchsnapshot_tpu_torch.hottier.transport import (
     RemotePeer,
@@ -26,6 +35,8 @@ from torchsnapshot_tpu_torch.hottier.transport import (
     script_wire_fault,
 )
 from torchsnapshot_tpu_torch.telemetry import memwatch
+from torchsnapshot_tpu_torch.telemetry import ops as scope_ops
+from torchsnapshot_tpu_torch.telemetry import slo as scope_slo
 from torchsnapshot_tpu_torch.telemetry.doctor import (
     diagnose_report,
     wire_pressure_finding,
@@ -320,3 +331,161 @@ def test_ring_is_a_memwatch_domain():
     _record_mix(wiretap)
     block = memwatch.sample_block()
     assert "wiretap.ring" in block["domains"]
+
+
+# ------------------------------------------- the read plane's wire, ops view
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_sigkilled_snapserve_server_marks_survivor_blackbox(
+    tmp_path, monkeypatch
+):
+    """Kill a real snapserve server subprocess mid-traffic and the
+    surviving client dumps a blackbox whose tail holds the ok RPCs before
+    the kill and the failure after it."""
+    monkeypatch.setenv("TPUSNAPSHOT_WIRETAP_DIR", str(tmp_path))
+    wiretap.reset()
+    port_file = str(tmp_path / "server.addr")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torchsnapshot_tpu_torch.snapserve.server",
+         "--addr", "127.0.0.1:0", "--port-file", port_file],
+        env=dict(os.environ, PYTHONPATH=_REPO_ROOT),
+        stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL,
+    )
+    try:
+        deadline = time.monotonic() + 60.0
+        addr = None
+        while time.monotonic() < deadline:
+            if os.path.exists(port_file):
+                addr = open(port_file).read().strip()
+                if addr:
+                    break
+            if proc.poll() is not None:
+                pytest.fail("snapserve server subprocess died at startup")
+            time.sleep(0.05)
+        assert addr, "server never wrote its port file"
+        assert snapserve.ping_server(addr, timeout_s=10.0)["ok"] is True
+        proc.kill()
+        proc.wait(timeout=10.0)
+        with pytest.raises(Exception):
+            snapserve.ping_server(addr, timeout_s=2.0)
+        wiretap.note_degrade("server_down", peer=addr)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10.0)
+    files = glob.glob(str(tmp_path / "*.blackbox.jsonl"))
+    assert files
+    events = [
+        r
+        for f in files
+        for r in wiretap.read_blackbox(f)[0]
+        if "op" in r and r.get("transport") == "snapserve"
+    ]
+    assert any(e["op"] == "ping" and e["outcome"] == "ok" for e in events)
+    assert any(e["op"] == "ping" and e["outcome"] != "ok" for e in events)
+    # The JAX package parses the port's dump into the same records.
+    for f in files:
+        assert jwiretap.read_blackbox(f) == wiretap.read_blackbox(f)
+
+
+def test_slo_live_rule_scores_window_delta():
+    def sample(count, misses):
+        return {
+            "wire": {
+                "ops": {
+                    "snapwire/put": {
+                        "count": count,
+                        "deadline_misses": misses,
+                        "retries": 0,
+                        "margin_p99": 0.2,
+                        "deadline_s": 2.0,
+                    }
+                }
+            }
+        }
+
+    stale = scope_slo.evaluate_live([sample(50, 3), sample(60, 3)])
+    assert not any(
+        f.rule == "deadline-margin-collapsing" for f in stale
+    ), stale
+    fresh = [
+        f
+        for f in scope_slo.evaluate_live([sample(50, 3), sample(60, 5)])
+        if f.rule == "deadline-margin-collapsing"
+    ]
+    assert fresh and fresh[0].severity == "critical"
+    assert fresh[0].evidence["deadline_misses"] == 2
+    from torchsnapshot_tpu.telemetry import slo as jax_slo
+
+    jfresh = [
+        f
+        for f in jax_slo.evaluate_live([sample(50, 3), sample(60, 5)])
+        if f.rule == "deadline-margin-collapsing"
+    ]
+    assert [f.as_dict() for f in fresh] == [f.as_dict() for f in jfresh]
+
+
+def test_ops_fleet_wire_aggregates_and_exit_contract(capsys):
+    server = snapserve.start_local_server()
+    try:
+        snapserve.ping_server(server.addr, timeout_s=10.0)
+        rc = scope_ops.main(["--wire", server.addr])
+        out = capsys.readouterr().out
+        assert rc == 0
+        assert "fleet wire:" in out
+        assert "snapserve/ping" in out
+        # One member down (but not all): critical finding, exit 1.
+        rc = scope_ops.main(
+            ["--wire", f"{server.addr},127.0.0.1:1", "--wire-timeout", "2"]
+        )
+        out = capsys.readouterr().out
+        assert rc == 1
+        assert "fleet-member-unreachable" in out
+    finally:
+        server.stop()
+    # Every target unreachable: the view itself is unavailable, exit 2.
+    rc = scope_ops.main(["--wire", "127.0.0.1:1", "--wire-timeout", "2"])
+    capsys.readouterr()
+    assert rc == 2
+
+
+@pytest.mark.parametrize("server_pkg", ["port", "jax"])
+def test_ops_fleet_wire_reads_either_packages_server(capsys, server_pkg):
+    """Each package's ``ops --wire`` reads the other's live server (the
+    ``stats`` RPC crosses the packages) with the same exit code."""
+    mod = snapserve if server_pkg == "port" else jsnapserve
+    server = mod.start_local_server()
+    try:
+        snapserve.ping_server(server.addr, timeout_s=10.0)
+        rcs = []
+        for main in (scope_ops.main, jax_scope_ops.main):
+            rcs.append(main(["--wire", server.addr, "--json"]))
+            doc = json.loads(capsys.readouterr().out)
+            assert doc["reachable"] == 1
+            assert any(k.startswith("snapserve/") for k in doc["ops"])
+        assert rcs == [0, 0]
+    finally:
+        server.stop()
+
+
+def test_ops_fleet_wire_json_merges_peer_blocks(capsys):
+    from torchsnapshot_tpu_torch.hottier.peer import start_local_peer
+
+    server, _ = start_local_peer(host_id=21, register=False)
+    peer = RemotePeer(host_id=21, addr=server.addr)
+    try:
+        assert peer.probe() is True
+        rc = scope_ops.main(
+            ["--wire-peers", f"21={server.addr}", "--json"]
+        )
+        out = capsys.readouterr().out
+        assert rc == 0
+        doc = json.loads(out)
+        assert doc["reachable"] == 1
+        assert any(k.startswith("snapwire/") for k in doc["ops"])
+    finally:
+        peer.close()
+        server.stop()

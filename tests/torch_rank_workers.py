@@ -156,6 +156,44 @@ def restore_columns_unstreamed(rank, world, path, arr):
     assert report["private_bytes"] == want.numel() * want.element_size(), report
 
 
+def restore_rows_through_snapserve(rank, world, url, arr, out_dir, cuts=(True,)):
+    """Restore row halves of a chunk-stored array through a snapserve
+    URL (one server or a fleet), once for each entry of ``cuts`` (chunk
+    pushdown on or off), hold the local box byte-equal each time, and
+    write this rank's read-plane stats and the content-chunk bytes it
+    fetched to ``out_dir/rank<N>[.uncut].json``."""
+    import json
+
+    from torchsnapshot_tpu_torch import snapserve
+    from torchsnapshot_tpu_torch.snapserve import client
+
+    fetched = {"chunk_bytes": 0}
+    read = client.SnapServePlugin.read
+
+    async def counting(self, io_req):
+        await read(self, io_req)
+        if "objects/" in io_req.path:
+            fetched["chunk_bytes"] += len(io_req.data)
+
+    client.SnapServePlugin.read = counting
+    mesh = make_mesh({"tp": world}, "cpu")
+    rows = lambda keys, leaf: ("tp", None)  # noqa: E731
+    want = shard_pytree({"w": torch.from_numpy(arr)}, mesh, rows)["w"].to_local()
+    for cut in cuts:
+        os.environ["TPUSNAPSHOT_CHUNK_PUSHDOWN"] = "1" if cut else "0"
+        fetched["chunk_bytes"] = 0
+        state = PytreeStateful(shard_pytree({"w": torch.zeros(arr.shape)}, mesh, rows))
+        before = snapserve.stats_snapshot()
+        Snapshot(url).restore({"m": state})
+        assert torch.equal(state.tree["w"].to_local(), want)
+        after = snapserve.stats_snapshot()
+        rec = {k: after[k] - before[k] for k in ("remote_objects", "fallback_objects")}
+        rec.update(servers=sorted(after["servers"]), chunk_bytes=fetched["chunk_bytes"])
+        name = f"rank{rank}.json" if cut else f"rank{rank}.uncut.json"
+        with open(os.path.join(out_dir, name), "w") as f:
+            json.dump(rec, f)
+
+
 def fail_on_rank(rank, world, bad_rank):
     """``bad_rank`` raises; the others wait for it in a barrier."""
     if rank == bad_rank:

@@ -20,7 +20,11 @@ consistency. Its ``hottier`` acknowledges an async take once every
 object is held in the RAM of k peer hosts (real peer processes over the
 JAX package's wire format), drains it to durable storage in the
 background, and restores from peer RAM with a per-object fallback to
-durable storage. Every take and restore writes the JAX package's telemetry
+durable storage. Its ``snapserve`` read plane lets N consumers (inference
+replicas, eval jobs, resharded starts) share one backend read of a
+snapshot through a caching server or a fleet of them (``RemoteSnapshot``,
+``snapserve://`` URLs; the JAX package's wire format both ways). Every
+take and restore writes the JAX package's telemetry
 (flight reports, progress records, the ledger; ``telemetry``) and, with
 ``TPUSNAPSHOT_TRACE`` set, a Chrome trace (``tracing``). Imports neither
 JAX nor the JAX package.
@@ -40,6 +44,8 @@ from .coord import (
 from .manager import CheckpointManager, PendingManagedSnapshot
 from .rng_state import RNGState
 from .snapshot import FORMAT_VERSION as __version__, PendingSnapshot, Snapshot
+from . import snapserve
+from .snapserve import RemoteSnapshot
 from .state_dict import StateDict
 from .stateful import AppState, Stateful
 from .utils.train_state import FnStateful, PytreeStateful
@@ -56,6 +62,7 @@ __all__ = [
     "PendingSnapshot",
     "PytreeStateful",
     "RNGState",
+    "RemoteSnapshot",
     "Snapshot",
     "StateDict",
     "Stateful",
@@ -63,6 +70,7 @@ __all__ = [
     "TorchStore",
     "get_coordinator",
     "hottier",
+    "snapserve",
     "telemetry",
     "__version__",
 ]

@@ -40,6 +40,7 @@ import hashlib
 import json
 import logging
 import os
+import re
 import threading
 import time
 import uuid
@@ -76,6 +77,11 @@ _DEFAULT_CHUNK_BYTES = 4 << 20
 # worth a store round trip and a manifest record.
 _DEFAULT_CHUNK_MIN_BYTES = 1 << 16
 
+# Content-addressed object path: "objects/<hh>/xs128:<32hex>-<n>-<codec>"
+_KEY_RE = re.compile(
+    r"(?:^|/)objects/[0-9a-f]{2}/(xs128:[0-9a-f]{32}-\d+-[a-z0-9]+)$"
+)
+
 # Write-path prefix the take's StoreRouterPlugin sends to the store.
 ROUTE_PREFIX = "@chunkstore/"
 
@@ -110,6 +116,15 @@ def chunk_key(fingerprint: str, nbytes: int, codec: Optional[str]) -> str:
 
 def chunk_object_path(key: str) -> str:
     return f"{OBJECTS_PREFIX}{key.split(':', 1)[1][:2]}/{key}"
+
+
+def content_address_of(path: str) -> Optional[str]:
+    """The content key embedded in a chunk object's storage path, or None
+    for any other path. The read plane keys its content cache by it: a
+    retake of a mostly unchanged model references the same keys, so the
+    cache stays warm across manifests."""
+    m = _KEY_RE.search(path)
+    return m.group(1) if m else None
 
 
 def ref_doc_name(snapshot_path: str) -> str:

@@ -4,8 +4,6 @@ The port of the JAX package's ``faultline``: the snapshot pipeline's
 durability ordering, retry layer, commit markers, two-phase prune and
 chunk GC must uphold their invariants when storage fails mid-flight.
 See ``docs/FAULTS.md`` (written for the JAX package; the same model).
-The rules that target the read plane raise ``NotImplementedError`` until
-it is ported.
 
 Three layers:
 

@@ -43,16 +43,19 @@ Fault kinds:
   sleeps into its ``TPUSNAPSHOT_REPLICATION_DEADLINE_S`` deadline. Each
   surfaces as a transport failure and walks the retry → spare host →
   write-through ladder.
+- **server kill** — every in-process snapserve read service dies at a
+  ``snapserve.request`` boundary (``snapserve.kill_local_servers``):
+  sockets abort, the listening port closes, and the client must degrade
+  to direct backend reads (counted, bit-exact).
+- **fleet member faults** (``kill_fleet_member`` / ``slow_fleet_member``)
+  — one named in-process member (from
+  ``snapserve.fleet.start_local_fleet``) dies or turns slow at a
+  ``snapserve.request`` boundary. A kill surfaces as the client's
+  ring-replica failover (never an error, never a direct fallback while
+  replicas live); a slow member as hung-not-dead to the supervisor.
 
 Every injected fault bumps ``FAULTS_INJECTED{kind}`` and emits a
 ``fault_injected`` trace instant.
-
-The JAX package's schedule also drives the read plane (server and
-fleet-member kills, slow servers). That subsystem is not ported yet, so
-its builders raise ``NotImplementedError`` naming the ROADMAP item that
-brings it, and a :class:`FaultRule` of such a kind cannot be
-constructed: a rule whose boundary nothing emits would never fire,
-silently.
 
 The schedule is deterministic by construction: rules fire on the *n*-th
 match of their (op-glob, path-glob) pattern, and the crash point on a
@@ -64,27 +67,10 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from .. import telemetry, tracing
 from ..telemetry import metrics as _metric_names
-
-_ITEM_10 = "the snapserve read plane (ROADMAP Queue 1 item 10)"
-
-# Rule kinds of the JAX package whose subsystem the port lacks, with what
-# brings it.
-_UNPORTED_KINDS: Dict[str, str] = {
-    "killserver": _ITEM_10,
-    "killmember": _ITEM_10,
-    "slowmember": _ITEM_10,
-}
-
-
-def _not_ported(what: str, needs: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"faultline {what} targets {needs}, which torchsnapshot_tpu_torch "
-        f"does not have yet"
-    )
 
 
 class SimulatedCrash(BaseException):
@@ -141,6 +127,7 @@ class FaultRule:
     #          | "crash" | "mem_pressure" (shrink a memory domain's cap)
     #          | "hostloss" | "flap" (lose, then revive, a hot-tier host)
     #          | "drop_conn" | "torn_frame" | "slow_wire" (snapwire)
+    #          | "killserver" | "killmember" | "slowmember" (read plane)
     op: str = "*"
     path: str = "*"
     nth: int = 1
@@ -157,14 +144,9 @@ class FaultRule:
     # comes back (a wire-backed peer as a fresh subprocess one membership
     # generation up; an in-process host empty).
     revive_after_ops: Optional[int] = None
+    member: Optional[str] = None  # killmember/slowmember: fleet member name
     _hits: int = field(default=0, repr=False)
     _fired: int = field(default=0, repr=False)
-
-    def __post_init__(self) -> None:
-        if self.kind in _UNPORTED_KINDS:
-            raise _not_ported(
-                f"rule kind {self.kind!r}", _UNPORTED_KINDS[self.kind]
-            )
 
     def matches(self, op: str, path: str) -> bool:
         return fnmatch.fnmatchcase(op, self.op) and fnmatch.fnmatchcase(
@@ -397,24 +379,60 @@ class FaultSchedule:
         )
         return self
 
-    # The JAX package's builders for the read plane, which the port lacks:
-    # each raises, naming the ROADMAP item that brings it.
+    def kill_server(
+        self, op: str = "snapserve.request", path: str = "*", nth: int = 1
+    ) -> "FaultSchedule":
+        """Kill every in-process snapserve server at the ``nth`` op
+        matching the globs (by default the ``nth`` client RPC attempt).
+        The boundary fires before the RPC touches the network, so the
+        matched request already finds the server dead; the client's
+        degraded direct-read fallback is the behaviour under test."""
+        self.rules.append(FaultRule(kind="killserver", op=op, path=path, nth=nth, times=1))
+        return self
 
-    def kill_server(self, *args, **kwargs) -> "FaultSchedule":
-        """Kill every in-process read-plane server."""
-        raise _not_ported("kill_server", _ITEM_10)
+    def kill_fleet_member(
+        self, member: str, op: str = "snapserve.request", path: str = "*", nth: int = 1
+    ) -> "FaultSchedule":
+        """Kill one named in-process fleet member (``"m1"`` from
+        :func:`..snapserve.fleet.start_local_fleet`) at the ``nth``
+        matching op boundary, before the RPC dials; the client's
+        ring-replica failover is the behaviour under test."""
+        self.rules.append(
+            FaultRule(kind="killmember", op=op, path=path, nth=nth, times=1, member=member)
+        )
+        return self
 
-    def kill_fleet_member(self, *args, **kwargs) -> "FaultSchedule":
-        """Kill one named read-plane fleet member."""
-        raise _not_ported("kill_fleet_member", _ITEM_10)
+    def slow_fleet_member(
+        self,
+        member: str,
+        seconds: float = 0.05,
+        op: str = "snapserve.request",
+        path: str = "*",
+        nth: int = 1,
+    ) -> "FaultSchedule":
+        """Add ``seconds`` of latency to every request one named fleet
+        member answers from the ``nth`` matching boundary on: slow but
+        alive, which the supervisor must classify hung-not-dead."""
+        self.rules.append(
+            FaultRule(
+                kind="slowmember", op=op, path=path, nth=nth, times=1,
+                member=member, seconds=seconds,
+            )
+        )
+        return self
 
-    def slow_fleet_member(self, *args, **kwargs) -> "FaultSchedule":
-        """Slow one named read-plane fleet member."""
-        raise _not_ported("slow_fleet_member", _ITEM_10)
-
-    def slow_server(self, *args, **kwargs) -> "FaultSchedule":
-        """Latency at the read-plane client's ``snapserve.request``."""
-        raise _not_ported("slow_server", _ITEM_10)
+    def slow_server(
+        self,
+        seconds: float = 0.05,
+        path: str = "*",
+        nth: int = 1,
+        times: Optional[int] = None,
+    ) -> "FaultSchedule":
+        """Latency at the snapserve client's ``snapserve.request``
+        boundaries: every matched RPC pays ``seconds`` before it dials."""
+        return self.latency(
+            op="snapserve.request", path=path, seconds=seconds, nth=nth, times=times
+        )
 
     def mem_pressure(
         self,
@@ -587,6 +605,24 @@ class FaultController:
                     # boundary guards: the emit fires just before the put
                     # dials).
                     transport.script_wire_fault(rule.kind, host=rule.host, seconds=rule.seconds)
+                    continue
+                if rule.kind == "killserver":
+                    self._record(idx, op, path, "killserver")
+                    from ..snapserve.server import kill_local_servers
+
+                    # Returns once the server loops have aborted their
+                    # sockets (never waiting on this lock), so the op this
+                    # boundary guards already finds the server dead.
+                    kill_local_servers()
+                    continue
+                if rule.kind in ("killmember", "slowmember"):
+                    self._record(idx, op, path, rule.kind)
+                    from ..snapserve import fleet
+
+                    if rule.kind == "killmember":
+                        fleet.kill_local_member(rule.member or "")
+                    else:
+                        fleet.slow_local_member(rule.member or "", rule.seconds)
                     continue
                 raise ValueError(f"unknown fault rule kind {rule.kind!r}")
         if sleep_s > 0.0:

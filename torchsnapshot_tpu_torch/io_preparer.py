@@ -53,6 +53,11 @@ from the run's chunk store; each chunk is decoded and content-verified
 buffer at its offset as it lands (when the object is one run of the box;
 otherwise the chunks assemble in a pooled buffer and the whole payload
 is placed); the leaf publishes once every chunk has verified and landed.
+When the box needs only part of a chunk-stored object (a resharded
+restore), only the chunks that overlap the byte hull of its slices are
+read (chunk pushdown, ``snapserve.pushdown``); the rest of the assembly
+buffer is never read. ``TPUSNAPSHOT_CHUNK_PUSHDOWN=0`` and strict
+integrity read every chunk.
 """
 
 import asyncio
@@ -99,7 +104,9 @@ from .serialization import (
     tensor_bytes,
     verify_checksum,
 )
+from . import telemetry
 from .telemetry import consume_profile as _cprof
+from .telemetry import metrics as _metric_names
 from .utils.env import env_int
 
 # Dense arrays above this size are stored as several chunk objects.
@@ -483,6 +490,9 @@ class _ChunkCopyConsumer(BufferConsumer):
         # the consume returns: held until the transfer lands.
         return self._nbytes
 
+    def get_progress_bytes(self) -> int:
+        return self._nbytes
+
     def set_cost_releaser(self, release: Callable[[int], None]) -> None:
         self._cost_release = release
 
@@ -660,28 +670,60 @@ class _SplitObjectReadState(_PooledAssemblyState):
 
 
 def _content_chunk_reads(
-    state: Any, records: List[Dict[str, Any]], store_base: Optional[int]
+    state: Any,
+    records: List[Dict[str, Any]],
+    store_base: Optional[int],
+    selected: Optional[List[int]] = None,
 ) -> Tuple[List[ReadReq], Dict[int, Dict[str, Any]]]:
     """One read per content chunk record of a chunk-stored object (from
     the store root, ``@base<store_base>/``), each consumed as bytes
-    [offset, offset + n) of the object: (reads, record by offset)."""
+    [offset, offset + n) of the object: (reads, record by offset). With
+    ``selected`` (chunk pushdown), only those record indices are read;
+    offsets stay those of the whole object."""
     from .chunkstore import chunk_object_path
     from .storage_plugin import make_ref_location
 
+    wanted = None if selected is None else set(selected)
     reqs: List[ReadReq] = []
     by_offset: Dict[int, Dict[str, Any]] = {}
     offset = 0
     for i, rec in enumerate(records):
         n = int(rec["n"])
-        path = chunk_object_path(rec["k"])
-        if store_base is not None:
-            path = make_ref_location(store_base, path)
-        by_offset[offset] = rec
-        reqs.append(ReadReq(path=path, buffer_consumer=_SubRangeConsumer(state, offset, offset + n, first=(i == 0))))
+        if wanted is None or i in wanted:
+            path = chunk_object_path(rec["k"])
+            if store_base is not None:
+                path = make_ref_location(store_base, path)
+            by_offset[offset] = rec
+            consumer = _SubRangeConsumer(state, offset, offset + n, first=not reqs)
+            reqs.append(ReadReq(path=path, buffer_consumer=consumer))
         offset += n
     if offset != state.nbytes:
         raise RuntimeError(f"content chunks of {offset} bytes describe an object of {state.nbytes}")
     return reqs, by_offset
+
+
+def _pushdown_cut(
+    records: List[Dict[str, Any]], shape: List[int], slices: Tuple[slice, ...], itemsize: int
+) -> Optional[List[int]]:
+    """Chunk pushdown: the indices of the content records whose bytes
+    intersect the C-order byte hull of ``slices`` of a chunk-stored
+    object of ``shape``, or None when every record is needed (or
+    ``TPUSNAPSHOT_CHUNK_PUSHDOWN=0``). The hull is a superset of the
+    strided footprint, and the scatter reads only the slices' elements,
+    so unread records are never observed."""
+    if os.environ.get("TPUSNAPSHOT_CHUNK_PUSHDOWN") == "0":
+        return None
+    from .snapserve import pushdown
+
+    sizes = [int(r["n"]) for r in records]
+    box = [tuple((sl.start, sl.stop) for sl in slices)]
+    sel = pushdown.select_records(sizes, pushdown.needed_intervals(tuple(shape), box, itemsize))
+    if not 0 < len(sel.indices) < len(records):
+        return None
+    telemetry.counter(_metric_names.CHUNK_PUSHDOWN_SKIPPED_BYTES).inc(
+        sum(sizes) - sel.selected_bytes
+    )
+    return sel.indices
 
 
 class _ContentChunksReadState(_SplitObjectReadState):
@@ -698,8 +740,11 @@ class _ContentChunksReadState(_SplitObjectReadState):
         self._dtype_name = dtype_name
         self._by_offset: Dict[int, Dict[str, Any]] = {}
 
-    def build_reads(self, records: List[Dict[str, Any]], store_base: Optional[int]) -> List[ReadReq]:
-        reqs, self._by_offset = _content_chunk_reads(self, records, store_base)
+    def build_reads(
+        self, records: List[Dict[str, Any]], store_base: Optional[int],
+        selected: Optional[List[int]] = None,
+    ) -> List[ReadReq]:
+        reqs, self._by_offset = _content_chunk_reads(self, records, store_base, selected)
         self._remaining = len(reqs)
         return reqs
 
@@ -963,6 +1008,9 @@ class _SubRangeConsumer(BufferConsumer):
 
     def get_deferred_cost_bytes(self) -> int:
         return self._state.deferred_cost_bytes(self._first, self._end - self._start)
+
+    def get_progress_bytes(self) -> int:
+        return self._end - self._start
 
     def set_cost_releaser(self, release: Callable[[int], None]) -> None:
         self._state.set_cost_releaser(release)
@@ -1262,12 +1310,16 @@ class ArrayRestorePlan:
             if stored.chunks:
                 nbytes = _nbytes(view[0], itemsize)
                 if run is not None:
+                    # The box takes the whole object: every chunk is read.
                     state = _StreamedContentChunksState(self, nbytes, run[0], stored.dtype)
                     self.streamed_bytes += nbytes
+                    reqs.extend(state.build_reads(stored.chunks, stored.base))
                 else:
                     consumer = _ChunkCopyConsumer(self, *view[:2], ov.target_slices, None, location)
                     state = _ContentChunksReadState(nbytes, consumer, stored.dtype, pinned=region.is_cuda)
-                reqs.extend(state.build_reads(stored.chunks, stored.base))
+                    # Strict integrity verifies every chunk, so reads all.
+                    selected = None if strict else _pushdown_cut(stored.chunks, view[0], view[1], itemsize)
+                    reqs.extend(state.build_reads(stored.chunks, stored.base, selected))
                 continue
             consumer = _ChunkCopyConsumer(
                 self, *view[:2], ov.target_slices, view[2], location, stored.compression

@@ -246,6 +246,12 @@ class BufferConsumer(abc.ABC):
         instead of when the consume returns. 0 for ordinary consumers."""
         return 0
 
+    def get_progress_bytes(self) -> int:
+        """The payload bytes this read credits to live progress: its
+        consuming cost less the deferred part, unless the consumer
+        defers its own payload (a read the H2D pipeline still holds)."""
+        return self.get_consuming_cost_bytes() - self.get_deferred_cost_bytes()
+
     def set_cost_releaser(self, release: Callable[[int], None]) -> None:
         """Receive the scheduler's host-budget release callback. Called
         only when :meth:`get_deferred_cost_bytes` is non-zero; the

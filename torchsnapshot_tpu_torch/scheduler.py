@@ -361,13 +361,7 @@ async def execute_read_reqs(
     """
     begin = time.monotonic()
     if progress is not None:
-        progress.add_bytes_total(
-            sum(
-                r.buffer_consumer.get_consuming_cost_bytes()
-                - r.buffer_consumer.get_deferred_cost_bytes()
-                for r in read_reqs
-            )
-        )
+        progress.add_bytes_total(sum(r.buffer_consumer.get_progress_bytes() for r in read_reqs))
         await progress.async_tick(force=True)
 
     def _sort_bytes(r: ReadReq) -> int:
@@ -452,7 +446,8 @@ async def execute_read_reqs(
                 deferred = consumer.get_deferred_cost_bytes()
                 if deferred:
                     consumer.set_cost_releaser(budget.release)
-                reading[asyncio.ensure_future(_read(rr, cost - deferred))] = (rr, cost - deferred)
+                share = consumer.get_progress_bytes()
+                reading[asyncio.ensure_future(_read(rr, share))] = (rr, cost - deferred)
 
             # Consume dispatch under the device budget. The scan skips
             # past blocked entries: a consume waiting for device bytes

@@ -682,6 +682,14 @@ class Snapshot:
             from . import hottier as _hottier
 
             tier_token = _hottier.restore_stats_begin()
+            # Read-plane attribution: which objects the read service
+            # served and which fell back to direct backend reads — the
+            # flight report's ``read_plane`` block, read by the
+            # read-plane-degraded doctor rule and the ledger. None
+            # whenever the restore saw no snapserve traffic.
+            from .snapserve import client as _snapserve_client
+
+            read_plane_token = _snapserve_client.restore_stats_begin()
             app_state = dict(app_state)
             rng_key, rng_stateful = _pop_rng_state(app_state)
             # Every rank joins every per-key barrier, whichever statefuls
@@ -705,6 +713,9 @@ class Snapshot:
             tier_summary = _hottier.restore_stats_collect(tier_token)
             if tier_summary is not None:
                 recorder.note(tier=tier_summary)
+            read_plane_summary = _snapserve_client.restore_stats_collect(read_plane_token)
+            if read_plane_summary is not None:
+                recorder.note(read_plane=read_plane_summary)
         finally:
             assemble_s = stats.pop("assemble_s", 0.0)
             profile = _set_restore_report(token, stats)

@@ -3,8 +3,9 @@
 Protocols: ``fs`` (the default when no ``://`` is present), ``memory``,
 ``gs`` and ``s3`` (their SDKs imported only when such a URL is opened);
 any other resolves through the ``storage_plugins`` entry-point group, so
-third-party backends register themselves. ``snapserve`` (the JAX
-package's read plane) is not ported yet and raises.
+third-party backends register themselves. ``snapserve`` is the read
+plane's client (``snapserve://host:port/<backend-url>``, or
+``snapserve://h1:p1,h2:p2/<backend-url>`` for a fleet).
 ``set_plugin_wrap_hook`` wraps every resolved backend under the retry
 layer: fault injection's seam.
 
@@ -81,11 +82,13 @@ def _resolve_plugin(url_path: str) -> StoragePlugin:
 
         return S3StoragePlugin(root=path)
     if protocol == "snapserve":
-        raise NotImplementedError(
-            "The snapserve:// read plane is not yet ported to "
-            "torchsnapshot_tpu_torch (ROADMAP Queue 1 item 10, the read "
-            "plane); read through its backend URL instead."
-        )
+        # The read plane (snapserve/): reads go through the caching read
+        # service at host:port, everything else straight to the embedded
+        # backend URL; an unreachable server degrades to direct backend
+        # reads (counted, never an error).
+        from .snapserve.client import SnapServePlugin
+
+        return SnapServePlugin(path)
     # Third-party plugins register under the ``storage_plugins``
     # entry-point group, as for the JAX package.
     try:

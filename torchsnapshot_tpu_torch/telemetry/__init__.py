@@ -23,9 +23,18 @@ the other's).
   (:mod:`.doctor`), **timeline** (:mod:`.timeline`), **SLOs**
   (:mod:`.slo`), the trace summary (:mod:`.summarize`) and the restore's
   consume profile (:mod:`.consume_profile`).
-
-``watch``, ``merge``, ``sampler`` and ``ops`` are not ported yet
-(ROADMAP item 8b).
+- **watch** (:mod:`.watch`): ``python -m
+  torchsnapshot_tpu_torch.telemetry.watch <path>`` renders live progress
+  records and flags stale-heartbeat stragglers.
+- **merge** (:mod:`.merge`): N per-process traces onto one skew-corrected
+  clock, with the cross-process critical path.
+- **sampler** (:mod:`.sampler`): a background thread snapshotting live
+  runtime state (hot tier, wire, memory domains, goodput) into a ring and
+  ``rank<N>.scope.jsonl`` statusfiles.
+- **ops** (:mod:`.ops`): ``python -m torchsnapshot_tpu_torch.telemetry.ops
+  <path>`` merges live progress, sampler state, SLO status, doctor
+  findings and the stats of live read-plane servers and hot-tier peers
+  into one operational view.
 
 :mod:`.report` is not imported here: it depends on ``io_types``, which
 records metrics through this package. Import it explicitly

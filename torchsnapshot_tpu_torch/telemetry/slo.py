@@ -1056,14 +1056,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     samples_by_rank: Dict[int, List[Dict[str, Any]]] = {}
     if args.samples_dir:
-        # The live rules read sampler statusfiles; the sampler is not
-        # ported yet (ROADMAP item 8b).
-        print(
-            "error: --samples-dir needs telemetry.sampler "
-            "(ROADMAP item 8b, not ported yet)",
-            file=sys.stderr,
-        )
-        return 2
+        from . import sampler as _sampler
+
+        samples_by_rank = _sampler.collect_statusfiles(args.samples_dir)
     if not records and not samples_by_rank:
         print(f"no ledger records or samples at {args.path}", file=sys.stderr)
         return 2

@@ -334,14 +334,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("no spans found", file=sys.stderr)
         return 1
     if meta.get("merged"):
-        # A merged multi-process trace's critical path needs
-        # telemetry.merge, which is not ported yet (ROADMAP item 8b).
-        print(
-            "error: merged multi-process traces need telemetry.merge "
-            "(ROADMAP item 8b, not ported yet)",
-            file=sys.stderr,
-        )
-        return 2
+        # A merged multi-process trace (telemetry/merge.py): append the
+        # critical path (which rank, server or phase gated the operation)
+        # and the per-process skew table the merge corrected with. Labels
+        # cover only role processes (e.g. the snapserve server): rank
+        # processes keep the bare "rank N" rendering.
+        from .merge import critical_path
+
+        labels = {
+            int(p["pid"]): p["label"]
+            for p in meta.get("processes") or []
+            if p.get("role")
+        }
+        summary["cross_rank"] = {
+            "ranks": meta.get("ranks"),
+            "processes": meta.get("processes"),
+            "skew_s": meta.get("skew_s"),
+            "cross_process_flows": meta.get("cross_process_flows"),
+            "critical_path": critical_path(events, labels=labels),
+        }
     if args.json:
         print(json.dumps(summary, indent=2, sort_keys=True))
     else:
