@@ -7,6 +7,16 @@ Phases, each printing JSON lines to stdout:
 
 1. device — the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. build — nvcc builds every kernel from ``torchsnapshot_tpu_torch/csrc``.
+2a. analysis — right after the build, the port's snapcheck
+   (``python -m torchsnapshot_tpu_torch.analysis``) starts in subprocesses
+   on the card's host: SNAP001–SNAP013 over ``torchsnapshot_tpu_torch/``
+   (``--format json``), ``--inventory`` and ``--list-rules``. It needs no
+   card, so it runs beside the device phases; it is gathered just before
+   the phase seconds and must find no violation and no unparseable file,
+   list all thirteen rules, and render an inventory whose body equals
+   ``docs/PROTOCOL.md``. One JSON line: files analysed, violations,
+   suppressions, rules, ``inventory_equal``, the Python version and its
+   own wall seconds (beside the phase seconds, not in their sum).
 3. kernel — the flash forward kernel against its plain PyTorch version
    at the main path's shape and the shapes around it, with the tolerance
    stated, its time, the plain version's, the time of
@@ -254,7 +264,9 @@ Phases, each printing JSON lines to stdout:
     subprocess (three at a time) that must exit 0 and print its lines; K1
     launches from the long-context script, K4's launches and leaves from
     the incremental one.
-17. phase seconds — one JSON line with each phase's wall seconds.
+17. phase seconds — one JSON line with each phase's wall seconds (the
+    analysis's and the process beside the faults phase's walls beside
+    them, not in their sum).
 18. kernels — one JSON line summarising every kernel of the paths (K4
     and K5 with their launches and segments on the dedup, api, dlrm,
     dryrun, faults, examples and hottier paths and their launches on the
@@ -270,6 +282,7 @@ passes over the same bytes give bit-identical logits. The train path
 claims no bit-identity and turns them off.
 """
 
+import atexit
 import collections
 import contextlib
 import ctypes
@@ -305,6 +318,7 @@ from torchsnapshot_tpu_torch import (  # noqa: E402
     StateDict,
 )
 from torchsnapshot_tpu_torch import dryrun, io_preparer, staging_pool  # noqa: E402
+from torchsnapshot_tpu_torch.analysis.core import iter_python_files  # noqa: E402
 from torchsnapshot_tpu_torch import telemetry  # noqa: E402
 from torchsnapshot_tpu_torch.telemetry import metrics as metric_names  # noqa: E402
 from torchsnapshot_tpu_torch.io_types import io_payload  # noqa: E402
@@ -531,6 +545,112 @@ def phase_build():
     }
     emit({"phase": "build", "kernels": KERNELS, "seconds": seconds,
           "flash_fwd_smem_bytes": fwd_smem})
+
+
+ANALYSIS_TIMEOUT_S = 300.0
+ANALYSIS_CODES = [f"SNAP{i:03d}" for i in range(1, 14)]
+
+
+def _inventory_body(markdown):
+    """A protocol inventory without its ``> Generated by`` line, which
+    names the CLI that rendered it."""
+    return [line for line in markdown.splitlines() if not line.startswith("> Generated by")]
+
+
+class _Analysis:
+    """The port's snapcheck over its own tree, in three subprocesses
+    started at once from ``ROOT``: the rules as JSON, ``--inventory`` and
+    ``--list-rules``. They need no card, so their host time overlaps the
+    device phases; a thread a child notes when it exits, so each run's
+    seconds are its own. ``result()`` waits for them (at most
+    ``ANALYSIS_TIMEOUT_S`` from its call), holds them to their gates and
+    returns the phase's record. Each child dies with the script."""
+
+    RUNS = {
+        "check": ["torchsnapshot_tpu_torch/", "--format", "json"],
+        "inventory": ["--inventory"],
+        "rules": ["--list-rules"],
+    }
+
+    def __init__(self):
+        self._dir = tempfile.mkdtemp(prefix="chip_smoke_analysis-")
+        self._begin = time.perf_counter()
+        self._procs = {}
+        self._ended = {}
+        self._watchers = {}
+        for name, args in self.RUNS.items():
+            with open(os.path.join(self._dir, name + ".out"), "w") as out, \
+                    open(os.path.join(self._dir, name + ".err"), "w") as err:
+                self._procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "torchsnapshot_tpu_torch.analysis", *args],
+                    cwd=ROOT, stdout=out, stderr=err, stdin=subprocess.DEVNULL,
+                    preexec_fn=_die_with_parent,
+                )
+            self._watchers[name] = threading.Thread(target=self._note_end, args=(name,), daemon=True)
+            self._watchers[name].start()
+
+    def _note_end(self, name):
+        self._procs[name].wait()
+        self._ended[name] = time.perf_counter()
+
+    def _output(self, name, deadline):
+        proc = self._procs[name]
+        try:
+            rc = proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(
+                f"analysis phase: {name} still ran {ANALYSIS_TIMEOUT_S} s after it was gathered"
+            ) from None
+        self._watchers[name].join()
+        with open(os.path.join(self._dir, name + ".out")) as f:
+            out = f.read()
+        with open(os.path.join(self._dir, name + ".err")) as f:
+            err = f.read()
+        if rc != 0:
+            raise RuntimeError(f"analysis phase: {name} exited {rc}:\n{out[-4000:]}{err[-4000:]}")
+        return out
+
+    def result(self):
+        try:
+            deadline = time.perf_counter() + ANALYSIS_TIMEOUT_S
+            outputs = {name: self._output(name, deadline) for name in self.RUNS}
+        finally:
+            self.stop()
+        run_seconds = {name: end - self._begin for name, end in self._ended.items()}
+        check = json.loads(outputs["check"])
+        listed = [line.split()[0] for line in outputs["rules"].splitlines() if line.startswith("SNAP")]
+        with open(os.path.join(ROOT, "docs", "PROTOCOL.md")) as f:
+            inventory_equal = _inventory_body(outputs["inventory"]) == _inventory_body(f.read())
+        record = {
+            "phase": "analysis",
+            "files": len(iter_python_files([os.path.join(ROOT, "torchsnapshot_tpu_torch")])),
+            "violations": len(check["violations"]),
+            "unparseable": len(check["errors"]),
+            "suppressed": check["suppressed"],
+            "rules": len(listed),
+            "inventory_equal": inventory_equal,
+            "python": sys.version.split()[0],
+            "seconds": max(run_seconds.values()),
+            "run_seconds": run_seconds,
+        }
+        emit(record)
+        _hold("analysis", {
+            "ok": check["ok"] is True,
+            "no_violations": not check["violations"],
+            "no_unparseable_files": not check["errors"],
+            "all_rules_listed": listed == ANALYSIS_CODES,
+            "inventory_equal": inventory_equal,
+            "inventory_names_port_cli": "python -m torchsnapshot_tpu_torch.analysis --inventory"
+            in outputs["inventory"],
+        })
+        return record
+
+    def stop(self):
+        for proc in self._procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+        shutil.rmtree(self._dir, ignore_errors=True)
 
 
 def phase_kernel():
@@ -5206,6 +5326,10 @@ def main():
 
     smi, device = timed_phase("device", phase_device)
     timed_phase("build", phase_build)
+    # snapcheck needs no card: it runs on the host beside the phases
+    # below and is gathered before the phase seconds.
+    analysis = _Analysis()
+    atexit.register(analysis.stop)
     flash = timed_phase("kernel", phase_kernel)
     flash_bwd = timed_phase("kernel_bwd", phase_kernel_bwd)
     transfer_record = timed_phase("transfer", phase_transfer)
@@ -5244,9 +5368,13 @@ def main():
     timed_phase("ddp", phase_ddp)
     dryrun_ranks = timed_phase("dryrun", phase_dryrun)["ranks"]
     examples = timed_phase("examples", phase_examples)
+    begin = time.perf_counter()
+    analysis_record = analysis.result()
+    seconds["analysis_wait"] = time.perf_counter() - begin
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values()),
           "beside_faults": {"hottier": hot["seconds"], "read_plane": read_plane["seconds"],
-                            "wall": beside_wall_s}})
+                            "wall": beside_wall_s},
+          "beside_phases": {"analysis": analysis_record["seconds"]}})
     fwd = flash["main_path"]
     bwd = flash_bwd["train_path"]
 

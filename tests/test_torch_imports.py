@@ -367,3 +367,59 @@ def test_server_process_imports_no_jax_and_no_optional_packages(tmp_path):
         proc.wait(timeout=10)
     tried = set(attempts.read_text().split()) if attempts.exists() else set()
     assert tried <= {"psutil"}, tried
+
+
+def test_analysis_cli_runs_with_optional_packages_blocked(tmp_path):
+    """``python -m torchsnapshot_tpu_torch.analysis`` (the package and its
+    ``__main__``) lists its rules, renders the protocol inventory and
+    checks a tree with JAX, the JAX package, PyYAML, psutil, ml_dtypes,
+    zstandard and the cloud SDKs blocked, as on the card's machine. Every
+    import of them it attempts is logged: none but psutil, which
+    memwatch asks for optionally when the port's package loads."""
+    attempts = tmp_path / "attempts.log"
+    fixture = ROOT / "tests" / "torch_analysis_fixtures" / "good_torch_sync.py"
+    script = textwrap.dedent(
+        f"""
+        import contextlib, importlib.abc, io, json, runpy, sys
+
+        BLOCKED = {{"yaml", "psutil", "ml_dtypes", "jax", "jaxlib", "optax", "torchsnapshot_tpu",
+                   "zstandard", "boto3", "aiobotocore", "google"}}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    with open({str(attempts)!r}, "a") as f:
+                        f.write(name + "\\n")
+                    raise ImportError(f"{{name}} is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {str(ROOT)!r})
+
+        def cli(*argv):
+            sys.argv = ["snapcheck", *argv]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                try:
+                    runpy.run_module("torchsnapshot_tpu_torch.analysis", run_name="__main__")
+                except SystemExit as e:
+                    return e.code, out.getvalue()
+            return None, out.getvalue()
+
+        rc, out = cli("--list-rules")
+        assert rc == 0 and out.count("SNAP0") == 13, (rc, out)
+        rc, out = cli("--inventory")
+        assert rc == 0 and out.startswith("# Wire-protocol inventory"), rc
+        rc, out = cli("--format", "json", {str(fixture)!r},
+                      {str(ROOT / "torchsnapshot_tpu_torch" / "analysis")!r})
+        assert rc == 0 and json.loads(out)["ok"] is True, (rc, out)
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    tried = set(attempts.read_text().split()) if attempts.exists() else set()
+    assert tried <= {"psutil"}, tried

@@ -380,7 +380,8 @@ def _device_fp_matches_host(dtype: torch.dtype, device: torch.device) -> bool:
         try:
             dev = resolve_chunk_fingerprints([fingerprint_device_chunked_async(host, probe_bytes)])[0]
             ok = not isinstance(dev, Exception) and dev == fingerprint_host_chunked(host, probe_bytes)
-        except Exception:  # no proven agreement: hash on the host
+        # Probe failure = no proven agreement: degrade to host hashing.
+        except Exception:  # snapcheck: disable=swallowed-exception -- agreement probe; degrades to host hashing
             ok = False
         if not ok:
             logger.warning(
@@ -453,7 +454,8 @@ def apply_chunkstore(
         logger.warning(f"chunk dedup disabled: store {store_url!r} unusable", exc_info=True)
         try:
             store_plugin.close()
-        except Exception:  # teardown of a plugin already failing
+        # Best-effort teardown of a plugin already proven broken.
+        except Exception:  # snapcheck: disable=swallowed-exception -- teardown of failed plugin
             pass
         return None
     ctx = _ChunkContext(store_url, store_plugin, intent_path, stats)
@@ -818,7 +820,8 @@ async def _alive_ref_keys(
         if min_age_s > 0:
             try:
                 age = await storage.object_age_s(marker_path)
-            except Exception:  # unknown age fails closed
+            # Unknown age fails CLOSED (treated as live) just below.
+            except Exception:  # snapcheck: disable=swallowed-exception -- fails closed
                 age = None
             if age is None or age < min_age_s:
                 live.update(doc["chunks"])
@@ -841,7 +844,8 @@ async def _ayoung_intent_present(
             continue
         try:
             age = await storage.object_age_s(p)
-        except Exception:  # unknown age fails closed
+        # Unknown age fails CLOSED: treat as an in-flight take.
+        except Exception:  # snapcheck: disable=swallowed-exception -- fails closed
             age = None
         if age is None or age < min_age_s:
             young = True

@@ -119,6 +119,7 @@ class FileStore(Store):
             f.write(value)
         # No fsync: coordination keys are ephemeral per-collective values;
         # close() precedes the rename, so readers always see full data.
+        # snapcheck: disable=durability-order -- ephemeral coordination keys
         os.replace(tmp, self._file(key))
 
     def get(self, key: str, timeout_s: float = _DEFAULT_TIMEOUT_S) -> bytes:

@@ -178,7 +178,9 @@ def resolve_fingerprints(results: List[Any]) -> List[Any]:
     resolves to its ``Exception``."""
     try:
         fetched = _fetch_by_device(results)
-    except Exception:  # resolve item by item, keeping each one's error
+    # Per-item fallback below re-runs each fetch and KEEPS its
+    # exception in the output, so nothing is lost here.
+    except Exception:  # snapcheck: disable=swallowed-exception -- retried per-item
         fetched = None
     out: List[Any] = []
     for i, r in enumerate(results):
@@ -196,7 +198,9 @@ def resolve_chunk_fingerprints(results: List[Any]) -> List[Any]:
     copy per device); an item that fails resolves to its ``Exception``."""
     try:
         fetched = _fetch_by_device(results)
-    except Exception:
+    # Per-item fallback below re-runs each fetch and KEEPS its
+    # exception in the output, so nothing is lost here.
+    except Exception:  # snapcheck: disable=swallowed-exception -- retried per-item
         fetched = None
     out: List[Any] = []
     for i, r in enumerate(results):

@@ -516,6 +516,9 @@ class _ChunkCopyConsumer(BufferConsumer):
 
     def _consume(self, buf: Optional[BufferType], lease: Optional[staging_pool.StagingLease] = None) -> None:
         with _cprof.consume_section():
+            # A lease's buffer is a host tensor that storage reads filled:
+            # its .numpy() is a view and waits on no device work.
+            # snapcheck: disable=event-loop-blocking -- host staging buffer, no device sync
             data = buf if lease is None else memoryview(lease.buffer.numpy())
             with _cprof.substep(self._profile, "verify", len(data)):
                 verify_checksum(data, self._checksum)
@@ -1162,8 +1165,13 @@ class ArrayRestorePlan:
         if lease is not None and lease.pinned:
             return lease, False
         staged = staging_pool.acquire(len(data), self._profile, pinned=True)
-        with _cprof.substep(self._profile, "reassemble", len(data)):
-            host_copy(staged.buffer, data)
+        try:
+            with _cprof.substep(self._profile, "reassemble", len(data)):
+                host_copy(staged.buffer, data)
+        except BaseException:
+            # The caller releases only a lease it was handed.
+            staged.release()
+            raise
         return staged, True
 
     def place_run(self, data: BufferType, lo: int, hi: int) -> Future:

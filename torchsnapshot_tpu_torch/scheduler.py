@@ -442,6 +442,12 @@ async def execute_read_reqs(
                 rr = pending.popleft()
                 # Re-credited when the consume completes, except the
                 # deferred part, which the consumer's releaser returns.
+                # Invariant the flow analysis cannot see: the release
+                # lands in a LATER loop iteration, and the cell is
+                # per-pipeline-run — a failed run cancels its tasks and
+                # drops the cell with the stack frame, so no charge
+                # outlives the budget it was charged against.
+                # snapcheck: disable=resource-lifecycle -- cross-iteration discharge: released at task completion (below) or via the consumer's deferred releaser; cell dies with the run
                 budget.charge(cost)
                 deferred = consumer.get_deferred_cost_bytes()
                 if deferred:

@@ -1537,7 +1537,9 @@ async def _read_marker(storage: StoragePlugin, path: str, nonce: str) -> Optiona
         return None
     try:
         doc = SnapshotMetadata.from_yaml(_decode_metadata_doc(bytes(io_payload(io_req))))
-    except Exception:  # a torn document: keep polling
+    # A torn half-committed document parses as garbage by DESIGN;
+    # "no candidate" keeps the poll going until the commit lands.
+    except Exception:  # snapcheck: disable=swallowed-exception -- torn-doc poll
         return None
     return doc.manifest if doc.take_id == nonce else None
 
@@ -1665,7 +1667,8 @@ async def _wait_for_metadata(
                 metadata = SnapshotMetadata.from_yaml(
                     _decode_metadata_doc(bytes(io_payload(io_req)))
                 )
-            except Exception:  # a torn document: keep polling
+            # Same torn-document contract as the nonce probe above.
+            except Exception:  # snapcheck: disable=swallowed-exception -- torn-doc poll
                 metadata = None
             if metadata is not None and (take_id is None or metadata.take_id == take_id):
                 return
@@ -2081,7 +2084,8 @@ async def _live_referencers(
             if min_age_s > 0:
                 try:
                     age = await storage.object_age_s(marker_path)
-                except Exception:  # unknown age fails closed
+                # Unknown age fails CLOSED (treated as live) just below.
+                except Exception:  # snapcheck: disable=swallowed-exception -- fails closed
                     age = None
                 if age is None or age < min_age_s:
                     live.add(ref_url.rstrip("/"))

@@ -136,7 +136,7 @@ class StagingLease:
         # in-use accounting right across repeated failures.
         try:
             self.release()
-        except Exception:  # interpreter shutdown: nothing left to account
+        except Exception:  # snapcheck: disable=swallowed-exception -- GC-time best effort
             pass
 
 

@@ -100,7 +100,9 @@ class FSStoragePlugin(StoragePlugin):
             os.kill(int(pid_str), 0)
         except ProcessLookupError:
             return False
-        except Exception:  # EPERM, a suffix past C long: keep
+        # EPERM (someone else's live process), OverflowError (a numeric
+        # suffix past C long — not a real pid), and friends: keep.
+        except Exception:  # snapcheck: disable=swallowed-exception -- fails toward keeping
             return True
         return True
 

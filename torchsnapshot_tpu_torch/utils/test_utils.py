@@ -141,6 +141,10 @@ def _report_failure(error_dir: str, rank: int, text: str) -> None:
     tmp = os.path.join(error_dir, f".rank{rank}.tmp")
     with open(tmp, "w") as f:
         f.write(text)
+    # No fsync: the parent reads the report in the same boot, from a
+    # temporary directory that a host crash takes with the whole run;
+    # close() precedes the rename, so a live reader sees all of it.
+    # snapcheck: disable=durability-order -- read back in the same boot, never after a crash
     os.replace(tmp, os.path.join(error_dir, f"rank{rank}"))
 
 
