@@ -260,15 +260,9 @@ class ChunkStager(ArrayBufferStager):
         self.encode_stats: Optional[Tuple[float, int]] = None
 
     async def stage_buffer(self, executor=None):
-        # An executor thread's context carries no trace: carry the take's
-        # trace id across, so the encode span joins the take.
-        tid = tracing.current_trace_id()
-
-        def _stage_adopted():
-            with tracing.adopt_trace(tid):
-                return self._stage_sync()
-
-        return await _in_executor(executor, _stage_adopted)
+        # _in_executor carries the take's trace id and the stage span
+        # across, so the encode span joins the take.
+        return await _in_executor(executor, self._stage_sync)
 
     def _stage_sync(self):
         data = self._data

@@ -195,9 +195,11 @@ def _nbytes(sizes: List[int], itemsize: int) -> int:
 
 
 async def _in_executor(executor: Optional[Executor], fn: Callable[[], Any]) -> Any:
+    """``fn()`` on ``executor`` (inline without one), under the caller's
+    trace id and innermost span: an executor thread carries no context."""
     if executor is None:
         return fn()
-    return await asyncio.get_running_loop().run_in_executor(executor, fn)
+    return await asyncio.get_running_loop().run_in_executor(executor, tracing.carry(fn))
 
 
 class ArrayBufferStager(BufferStager):
@@ -283,7 +285,11 @@ def device_clone_write_reqs(write_reqs: List[WriteReq]) -> bool:
             )
         stager._data = host_copies[key]
     order = list(sources)
-    clones = device_clone([sources[k] for k in order])
+    nbytes = sum(sources[k].numel() * sources[k].element_size() for k in order)
+    with tracing.span("clone", leaves=len(order), bytes=nbytes) as end:
+        clones = device_clone([sources[k] for k in order])
+        if end is not None:
+            end["fell_back"] = clones is None
     if clones is None:
         return False
     clone_by_key = dict(zip(order, clones))
@@ -1080,9 +1086,10 @@ class ArrayRestorePlan:
         self._callback = callback
         # The plan is built in the restoring thread, under the restore's
         # trace scope; finalize may run on the finalize pool or an H2D
-        # worker, whose contexts carry no trace. Capture it now and adopt
-        # it in _finalize_now.
+        # worker, whose contexts carry no trace. Capture it (and the span
+        # building the plan) now and adopt them in _finalize_now.
         self._trace_id = tracing.current_trace_id()
+        self._trace_parent = tracing.current_span_id()
         self._as_numpy = isinstance(template, np.ndarray)
         self._wrap: Optional[Tuple[Any, Any, Any, Any]] = None
         key_data = entry.prng_impl is not None
@@ -1370,7 +1377,7 @@ class ArrayRestorePlan:
     def _finalize_now(self) -> None:
         try:
             self.await_pipeline()
-            with tracing.adopt_trace(self._trace_id), tracing.span("assemble"):
+            with tracing.adopt_trace(self._trace_id, self._trace_parent), tracing.span("assemble"):
                 self._publish()
         except BaseException as e:
             # On the finalize pool the raise lands in an unread future;

@@ -345,18 +345,20 @@ class CheckpointManager:
         """Take a snapshot for ``step``; commit its marker; prune.
         ``replicated`` and ``compression`` are :meth:`Snapshot.take`'s."""
         coordinator = get_coordinator(self._coord)
-        snapshot = Snapshot.take(
-            _step_dir(self.base_path, step),
-            app_state,
-            coord=coordinator,
-            replicated=replicated,
-            compression=compression,
-            base=self._incremental_base(step, coordinator),
-            fingerprint=True if self.incremental else None,
-            chunks=self.chunks,
-            codec=self.codec,
-        )
-        self._finalize(step, coordinator)
+        # The take's trace scope covers the finalize too (the take joins it).
+        with tracing.trace_scope("take"):
+            snapshot = Snapshot.take(
+                _step_dir(self.base_path, step),
+                app_state,
+                coord=coordinator,
+                replicated=replicated,
+                compression=compression,
+                base=self._incremental_base(step, coordinator),
+                fingerprint=True if self.incremental else None,
+                chunks=self.chunks,
+                codec=self.codec,
+            )
+            self._finalize(step, coordinator)
         # Every rank keeps the handle: the merged metadata seeded its cache.
         self._last_saved_step, self._last_saved = step, snapshot
         return snapshot
@@ -401,24 +403,27 @@ class CheckpointManager:
         # release the other ranks, and only then prune. The barrier runs
         # in a finally, so a failed marker write releases them too.
         storage = None
-        try:
+        with tracing.span("CheckpointManager.finalize", step=step):
             try:
-                if coordinator.get_rank() == 0:
-                    storage = url_to_storage_plugin(self.base_path)
-                    marker_t0 = time.monotonic()
-                    self._write_marker(storage, step)
-                    telemetry.histogram(_metric_names.MANAGER_STEP_MARKER_SECONDS).observe(
-                        time.monotonic() - marker_t0
-                    )
-                    # From here the step resolves and must restore clean.
-                    tracing.instant("step_marker_committed", step=step)
+                try:
+                    if coordinator.get_rank() == 0:
+                        storage = url_to_storage_plugin(self.base_path)
+                        with tracing.span("marker"):
+                            marker_t0 = time.monotonic()
+                            self._write_marker(storage, step)
+                            telemetry.histogram(
+                                _metric_names.MANAGER_STEP_MARKER_SECONDS
+                            ).observe(time.monotonic() - marker_t0)
+                        # From here the step resolves and must restore clean.
+                        tracing.instant("step_marker_committed", step=step)
+                finally:
+                    coordinator.barrier(_COMPLETION_TIMEOUT_S)
+                if storage is not None and self.max_to_keep is not None:
+                    with tracing.span("prune"):
+                        self._prune(storage)
             finally:
-                coordinator.barrier(_COMPLETION_TIMEOUT_S)
-            if storage is not None and self.max_to_keep is not None:
-                self._prune(storage)
-        finally:
-            if storage is not None:
-                storage.close()
+                if storage is not None:
+                    storage.close()
 
     def _prune(self, storage: Any) -> None:
         prune_t0 = time.monotonic()
@@ -506,17 +511,19 @@ class CheckpointManager:
         ``paths`` restores only the matching leaves, as
         :meth:`Snapshot.restore` does."""
         coordinator = get_coordinator(self._coord)
-        if step is None:
-            chosen = self.latest_step() if coordinator.get_rank() == 0 else None
-            step = coordinator.broadcast_object(chosen, src=0)
+        # The restore's trace scope and root span (the snapshot's joins it).
+        with tracing.trace_scope("restore"), tracing.span("CheckpointManager.restore", step=step):
             if step is None:
-                raise FileNotFoundError(
-                    f"No committed checkpoints under {self.base_path} "
-                    f"(no {_STEP_PREFIX}* markers)."
-                )
-        Snapshot(_step_dir(self.base_path, step)).restore(
-            app_state, coord=coordinator, paths=paths
-        )
+                chosen = self.latest_step() if coordinator.get_rank() == 0 else None
+                step = coordinator.broadcast_object(chosen, src=0)
+                if step is None:
+                    raise FileNotFoundError(
+                        f"No committed checkpoints under {self.base_path} "
+                        f"(no {_STEP_PREFIX}* markers)."
+                    )
+            Snapshot(_step_dir(self.base_path, step)).restore(
+                app_state, coord=coordinator, paths=paths
+            )
         return step
 
 
@@ -540,12 +547,15 @@ class PendingManagedSnapshot:
         return self._pending.done()
 
     def wait(self, timeout_s: float = 1800.0) -> Snapshot:
-        snapshot = self._pending.wait(timeout_s=timeout_s)
-        if not self._finalized:
-            # Flagged after success: a failed marker write is retried by
-            # the next wait().
-            self._manager._finalize(self._step, self._coordinator)
-            self._finalized = True
-            self._manager._last_saved_step = self._step
-            self._manager._last_saved = snapshot
+        with tracing.adopt_trace(self._pending.trace_id), tracing.span(
+            "CheckpointManager.wait", step=self._step
+        ):
+            snapshot = self._pending.wait(timeout_s=timeout_s)
+            if not self._finalized:
+                # Flagged after success: a failed marker write is retried by
+                # the next wait().
+                self._manager._finalize(self._step, self._coordinator)
+                self._finalized = True
+                self._manager._last_saved_step = self._step
+                self._manager._last_saved = snapshot
         return snapshot

@@ -30,7 +30,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import staging_pool, telemetry
+from .. import staging_pool, telemetry, tracing
 from ..telemetry import consume_profile as _cprof
 from ..telemetry import metrics as _metric_names
 from ..utils.env import env_int
@@ -63,8 +63,19 @@ def device_to_host(
     uint8 host tensor and return it once the copy has completed.
 
     ``ready`` is an event recorded after the work that produced ``src``;
-    without one the copy waits for the device's current stream.
+    without one the copy waits for the device's current stream. Traced
+    as a ``d2h`` span, from the copy's enqueue to its completion, with the
+    pinned buffer's allocation a ``d2h.pin`` span inside it.
     """
+    if not tracing.enabled():
+        return _device_to_host(src, ready, traced=False)
+    with tracing.span("d2h", bytes=src.numel() * src.element_size()):
+        return _device_to_host(src, ready, traced=True)
+
+
+def _device_to_host(
+    src: torch.Tensor, ready: Optional[torch.cuda.Event], traced: bool
+) -> torch.Tensor:
     stream = _side_stream(src.device)
     if ready is not None:
         stream.wait_event(ready)
@@ -73,7 +84,10 @@ def device_to_host(
     step = transfer_chunk_bytes()
     with torch.cuda.stream(stream):
         flat = src.detach().contiguous().reshape(-1).view(torch.uint8)
+        t0 = time.monotonic()
         out = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
+        if traced:
+            tracing.complete("d2h.pin", t0, time.monotonic())
         for lo in range(0, flat.numel(), step):
             out[lo : lo + step].copy_(flat[lo : lo + step], non_blocking=True)
         done = torch.cuda.Event()
@@ -206,7 +220,7 @@ class H2DPipeline:
                     lease.drop()
 
         try:
-            return self._pool.submit(_transfer)
+            return self._pool.submit(tracing.carry(_transfer))
         except BaseException:
             if lease is not None:
                 lease.drop()

@@ -265,9 +265,9 @@ class Snapshot:
         path = _collate_path(coordinator, path)
         # The whole sync take blocks the caller's loop (checkpoint time
         # for goodput); every span below carries the take's trace id.
-        with goodput_acct.blocked("sync_take"), tracing.trace_scope("take"), tracing.span(
-            "Snapshot.take", path=path
-        ):
+        with goodput_acct.blocked("sync_take"), tracing.trace_scope(
+            "take", join=True
+        ), tracing.span("Snapshot.take", path=path):
             metadata = cls._take_sync(
                 path, app_state, coordinator, replicated, compression, base, fingerprint,
                 chunks, codec,
@@ -317,7 +317,8 @@ class Snapshot:
                 recorder.note(churn=churn)
             # Every object this rank wrote is durable before its manifest
             # reaches rank 0, which may commit at once.
-            writer.ensure_durable()
+            with tracing.span("durable"):
+                writer.ensure_durable()
             watch.set_phase("commit")
             # The route must be the same on every rank, so both of its
             # inputs are gathered (rank 0's threshold holds); rank 0's
@@ -418,7 +419,9 @@ class Snapshot:
         path = _collate_path(coordinator, path)
         # Only the capture stalls the caller (goodput "async_stall"); the
         # drain adopts the take's trace id on its own thread.
-        with goodput_acct.blocked("async_stall"), tracing.trace_scope("async_take"):
+        with goodput_acct.blocked("async_stall"), tracing.trace_scope(
+            "async_take"
+        ), tracing.span("Snapshot.async_take", path=path):
             background, storage = cls._async_capture(
                 path, app_state, coordinator, replicated, compression, stage, base,
                 fingerprint, chunks, codec,
@@ -469,42 +472,43 @@ class Snapshot:
         writer = chunk_ctx.wrap(storage) if chunk_ctx is not None else storage
         # With the nonce, live progress can ride the snapshot's storage.
         watch.attach_storage(storage, background.take_id)
-        # Captured here, inside the take's trace scope; the drain adopts it.
-        take_trace_id = tracing.current_trace_id()
+        # Captured here, inside the take's trace scope and root span; the
+        # drain adopts both, and PendingSnapshot.wait the trace id.
+        background.trace_id = tracing.current_trace_id()
+        take_span = tracing.current_span_id()
 
         async def _drain() -> None:
             background.phase = "storage writes"
             watch.set_phase("write")
             await watch.async_tick(force=True)
             write_stats: Dict[str, Any] = {}
-            drain_t0 = time.monotonic()
-            await execute_write_reqs(
-                write_reqs, writer, budget, rank, stats=write_stats, progress=watch
-            )
-            recorder.add_phase("write", time.monotonic() - drain_t0)
+            with recorder.phase("write"):
+                await execute_write_reqs(
+                    write_reqs, writer, budget, rank, stats=write_stats, progress=watch
+                )
             recorder.note_pipeline(write_stats)
             if chunk_ctx is not None:
                 chunk_ctx.stats.fold_into_churn(churn)
                 recorder.note(churn=churn)
-            writer.ensure_durable()
+            with tracing.span("durable"):
+                writer.ensure_durable()
             # The marker carries the manifest, so it is serialised only
             # now: staging fills in the payload checksums and chunk records.
             background.phase = "commit markers"
             watch.set_phase("commit")
             await watch.async_tick(force=True)
-            commit_t0 = time.monotonic()
-            await _acommit_via_storage(
-                storage, rank, world_size, manifest, background.take_id,
-                base_paths=base_paths, snapshot_path=path,
-                rank_summary=recorder.rank_summary(), kind="async_take", progress=watch,
-            )
-            recorder.add_phase("commit", time.monotonic() - commit_t0)
+            with recorder.phase("commit"):
+                await _acommit_via_storage(
+                    storage, rank, world_size, manifest, background.take_id,
+                    base_paths=base_paths, snapshot_path=path,
+                    rank_summary=recorder.rank_summary(), kind="async_take", progress=watch,
+                )
             watch.finish()
             flight.local_export(recorder)
 
         def _run() -> None:
             try:
-                with tracing.adopt_trace(take_trace_id):
+                with tracing.adopt_trace(background.trace_id, take_span), tracing.span("drain"):
                     asyncio.run(_drain())
             finally:
                 if chunk_ctx is not None:
@@ -641,9 +645,9 @@ class Snapshot:
         rank = coordinator.get_rank()
         storage = self._open_storage()
         try:
-            with goodput_acct.blocked("restore"), tracing.trace_scope("restore"), tracing.span(
-                "Snapshot.restore", path=self.path
-            ):
+            with goodput_acct.blocked("restore"), tracing.trace_scope(
+                "restore", join=True
+            ), tracing.span("Snapshot.restore", path=self.path):
                 self._restore(app_state, coordinator, rank, storage, paths, verify_device)
         finally:
             storage.close()
@@ -662,53 +666,58 @@ class Snapshot:
         verify_jobs: Optional[List[Tuple[str, Entry, Any]]] = [] if verify_device else None
         n_selected = 0
         try:
-            metadata = self._read_metadata(storage)
-            available = self._available_entries(metadata, rank)
-            # The rank's flight record of this restore: the read, consume
-            # and assemble breakdown, written best-effort at the end.
-            recorder = flight.FlightRecorder(kind="restore", path=self.path, rank=rank)
-            tracing.set_identity(rank=rank)
-            watch = liveprog.ProgressPublisher(
-                kind="restore", path=self.path, rank=rank,
-                world_size=coordinator.get_world_size(),
-            )
-            watch.set_phase("restore")
-            telemetry.counter(_metric_names.RESTORES_TOTAL).inc()
-            # Hot-tier attribution: which objects peer RAM served and
-            # which fell back to the durable tier, and which peers were
-            # degraded — the flight report's ``tier`` block, read by the
-            # hot-tier-degraded doctor rule and the ledger. None whenever
-            # the tier is off.
-            from . import hottier as _hottier
+            # Planning: the metadata, this rank's entries, the telemetry
+            # windows and the gathered keys.
+            with tracing.span("restore.plan"):
+                metadata = self._read_metadata(storage)
+                available = self._available_entries(metadata, rank)
+                # The rank's flight record of this restore: the read, consume
+                # and assemble breakdown, written best-effort at the end.
+                recorder = flight.FlightRecorder(kind="restore", path=self.path, rank=rank)
+                tracing.set_identity(rank=rank)
+                watch = liveprog.ProgressPublisher(
+                    kind="restore", path=self.path, rank=rank,
+                    world_size=coordinator.get_world_size(),
+                )
+                watch.set_phase("restore")
+                telemetry.counter(_metric_names.RESTORES_TOTAL).inc()
+                # Hot-tier attribution: which objects peer RAM served and
+                # which fell back to the durable tier, and which peers were
+                # degraded — the flight report's ``tier`` block, read by the
+                # hot-tier-degraded doctor rule and the ledger. None whenever
+                # the tier is off.
+                from . import hottier as _hottier
 
-            tier_token = _hottier.restore_stats_begin()
-            # Read-plane attribution: which objects the read service
-            # served and which fell back to direct backend reads — the
-            # flight report's ``read_plane`` block, read by the
-            # read-plane-degraded doctor rule and the ledger. None
-            # whenever the restore saw no snapserve traffic.
-            from .snapserve import client as _snapserve_client
+                tier_token = _hottier.restore_stats_begin()
+                # Read-plane attribution: which objects the read service
+                # served and which fell back to direct backend reads — the
+                # flight report's ``read_plane`` block, read by the
+                # read-plane-degraded doctor rule and the ledger. None
+                # whenever the restore saw no snapserve traffic.
+                from .snapserve import client as _snapserve_client
 
-            read_plane_token = _snapserve_client.restore_stats_begin()
-            app_state = dict(app_state)
-            rng_key, rng_stateful = _pop_rng_state(app_state)
-            # Every rank joins every per-key barrier, whichever statefuls
-            # it holds, so the ranks stay in step.
-            global_keys = _gather_keys(coordinator, sorted(app_state))
-            budget = get_memory_budget_bytes(coordinator)
-            worlds = (coordinator.get_world_size(), metadata.world_size)
+                read_plane_token = _snapserve_client.restore_stats_begin()
+                app_state = dict(app_state)
+                rng_key, rng_stateful = _pop_rng_state(app_state)
+                # Every rank joins every per-key barrier, whichever statefuls
+                # it holds, so the ranks stay in step.
+                global_keys = _gather_keys(coordinator, sorted(app_state))
+                budget = get_memory_budget_bytes(coordinator)
+                worlds = (coordinator.get_world_size(), metadata.world_size)
             for key in global_keys:
                 if key in app_state:
-                    n_selected += _load_stateful(
-                        key, app_state[key], available, storage, rank, budget, worlds, stats,
-                        verify_jobs, paths, watch,
-                    )
+                    with tracing.span("restore.stateful", key=key):
+                        n_selected += _load_stateful(
+                            key, app_state[key], available, storage, rank, budget, worlds,
+                            stats, verify_jobs, paths, watch,
+                        )
                 coordinator.barrier()
             if rng_stateful is not None:
-                n_selected += _load_stateful(
-                    rng_key, rng_stateful, available, storage, rank, budget, worlds, stats,
-                    verify_jobs, paths, watch,
-                )
+                with tracing.span("restore.stateful", key=rng_key):
+                    n_selected += _load_stateful(
+                        rng_key, rng_stateful, available, storage, rank, budget, worlds, stats,
+                        verify_jobs, paths, watch,
+                    )
             watch.finish()
             tier_summary = _hottier.restore_stats_collect(tier_token)
             if tier_summary is not None:
@@ -719,9 +728,10 @@ class Snapshot:
         finally:
             assemble_s = stats.pop("assemble_s", 0.0)
             profile = _set_restore_report(token, stats)
-        _finish_restore_report(
-            recorder, stats, assemble_s, profile, storage, self.path, rank, coordinator
-        )
+        with tracing.span("restore.report"):
+            _finish_restore_report(
+                recorder, stats, assemble_s, profile, storage, self.path, rank, coordinator
+            )
         if verify_jobs is not None:
             verified, skipped = _verify_restored_fingerprints(verify_jobs)
             logger.info(
@@ -991,6 +1001,8 @@ class _BackgroundTake:
         self.thread: Optional[threading.Thread] = None
         self.error: Optional[BaseException] = None
         self.take_id: Optional[str] = None
+        # The take's trace id, adopted by the drain and by the waits.
+        self.trace_id: Optional[str] = None
         # Where the drain is, for a wait() that times out: a hung storage
         # backend reads differently from a slow commit.
         self.phase = "pending"
@@ -1022,6 +1034,11 @@ class PendingSnapshot:
         self._storage = storage
         self._result: Optional[Snapshot] = None
 
+    @property
+    def trace_id(self) -> Optional[str]:
+        """The take's trace id (its spans, the drain's and the waits')."""
+        return self._background.trace_id
+
     def done(self) -> bool:
         thread = self._background.thread
         return thread is not None and not thread.is_alive()
@@ -1034,7 +1051,9 @@ class PendingSnapshot:
         if self._result is not None:
             return self._result
         # The caller is blocked on the drain: checkpoint time for goodput.
-        with goodput_acct.blocked("drain_wait"):
+        with goodput_acct.blocked("drain_wait"), tracing.adopt_trace(
+            self._background.trace_id
+        ), tracing.span("drain_join"):
             return self._wait(timeout_s)
 
     def _wait(self, timeout_s: float) -> Snapshot:
@@ -1211,21 +1230,23 @@ def _run_reads(
     cuda = [p.region.device for p in plans if p.region.is_cuda]
     device_budget = get_device_restore_budget_bytes(cuda[0] if cuda else None)
     try:
-        asyncio.run(
-            execute_read_reqs(
-                reqs, storage, budget, rank, device_budget_bytes=device_budget, stats=stats,
-                progress=progress,
+        with tracing.span("restore.read"):
+            asyncio.run(
+                execute_read_reqs(
+                    reqs, storage, budget, rank, device_budget_bytes=device_budget, stats=stats,
+                    progress=progress,
+                )
             )
-        )
-        for plan in plans:
-            plan.await_pipeline()
+            for plan in plans:
+                plan.await_pipeline()
     except BaseException:
         for plan in plans:
             plan.settle()
         raise
     assemble_t0 = time.monotonic()
-    for plan in plans:
-        plan.finalize()
+    with tracing.span("restore.assemble"):
+        for plan in plans:
+            plan.finalize()
     stats["assemble_s"] = stats.get("assemble_s", 0.0) + time.monotonic() - assemble_t0
     stats["region_bytes"] = stats.get("region_bytes", 0) + sum(p.region.nbytes for p in plans)
     stats["streamed_bytes"] = stats.get("streamed_bytes", 0) + sum(p.streamed_bytes for p in plans)
@@ -2400,7 +2421,7 @@ def _prepare_take(
     inc = IncrementalStats()
     if base_path is not None or record:
         watch.set_phase("incremental")
-        with recorder.phase("incremental"), tracing.span("Snapshot.incremental", path=path):
+        with recorder.phase("incremental", "Snapshot.incremental", path=path):
             base_paths, inc = apply_incremental(
                 manifest, write_reqs, rank=rank, own_path=path, base_path=base_path,
                 record_fingerprints=record, base_metadata=_reusable_base_metadata(base, base_path),
@@ -2414,7 +2435,7 @@ def _prepare_take(
     stats = chunkstore.ChunkStats()
     if chunks if chunks is not None else chunkstore.chunks_enabled_default():
         watch.set_phase("chunk")
-        with recorder.phase("chunk"), tracing.span("Snapshot.chunkstore", path=path):
+        with recorder.phase("chunk", "Snapshot.chunkstore", path=path):
             chunk_ctx = chunkstore.apply_chunkstore(
                 manifest, write_reqs, rank=rank, own_path=path, base_paths=base_paths,
                 codec_spec=codec, stats=stats,

@@ -35,7 +35,13 @@ other               consume wall the sub-steps above do not account for
                     consume wall
 ==================  ====================================================
 
-Cost: one ``time.monotonic()`` pair per noted sub-step per piece.
+Cost: one ``time.monotonic()`` pair per noted sub-step per piece. While
+tracing is on, each noted sub-step is also a ``consume.<sub-step>`` span
+and each H2D transfer a ``consume.h2d_overlap`` span (as in the JAX
+package; ``telemetry/summarize.py`` folds them), on whatever thread runs
+it, under the trace id and parent that thread carries: recorded from the
+same clock readings with ``tracing.complete``, since these run by the
+thousand on the restore's threads, under the interpreter lock.
 """
 
 import contextvars
@@ -43,6 +49,8 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, Optional, Tuple
+
+from .. import tracing
 
 # Sub-steps inside consume_buffer (they reconcile with the scheduler's
 # consume seconds); the overlap sub-steps happen beside the consume wall.
@@ -181,10 +189,13 @@ def overlap_span(profile: Optional[ConsumeProfile], nbytes: int = 0):
         yield
         return
     profile._overlap_enter()
+    t0 = time.monotonic() if tracing.enabled() else None
     try:
         yield
     finally:
         profile._overlap_exit(nbytes)
+        if t0 is not None:
+            tracing.complete("consume.h2d_overlap", t0, time.monotonic(), bytes=nbytes)
 
 
 @contextmanager
@@ -199,4 +210,7 @@ def substep(profile: Optional[ConsumeProfile], name: str, nbytes: int = 0):
     try:
         yield
     finally:
-        profile.note(name, time.monotonic() - t0, nbytes)
+        t1 = time.monotonic()
+        profile.note(name, t1 - t0, nbytes)
+        if tracing.enabled():
+            tracing.complete(f"consume.{name}", t0, t1, bytes=nbytes)

@@ -349,6 +349,8 @@ def merge_traces(
                 # Flow ids are NOT namespaced — their whole point is to
                 # match across processes.
                 out["id"] = f"{ns}:{out['id']}"
+                if "parent" in out:
+                    out["parent"] = f"{ns}:{out['parent']}"
             merged_events.append(out)
     merged_events.sort(key=lambda e: e.get("ts", 0.0))
 

@@ -57,6 +57,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from .. import tracing
 from . import metrics as _m
 from .metrics import REGISTRY, diff_snapshots, sum_samples
 
@@ -288,7 +289,8 @@ class ProgressPublisher:
                     "utf-8"
                 ),
             )
-            await storage.write(io_req)
+            with tracing.span("progress"):
+                await storage.write(io_req)
         except Exception as e:
             logger.debug("progress object write failed: %r", e)
 

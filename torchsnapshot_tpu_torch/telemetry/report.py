@@ -63,6 +63,7 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional
 
+from .. import tracing
 from ..io_types import IOReq, io_payload
 from . import metrics as _m
 from .metrics import REGISTRY, diff_snapshots, samples_by_label, sum_samples
@@ -151,11 +152,14 @@ class FlightRecorder:
             logger.debug("memory window open failed", exc_info=True)
 
     @contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        """Time a named phase; re-entry accumulates."""
+    def phase(self, name: str, span: Optional[str] = None, **args: Any) -> Iterator[None]:
+        """Time a named phase; re-entry accumulates. The phase is also a
+        tracing span, ``phase.<name>`` unless ``span`` names it, with
+        ``args``."""
         t0 = time.monotonic()
         try:
-            yield
+            with tracing.span(span or f"phase.{name}", **args):
+                yield
         finally:
             self.add_phase(name, time.monotonic() - t0)
 

@@ -41,6 +41,19 @@ causal chain (``telemetry/merge.py`` draws the arrows and computes the
 cross-process critical path). Context generation is independent of
 whether THIS process records events: a tracing-off client still
 propagates ids so a tracing-on server can attribute its spans.
+
+Causal parents: the begin event of every span names, as a top-level
+``parent`` beside its ``id``, the innermost span open in its context
+when it began. Asyncio tasks inherit it with the context; work handed to
+another thread (an executor, a pipeline worker, a drain) keeps it with
+:func:`carry` or ``adopt_trace(trace_id, parent=...)``.
+
+Clock: ``metadata.clock_epoch_s`` is the wall-clock time of ts 0, read
+with the monotonic anchor as one tight pair (:func:`_clock_pair`), so an
+event's wall time is ``clock_epoch_s + ts/1e6`` to within microseconds.
+A Chrome trace of ``torch.profiler`` carries ``baseTimeNanoseconds``
+(the wall time of its ts 0), so the two put onto one timeline as
+``profiler_us = clock_epoch_s*1e6 + ts - baseTimeNanoseconds/1e3``.
 """
 
 import atexit
@@ -53,7 +66,7 @@ import threading
 import time
 import uuid
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 _TRACE_ENV_VAR = "TPUSNAPSHOT_TRACE"
 _TRACE_ROLE_ENV_VAR = "TPUSNAPSHOT_TRACE_ROLE"
@@ -81,6 +94,13 @@ _flow_seq = itertools.count(1)
 _TRACE_CTX: "contextvars.ContextVar[Optional[str]]" = (
     contextvars.ContextVar("tpusnapshot_trace_ctx", default=None)
 )
+# The innermost open span's id in this context (None outside any span, and
+# always while tracing is off): the ``parent`` of the next span to begin.
+_SPAN_CTX: "contextvars.ContextVar[Optional[int]]" = contextvars.ContextVar(
+    "tpusnapshot_span_ctx", default=None
+)
+# Bracketings tried for the monotonic/wall anchor pair.
+_CLOCK_PAIR_READS = 5
 
 
 def set_identity(
@@ -113,11 +133,17 @@ def new_trace_id(kind: str) -> str:
 
 
 @contextmanager
-def trace_scope(kind: str):
+def trace_scope(kind: str, join: bool = False):
     """Stamp a fresh trace id for one take/restore root. Yields the id.
     Nested roots (a restore issued inside another operation) get their
     own id — the innermost root wins, which is what per-operation
-    attribution wants."""
+    attribution wants. ``join=True`` keeps an enclosing scope of the
+    same kind instead: a ``CheckpointManager`` call that opened the
+    operation's scope around the snapshot's own root."""
+    current = _TRACE_CTX.get()
+    if join and current is not None and current.startswith(f"{kind}-"):
+        yield current
+        return
     token = _TRACE_CTX.set(new_trace_id(kind))
     try:
         yield _TRACE_CTX.get()
@@ -125,19 +151,47 @@ def trace_scope(kind: str):
         _TRACE_CTX.reset(token)
 
 
+def current_span_id() -> Optional[int]:
+    """The innermost open span's id in this context (None while tracing
+    is off): capture it where work is handed to another thread and pass
+    it to :func:`adopt_trace` there."""
+    return _SPAN_CTX.get()
+
+
 @contextmanager
-def adopt_trace(trace_id: Optional[str]):
+def adopt_trace(trace_id: Optional[str], parent: Optional[int] = None):
     """Run a region under an INHERITED trace id (a snapserve server
     handling a request that carried context, a hot-tier drain persisting
-    a take's bytes). No-op for None."""
-    if trace_id is None:
+    a take's bytes), its outermost spans the children of span ``parent``.
+    No-op for None."""
+    if trace_id is None and parent is None:
         yield
         return
-    token = _TRACE_CTX.set(trace_id)
+    token = _TRACE_CTX.set(trace_id) if trace_id is not None else None
+    span_token = _SPAN_CTX.set(parent) if parent is not None else None
     try:
         yield
     finally:
-        _TRACE_CTX.reset(token)
+        if span_token is not None:
+            _SPAN_CTX.reset(span_token)
+        if token is not None:
+            _TRACE_CTX.reset(token)
+
+
+def carry(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn``, run under the caller's trace id and innermost span on
+    whatever thread calls it: for work handed to an executor or a
+    pipeline worker, whose threads carry no context. ``fn`` itself when
+    there is nothing to carry."""
+    trace, parent = _TRACE_CTX.get(), _SPAN_CTX.get()
+    if trace is None and parent is None:
+        return fn
+
+    def _carried(*args: Any, **kwargs: Any) -> Any:
+        with adopt_trace(trace, parent):
+            return fn(*args, **kwargs)
+
+    return _carried
 
 
 def _new_flow_id() -> str:
@@ -198,14 +252,28 @@ def flow_end(name: str, flow_id: Optional[str], **args: Any) -> None:
     _flow_event("f", name, flow_id, args)
 
 
+def _clock_pair() -> Tuple[float, float]:
+    """(``time.monotonic()``, ``time.time()``) seconds of one instant: of
+    a few wall reads each bracketed by two monotonic reads, the tightest
+    bracketing, its monotonic midpoint beside its wall read."""
+    reads = []
+    for _ in range(_CLOCK_PAIR_READS):
+        m0 = time.monotonic_ns()
+        wall = time.time_ns()
+        m1 = time.monotonic_ns()
+        reads.append((m1 - m0, (m0 + m1) // 2, wall))
+    _, mono, wall = min(reads)
+    return mono / 1e9, wall / 1e9
+
+
 def enable(path: str) -> None:
     """Start recording spans; ``flush()`` (or process exit) writes them."""
     global _events, _path, _t0, _wall0, _pid_at_enable
+    mono, wall = _clock_pair()
     with _lock:
         _events = []
         _path = path
-        _t0 = time.monotonic()
-        _wall0 = time.time()
+        _t0, _wall0 = mono, wall
         _pid_at_enable = os.getpid()
 
 
@@ -244,7 +312,7 @@ def flush() -> Optional[str]:
             root, ext = os.path.splitext(path)
             path = f"{root}.pid{os.getpid()}{ext or '.json'}"
         payload = {
-            "traceEvents": list(_events),
+            "traceEvents": [e if isinstance(e, dict) else _span_event(e) for e in _events],
             "displayTimeUnit": "ms",
             # Self-describing clock + identity, even for single-rank
             # traces: the merge prerequisite. ``clock_epoch_s`` is the
@@ -279,54 +347,86 @@ def flush() -> Optional[str]:
 
 @contextmanager
 def span(name: str, **args: Any):
-    """Time a region. ``args`` (small JSON-able values) land in the event.
+    """Time a region. ``args`` (small JSON-able values) land in the begin
+    event; the region may add more to the dict it is given (None while
+    tracing is off), which land in the end event.
 
     Emitted as an async begin/end pair with a unique id, so arbitrarily
     overlapping spans (concurrent scheduler IO on one event-loop thread)
-    stay well-formed.
+    stay well-formed. The begin event's ``parent`` is the id of the
+    innermost span open in this context.
+
+    A span is recorded as a tuple and becomes its Chrome-trace event at
+    flush: the restore's pipeline threads run spans by the thousand while
+    holding the interpreter lock, so recording does as little as it can.
     """
-    if _events is None:
-        yield
-        return
-    tid = threading.get_ident() & 0xFFFFFFFF
-    pid = os.getpid()
-    span_id = next(_span_ids)
-    trace = _TRACE_CTX.get()
-    if trace is not None and "trace" not in args:
-        # Causal attribution: every span under a take/restore root (or
-        # an adopted remote/drain context) names its trace.
-        args = dict(args, trace=trace)
-    begin = {
-        "name": name,
-        "cat": "snapshot",
-        "ph": "b",
-        "id": span_id,
-        "ts": (time.monotonic() - _t0) * 1e6,
-        "pid": pid,
-        "tid": tid,
-    }
-    if args:
-        begin["args"] = args
     evs = _events
-    if evs is not None:
-        with _lock:
-            evs.append(begin)
+    if evs is None:
+        yield None
+        return
+    span_id = next(_span_ids)
+    parent = _SPAN_CTX.get()
+    # list.append is atomic: recording takes no lock.
+    evs.append(
+        ("b", name, span_id, time.monotonic(), threading.get_ident(), os.getpid(), parent,
+         args, _TRACE_CTX.get())
+    )
+    token = _SPAN_CTX.set(span_id)
+    end_args: Dict[str, Any] = {}
     try:
-        yield
+        yield end_args
     finally:
-        end = {
-            "name": name,
-            "cat": "snapshot",
-            "ph": "e",
-            "id": span_id,
-            "ts": (time.monotonic() - _t0) * 1e6,
-            "pid": pid,
-            "tid": threading.get_ident() & 0xFFFFFFFF,
-        }
+        try:
+            _SPAN_CTX.reset(token)
+        except ValueError:  # closed from another context than it opened in
+            _SPAN_CTX.set(parent)
         evs = _events
         if evs is not None:
-            with _lock:
-                evs.append(end)
+            evs.append(
+                ("e", name, span_id, time.monotonic(), threading.get_ident(), os.getpid(), end_args)
+            )
+
+
+def complete(name: str, start: float, end: float, **args: Any) -> None:
+    """Record a span that has ended: ``start`` and ``end`` are the
+    ``time.monotonic()`` readings that code timing itself took around it.
+    Its parent is the innermost span open here. For per-piece code on the
+    restore's hot threads, where a ``with span(...)`` costs several times
+    as much; call it only while :func:`enabled`."""
+    evs = _events
+    if evs is None:
+        return
+    span_id = next(_span_ids)
+    tid, pid = threading.get_ident(), os.getpid()
+    evs.append(("b", name, span_id, start, tid, pid, _SPAN_CTX.get(), args, _TRACE_CTX.get()))
+    evs.append(("e", name, span_id, end, tid, pid, None))
+
+
+def _span_event(record: tuple) -> Dict[str, Any]:
+    """The Chrome-trace event of one recorded span begin or end."""
+    ph, name, span_id, t, tid, pid = record[:6]
+    event: Dict[str, Any] = {
+        "name": name,
+        "cat": "snapshot",
+        "ph": ph,
+        "id": span_id,
+        "ts": (t - _t0) * 1e6,
+        "pid": pid,
+        "tid": tid & 0xFFFFFFFF,
+    }
+    if ph == "b":
+        parent, args, trace = record[6:]
+        if parent is not None:
+            event["parent"] = parent
+        if trace is not None and "trace" not in args:
+            # Causal attribution: every span under a take/restore root (or
+            # an adopted remote/drain context) names its trace.
+            args = dict(args, trace=trace)
+    else:
+        args = record[6]
+    if args:
+        event["args"] = args
+    return event
 
 
 def instant(name: str, **args: Any) -> None:
