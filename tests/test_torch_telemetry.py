@@ -27,9 +27,15 @@ def _constants(mod):
     }
 
 
+# Metrics of the port with no counterpart in the JAX package: the bytes
+# the port's memory:// plugin serves as views of its stored objects.
+_PORT_ONLY = {"STORAGE_READ_VIEW_BYTES"}
+
+
 def test_every_metric_name_constant_is_equal():
     jax_names, port_names = _constants(jax_metrics), _constants(port_metrics)
-    assert port_names == jax_names
+    assert set(port_names) - set(jax_names) == _PORT_ONLY
+    assert {k: v for k, v in port_names.items() if k not in _PORT_ONLY} == jax_names
     assert len(port_names) > 60
 
 

@@ -410,8 +410,12 @@ async def execute_read_reqs(
     async def _read(rr: ReadReq, share: int) -> IOReq:
         io_req = IOReq(path=rr.path, byte_range=rr.byte_range)
         t0 = time.monotonic()
-        with tracing.span("read", path=rr.path):
+        with tracing.span("read", path=rr.path) as end:
             await storage.read(io_req)
+            if end is not None:
+                # A view of an object the backend holds (memory://'s
+                # ranged reads), not a payload made for this read.
+                end["view"] = isinstance(io_req.data, memoryview)
         _observe_op(
             ops, "read", time.monotonic() - t0, len(io_payload(io_req)), progress,
             progress_bytes=share,

@@ -305,6 +305,9 @@ REGISTRY = MetricsRegistry()
 
 STORAGE_OP_SECONDS = "tpusnapshot_storage_op_seconds"  # hist {backend,op}
 STORAGE_OP_BYTES = "tpusnapshot_storage_op_payload_bytes"  # hist {backend,op}
+# Bytes of ranged reads served as views of the stored object (memory://
+# only; a whole read hands out the object).
+STORAGE_READ_VIEW_BYTES = "tpusnapshot_storage_read_view_bytes_total"  # counter {backend}
 STORAGE_RETRIES = "tpusnapshot_storage_retries_total"  # counter {op}
 STORAGE_RETRY_BACKOFF = (
     "tpusnapshot_storage_retry_backoff_seconds_total"  # counter {op}
