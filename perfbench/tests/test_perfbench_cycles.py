@@ -1,5 +1,6 @@
-"""Each cell's mix driven through a whole run at a toy size on the CPU, with
-``memory://`` storage, untraced and traced."""
+"""Each one-card cell's mix driven through a whole run at a toy size on the
+CPU, with ``memory://`` storage, untraced and traced (the cells of more than
+one chip: ``test_perfbench_ranks.py``)."""
 
 import math
 import tempfile
@@ -13,7 +14,7 @@ from perfbench.tests import toy
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["untraced", "traced"])
-@pytest.mark.parametrize("cell", toy.CELLS)
+@pytest.mark.parametrize("cell", toy.ONE_CARD)
 def test_cell_runs_and_is_correct(cell, trace, tmp_path):
     result = toy.run(cell, tmp_path, trace=trace)
     assert result["correct"], result["checks"]

@@ -6,8 +6,10 @@ card) with one fault planted: a step that returns its state unchanged; half
 of the batch left out, the mean taken over the rest; a snapshot's or a
 restore's value altered where it is produced, by one element or by two
 pieces of a leaf written at each other's offsets; and the control, the plain
-reference computed in TF32 put in the program's place. One chip: there is no
-exchange between chips to leave out.
+reference computed in TF32 put in the program's place. These are the
+one-card cells, which have no exchange between chips to leave out; the
+faults of a cell laid out a rank per card, that one included, are planted in
+every rank by ``test_perfbench_ranks.py``.
 """
 
 import pytest
@@ -144,7 +146,7 @@ ANSWER_FAULTS = ("altered_answer", "swapped_pieces")
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", toy.CELLS)
+@pytest.mark.parametrize("cell", toy.ONE_CARD)
 def test_broken_path_is_not_correct(cell, fault, monkeypatch, tmp_path):
     FAULTS[fault](monkeypatch, cell)
     result = toy.run(cell, tmp_path, seconds=0.5)

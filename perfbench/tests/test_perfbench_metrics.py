@@ -4,7 +4,8 @@ import importlib
 
 import pytest
 
-from perfbench import roofline, tracer
+from perfbench import harness, program_trace, roofline, tracer
+from perfbench.tests import test_perfbench_program_spans as program_spans
 from perfbench.tests.toy import SPEC
 
 
@@ -45,6 +46,7 @@ def context(**kw):
     events = [
         device("void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*)", "kernel", 100.0, 2 * FWD * 1e6),
         device("gemm", "kernel", 1000.0, 3000.0),
+        device("ncclDevKernel_AllGather_RING_LL(ncclDevComm*, unsigned long, ncclWork*)", "kernel", 4000.0, 400.0),
         device("Memcpy DtoH (Device -> Pinned)", "gpu_memcpy", 5000.0, 1000.0, nbytes=20e6),
         device("Memcpy HtoD (Pinned -> Device)", "gpu_memcpy", 7000.0, 500.0, nbytes=10e6),
         device("outside the window", "kernel", 20000.0, 100.0),
@@ -58,7 +60,8 @@ def context(**kw):
                     {"name": "stage", "t0": 5.0, "t1": 6.0, "args": {"trace": "b"}},
                     {"name": "write", "t0": 0.0, "t1": 9.0, "args": {"trace": "b"}}],
                 restore_reports=[{"substeps": {"pool_wait": {"seconds": 3.0}}}, {"substeps": {}}],
-                device_events=events, annotations=notes)
+                device_events=events, annotations=notes,
+                ranks=[{"save_stall_s": 0.6}, {"save_stall_s": 0.9}, {"save_stall_s": None}])
     base.update(kw)
     return tracer.Context(**base)
 
@@ -74,7 +77,11 @@ EXPECTED = {
     "pool_wait_s": 1.5,
     "d2h_GBps": 20.0,
     "h2d_GBps": 20.0,
-    "device_idle": 100.0 * (1 - (2 * FWD * 1e6 + 3000 + 1000 + 500) / 10000.0),
+    "device_idle": 100.0 * (1 - (2 * FWD * 1e6 + 3000 + 400 + 1000 + 500) / 10000.0),
+    "save_stall_max_s": 0.9,  # the slowest rank's; a rank without a reading is passed over
+    "collective_s": 0.0004 / 4,  # one NCCL kernel of 0.4 ms over the profiled cycle's 4 steps
+    # The program's own spans: read from a traced run's two files.
+    **program_spans.EXPECTED,
 }
 
 
@@ -83,9 +90,14 @@ def test_every_benchmark_metric_is_covered():
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
-def test_reader_on_recorded_events(name):
+def test_reader_on_recorded_events(name, tmp_path, monkeypatch):
+    if name in program_spans.EXPECTED:
+        monkeypatch.setattr(harness, "OUT_DIR", tmp_path)
+        ctx = program_trace.context_from_files(*program_spans.write_traces(tmp_path))
+    else:
+        ctx = context()
     reader = importlib.import_module(f"perfbench.metrics.{name}")
-    assert reader.read(context()) == pytest.approx(EXPECTED[name], rel=1e-9)
+    assert reader.read(ctx) == pytest.approx(EXPECTED[name], rel=1e-9)
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
@@ -97,7 +109,7 @@ def test_reader_with_nothing_to_read_returns_none(name):
 def test_breakdown_and_busy():
     ctx = context()
     busy, window = tracer.busy_and_window(ctx)
-    assert window == pytest.approx(0.01) and busy == pytest.approx((2 * FWD * 1e6 + 4500) / 1e6)
+    assert window == pytest.approx(0.01) and busy == pytest.approx((2 * FWD * 1e6 + 4900) / 1e6)
     out = tracer.breakdown(ctx)
     assert out["device_ops"][0][0] == "gemm" and len(out["idle_gaps"]) <= 10
     # The longest gap (7.5 ms to 10 ms) lies inside the restore annotation.

@@ -62,6 +62,21 @@ def test_cell_resolves_by_name(cell):
     assert set(config_entry["reduced"]) == set(resolved["config"]["reduced"])
 
 
+def test_cells_of_four_chips():
+    """A cell of four chips takes a rank per card: its mix names a layout,
+    and a one-chip cell's names none. At most a quarter of the cells, and
+    always one, take four chips."""
+    four = [w for w in SPEC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4)
+    for w in SPEC["workloads"]:
+        mix = harness.resolve(SPEC, w["name"])["traffic"]
+        assert ("layout" in mix) == (w["chips"] > 1), w["name"]
+    bad = json.loads(json.dumps(SPEC))
+    bad["workloads"][0]["chips"] = 4  # a one-card mix on four chips
+    with pytest.raises(ValueError):
+        harness.resolve(bad, bad["workloads"][0]["name"])
+
+
 def test_unknown_names_fail_loudly():
     with pytest.raises(KeyError):
         harness.resolve(SPEC, "no.such_cell")
@@ -78,6 +93,10 @@ def test_unknown_names_fail_loudly():
         cycles.validate(dict(mix, storage="s3"))
     with pytest.raises(ValueError):
         cycles.validate(dict(mix, call=["stage"]))
+    with pytest.raises(ValueError):
+        cycles.validate(dict(mix, layout="no/such"))
+    with pytest.raises(ValueError):
+        cycles.validate(dict(mix, limits={"loss_gap": "tight"}))
     bad = json.loads(json.dumps(SPEC))
     bad["per_layer"].append(dict(bad["per_layer"][0], name="no_such_metric", workloads=[CELLS[0]]))
     with pytest.raises(ModuleNotFoundError):

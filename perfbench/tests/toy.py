@@ -8,6 +8,11 @@ from perfbench import harness
 
 SPEC = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
+# Cells of one chip run in the test's process; the others a rank per
+# process over gloo (``rank_entry.py``), in a world of TOY_WORLD.
+ONE_CARD = [w["name"] for w in SPEC["workloads"] if w["chips"] == 1]
+RANKED = [w["name"] for w in SPEC["workloads"] if w["chips"] > 1]
+TOY_WORLD = 2
 
 TOY = {
     "transformer": dict(vocab_size=97, n_embd=64, n_head=4, n_layer=2, n_positions=32,
@@ -21,6 +26,8 @@ def resolved(cell: str, steps_per_cycle: int = 3) -> dict:
     """The cell with its configuration cut to a toy size and short cycles."""
     r = harness.resolve(SPEC, cell)
     r["config"].update(TOY[r["config"]["family"]])
+    if r["cell"]["chips"] > 1:
+        r["cell"] = dict(r["cell"], chips=TOY_WORLD)
     r["traffic"] = dict(r["traffic"], steps_per_cycle=min(r["traffic"]["steps_per_cycle"], steps_per_cycle))
     return r
 

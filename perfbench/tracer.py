@@ -8,7 +8,9 @@
 - the program's spans: ``torchsnapshot_tpu_torch.tracing`` over the window
   (``stage``, ``write``, ``read``, ``consume`` with their take's trace id);
 - the program's counters: each restore's ``_last_restore_report``;
-- the benchmark's host-clock spans (``cycles.Recorder``).
+- the benchmark's host-clock spans (``cycles.Recorder``);
+- with a rank per card, each rank's summary of its window (rank 0 alone
+  profiles).
 """
 
 import json
@@ -93,6 +95,9 @@ class Context:
     restore_reports: List[Any] = field(default_factory=list)
     device_events: List[Dict[str, Any]] = field(default_factory=list)
     annotations: List[Dict[str, Any]] = field(default_factory=list)
+    # With a rank per card: every rank's summary, gathered to rank 0 after
+    # the window (``harness.run_cell``), in rank order.
+    ranks: List[Dict[str, Any]] = field(default_factory=list)
 
     def named(self, name: str) -> List[Dict[str, Any]]:
         return [s for s in self.spans if s["name"] == name]
